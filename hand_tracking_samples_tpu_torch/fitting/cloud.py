@@ -1,0 +1,189 @@
+"""Point-cloud <-> articulated-model correspondence and fitting rows
+(include/physmodel.h:127-193, 486-496), batched over tracks.
+
+The port's counterpart of hand_tracking_samples_tpu.fitting.cloud, cut to
+the dynamics frame: the reference-shaped correspondence
+(`closest_planes`, `convex_hit_check`, `cloud_constraint_rows`; the kernel
+path packs the same rows with ops/cloud_rows.py) and the boundary-plane
+chamber (`containing_plane`, `cloud_chamber_rows`, `rows_to_single_block`).
+FitError is a later slice.  Points are fixed-budget (T, N, 3) tensors with a
+validity mask (T, N).
+"""
+from __future__ import annotations
+
+import torch
+
+from ..maths.pose import pose_apply, pose_inverse
+from ..maths.quat import cross, qconj, qrot, safenormalize
+from ..physics.constraints import constrain_under_plane
+from ..physics.solver import LinearRows
+
+
+def _hull_dots(pose, model, points):
+    """dot(plane, (local point, 1)) for all (track, body, point, plane):
+    (T, B, N, P)."""
+    pos = pose[..., :3]                                    # (T, B, 3)
+    q = pose[..., 3:7]
+    local = qrot(qconj(q)[:, :, None, :],
+                 points[:, None, :, :] - pos[:, :, None, :])  # (T, B, N, 3)
+    pl = model.planes                                      # (B, P, 4)
+    return (local[..., 0:1] * pl[None, :, None, :, 0]
+            + local[..., 1:2] * pl[None, :, None, :, 1]
+            + local[..., 2:3] * pl[None, :, None, :, 2]
+            + pl[None, :, None, :, 3])
+
+
+def closest_planes(pose, model, points):
+    """For each point: (winning body (T, N), winning world plane (T, N, 4),
+    value (T, N)); sphere candidates first, then hull most-above planes, the
+    first minimum wins (physmodel.h:127-150)."""
+    B = model.planes.shape[0]
+    pos = pose[..., :3]
+    q = pose[..., 3:7]
+    d = points[:, :, None, :] - pos[:, None, :, :]         # (T, N, B, 3)
+    n = safenormalize(d)
+    w = -(pos[:, None] * n).sum(-1) - model.radius_inner
+    sphere_planes = torch.cat([n, w[..., None]], dim=-1)
+    sphere_vals = (n * points[:, :, None, :]).sum(-1) + w  # (T, N, B)
+    dots = _hull_dots(pose, model, points)                 # (T, B, N, P)
+    pidx = torch.argmax(dots, dim=-1)                      # (T, B, N)
+    hull_vals = torch.gather(dots, -1, pidx[..., None])[..., 0]
+    best_local = model.planes[torch.arange(B, device=pose.device)[:, None],
+                              pidx]                        # (T, B, N, 4)
+    wn = qrot(q[:, :, None, :], best_local[..., :3])
+    ww = best_local[..., 3] - (pos[:, :, None, :] * wn).sum(-1)
+    hull_planes = torch.cat([wn, ww[..., None]], -1).transpose(1, 2)
+    vals = torch.cat([sphere_vals, hull_vals.transpose(1, 2)], dim=2)
+    planes = torch.cat([sphere_planes, hull_planes], dim=2)  # (T, N, 2B, 4)
+    k = torch.argmin(vals, dim=2)
+    body = torch.where(k >= B, k - B, k)
+    plane = torch.gather(planes, 2, k[..., None, None].expand(
+        k.shape + (1, 4)))[:, :, 0]
+    val = torch.gather(vals, 2, k[..., None])[..., 0]
+    return body, plane, val
+
+
+def convex_hit_check(planes, plane_mask, p, v0, v1):
+    """geometric.h:275-302 ConvexHitCheck (slab method) of the segment
+    v0->v1 against the hull `planes` (..., P, 4) of a body at pose p
+    (..., 7).  Returns (hit, impact_world)."""
+    inv = pose_inverse(p)
+    l0 = pose_apply(inv, v0)
+    l1 = pose_apply(inv, v1)
+    nrm = planes[..., :3]
+    d0 = (l0[..., None, :] * nrm).sum(-1) + planes[..., 3]
+    d1 = (l1[..., None, :] * nrm).sum(-1) + planes[..., 3]
+    neg = torch.full((), -1.0, device=planes.device)
+    d0 = torch.where(plane_mask, d0, neg)
+    d1 = torch.where(plane_mask, d1, neg)
+    miss = ((d0 >= 0) & (d1 >= 0)).any(-1)
+    denom = d0 - d1
+    one = torch.ones((), device=planes.device)
+    zero = torch.zeros((), device=planes.device)
+    t = torch.where(denom != 0, d0 / torch.where(denom == 0, one, denom),
+                    zero)
+    t_enter = torch.where((d0 >= 0) & (d1 < 0), t, zero).amax(-1)
+    t_exit = torch.where((d0 <= 0) & (d1 > 0), t, one).amin(-1)
+    hit = (~miss) & (t_enter <= t_exit)
+    impact_l = l0 + (l1 - l0) * t_enter[..., None]
+    return hit, pose_apply(p, impact_l)
+
+
+def cloud_constraint_rows(pose, model, points, point_mask,
+                          origin=(0.0, 0.0, 0.0)) -> LinearRows:
+    """CloudConstraints (physmodel.h:163-181), directed: one row per point
+    slot, (T, N) fields.  Force limits are the caller's."""
+    T, N = points.shape[0], points.shape[1]
+    dev = points.device
+    o = torch.tensor(origin, dtype=torch.float32, device=dev)
+    body, plane, val = closest_planes(pose, model, points)
+    tt = torch.arange(T, device=dev)[:, None]
+    bpose = pose[tt, body]                                 # (T, N, 7)
+    attach_w = points - plane[..., :3] * val[..., None]
+    n_default = plane[..., :3]
+    dirn = (points - o) / torch.linalg.vector_norm(points - o, dim=-1,
+                                                    keepdim=True)
+    front = ((points - o) * n_default).sum(-1) > 0
+    hit, impact = convex_hit_check(
+        model.planes[body], model.plane_mask[body], bpose,
+        o.expand(T, N, 3), points)
+    use_ray = front & hit
+    w1 = torch.where(use_ray[..., None], impact, attach_w)
+    n = torch.where(use_ray[..., None], dirn, n_default)
+    targetdist = ((w1 - points) * n).sum(-1)
+    r1 = w1 - bpose[..., :3]
+    z = torch.zeros((T, N), device=dev)
+    return LinearRows(
+        b0=torch.full((T, N), -1, dtype=torch.int64, device=dev), b1=body,
+        normal=n, r0=points, r1=r1, targetdist=targetdist,
+        targetspeednobias=z, fmin=torch.full_like(z, -1.0),
+        fmax=torch.full_like(z, 1.0),
+        friction_master=torch.zeros((T, N), dtype=torch.int64, device=dev),
+        friction_coef=z, active=point_mask)
+
+
+def containing_plane(points, point_mask, outdir, origin, viewdir):
+    """physmodel.h:183-193, per track: the plane through the origin that
+    contains the cloud on the `outdir` side.  The reference's order-dependent
+    scan is an angular extreme search, computed as an argmax of the angle
+    around the tangent axis.  points (T, N, 3) -> planes (T, 4)."""
+    dev = points.device
+    f = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)
+    outdir, origin, viewdir = f(outdir), f(origin), f(viewdir)
+    best0 = viewdir - outdir + origin
+    tangent = cross(best0, outdir)
+    b0 = best0 - origin
+    th = tangent / torch.clamp(torch.linalg.vector_norm(tangent), min=1e-20)
+    u = b0 - th * (b0 * th).sum()
+    u = u / torch.clamp(torch.linalg.vector_norm(u), min=1e-20)
+    wv = cross(th, u)
+    dp = points - origin
+    ang = torch.atan2((dp * wv).sum(-1), (dp * u).sum(-1))  # (T, N)
+    ang = torch.where(point_mask, ang, torch.full((), -torch.inf,
+                                                   device=dev))
+    take_pt = (point_mask & (ang > 0)).any(-1)              # (T,)
+    i = torch.argmax(ang, dim=-1)
+    pick = torch.gather(points, 1, i[:, None, None].expand(-1, 1, 3))[:, 0]
+    best = torch.where(take_pt[:, None], pick, best0)
+    n = cross(tangent.expand_as(best), best)
+    n = n / torch.clamp(torch.linalg.vector_norm(n, dim=-1, keepdim=True),
+                        min=1e-20)
+    return torch.cat([n, -(n * origin).sum(-1, keepdim=True)], dim=-1)
+
+
+def cloud_chamber_rows(pose, model, points, point_mask, outdirs, origin,
+                       viewdir, maxforce: float, active) -> LinearRows:
+    """physmodel.h:486-496: for each outdir a containing plane and one
+    under-plane row per body.  pose (T, B, 7); active (T,) bool.  Returns
+    rows with (T, D*B) fields, direction-major, body-minor."""
+    T, B = pose.shape[0], pose.shape[1]
+    D = len(outdirs)
+    planes = torch.stack([containing_plane(points, point_mask, od, origin,
+                                           viewdir) for od in outdirs],
+                         dim=1)                            # (T, D, 4)
+    V = model.verts.shape[1]
+    rows = constrain_under_plane(
+        pose[:, None].expand(T, D, B, 7),
+        model.verts.expand(T, D, B, V, 3),
+        model.vert_mask.expand(T, D, B, V),
+        planes[:, :, None].expand(T, D, B, 4), maxforce,
+        active=active[:, None, None].expand(T, D, B))
+    body = torch.arange(B, device=pose.device).expand(T, D, B)
+    rows = rows._replace(b1=body)
+    return LinearRows(*[x.reshape((T, D * B) + x.shape[3:]) for x in rows])
+
+
+def rows_to_single_block(rows: LinearRows, layout):
+    """Reshape structurally single-body rows (b0 = world) whose emission
+    order is slot-major / body-minor into a SingleBodyLinear (T, C, B)
+    block.  layout = (C, B)."""
+    from ..physics.colored import SingleBodyLinear
+    C, B = layout
+
+    def rs(x):
+        return x.reshape((x.shape[0], C, B) + x.shape[2:])
+    return SingleBodyLinear(
+        normal=rs(rows.normal), r1=rs(rows.r1),
+        targetdist=rs(rows.targetdist),
+        targetspeednobias=rs(rows.targetspeednobias),
+        fmin=rs(rows.fmin), fmax=rs(rows.fmax), active=rs(rows.active))

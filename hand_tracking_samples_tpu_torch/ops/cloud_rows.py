@@ -1,0 +1,243 @@
+"""Cloud correspondence, row geometry and slot pack: kernel 2 of the kernel
+path (the 12-channel solve-prep variant).
+
+Per point (physmodel.h:137-181): the winner over 17 sphere and 17 hull
+most-above candidates by the reference's strict-< scan order; the slab-clip
+ConvexHitCheck of the camera ray against the winner's hull; the
+CloudConstraint row; the solve prep of pgs_kernel._prep_singles
+(J1 = r1 x n, K1 = Iinv_w J1, dinv, tsm = td/dt).  Per body: the stable rank
+of its active points (slot order = point order, pgs_kernel.py:16-17 of the
+JAX package), uniform thinning to `slots` with the force scale compensated
+by count/slots.
+
+`cloud_rows_solve` is the wrapper: on CUDA tensors it launches
+csrc/cloud_rows.cu (which replaces the Pallas kernel
+hand_tracking_samples_tpu/ops/cloud_rows.py:34 with solve_ch=True, launched
+through _cloud_rows_call_b at :387), on CPU tensors it runs
+`cloud_rows_solve_plain`.  Output: packed (T, 12, BP*slots) channels
+[n(3), J1(3), K1(3), dinv, tsm, scale], body-major slot blocks, and the
+per-body active counts (T, BP).
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import kernels
+
+BP = 24          # body slots (17 padded)
+CH = 12
+
+
+def _kernel_inputs_ph(pose, model, origin, scale_b, dt):
+    """The kernel's per-track inputs (JAX ops/cloud_rows.py:485), batched:
+    pose (T, B, 7), origin (3,) floats, scale_b (B,) tensor, dt float.
+    Returns planes_t (T, 5P, B) [world n.x | n.y | n.z | d | d at origin],
+    body_sc (T, 16, BP) [pos(3), radius_inner, scale, massinv, iinv(9), 0]
+    and misc (T, 8) [origin(3), dt, 0...]."""
+    from ..physics.pgs_kernel import _batched_world_iinv
+    T, B = pose.shape[0], pose.shape[1]
+    dev = pose.device
+    pl_c = model.planes                                    # (B, P, 4)
+    nlx = pl_c[..., 0].T                                   # (P, B)
+    nly = pl_c[..., 1].T
+    nlz = pl_c[..., 2].T
+    dl = pl_c[..., 3].T
+    mask_t = model.plane_mask.T                            # (P, B)
+    q = pose[..., 3:7]
+    qx, qy, qz, qw = (q[..., 0][:, None], q[..., 1][:, None],
+                      q[..., 2][:, None], q[..., 3][:, None])  # (T, 1, B)
+    tx = 2.0 * (qy * nlz - qz * nly)
+    ty = 2.0 * (qz * nlx - qx * nlz)
+    tz = 2.0 * (qx * nly - qy * nlx)
+    wnx = nlx + qw * tx + (qy * tz - qz * ty)
+    wny = nly + qw * ty + (qz * tx - qx * tz)
+    wnz = nlz + qw * tz + (qx * ty - qy * tx)
+    px = pose[..., 0][:, None]
+    py = pose[..., 1][:, None]
+    pz = pose[..., 2][:, None]
+    zero = torch.zeros((), device=dev)
+    wnx = torch.where(mask_t, wnx, zero)
+    wny = torch.where(mask_t, wny, zero)
+    wnz = torch.where(mask_t, wnz, zero)
+    ww = dl - (px * wnx + py * wny + pz * wnz)
+    ww = torch.where(mask_t, ww, torch.full((), -1e9, device=dev))
+    d0 = (origin[0] * wnx + origin[1] * wny + origin[2] * wnz) + ww
+    d0 = torch.where(mask_t, d0, torch.full((), -1.0, device=dev))
+    planes_t = torch.cat([wnx, wny, wnz, ww, d0], dim=1)   # (T, 5P, B)
+    iinv = _batched_world_iinv(q, model.tensorinv_massless, model.massinv)
+    rows = [pose[..., 0], pose[..., 1], pose[..., 2],
+            model.radius_inner.expand(T, B), scale_b.expand(T, B),
+            model.massinv.expand(T, B)]
+    rows += [iinv[..., i, j] for i in range(3) for j in range(3)]
+    rows.append(torch.zeros((T, B), device=dev))
+    body_sc = torch.zeros((T, 16, BP), device=dev)
+    body_sc[:, :, :B] = torch.stack(rows, dim=1)
+    misc = torch.zeros((T, 8), device=dev)
+    misc[:, 0] = origin[0]
+    misc[:, 1] = origin[1]
+    misc[:, 2] = origin[2]
+    misc[:, 3] = dt
+    return planes_t.contiguous(), body_sc, misc
+
+
+def point_rows_plain(pts_h, planes_t, body_sc, misc, slots: int):
+    """The kernel's per-point half in plain PyTorch, the same float32
+    operations in the same order.  pts_h (T, 8, N) [x, y, z, 1, mask, ...].
+    Returns vals (T, 12, N) (the packed channels of every point), col
+    (T, N) (the slot column a point is packed into, -1 where it is not),
+    the per-body counts (T, BP) int32, and what the hull-normal blend reads:
+    the winning body's plane values dw (T, P, N) and use_hull (T, N)."""
+    T, _, N = pts_h.shape
+    P, B = planes_t.shape[1] // 5, planes_t.shape[2]
+    C = slots
+    dev = pts_h.device
+    px, py, pz = pts_h[:, 0:1], pts_h[:, 1:2], pts_h[:, 2:3]   # (T, 1, N)
+    mask = pts_h[:, 4]                                         # (T, N)
+    body = body_sc[:, :, :B]                                   # (T, 16, B)
+    hv = []
+    for b in range(B):
+        c = lambda k: planes_t[:, k * P:(k + 1) * P, b:b + 1]  # (T, P, 1)
+        hv.append((c(0) * px + c(1) * py + c(2) * pz + c(3)).amax(dim=1))
+    hvals = torch.stack(hv, dim=1)                             # (T, B, N)
+    posx, posy, posz = (body[:, k][..., None] for k in range(3))
+    dxb = px - posx                                            # (T, B, N)
+    dyb = py - posy
+    dzb = pz - posz
+    dist = torch.sqrt(dxb * dxb + dyb * dyb + dzb * dzb)
+    svals = dist - body[:, 3][..., None]
+    vals2 = torch.cat([svals, hvals], dim=1)                   # (T, 2B, N)
+    best = vals2.amin(dim=1)                                   # (T, N)
+    iota = torch.arange(2 * B, device=dev)[None, :, None]
+    widx = torch.where(vals2 == best[:, None], iota,
+                       torch.full_like(iota, 2 * B)).amin(dim=1)
+    use_hull = widx >= B
+    wb = torch.where(use_hull, widx - B, widx)                 # (T, N)
+
+    def pick(x):                                               # (T, B, N)
+        return torch.gather(x, 1, wb[:, None]).squeeze(1)
+
+    def pick_b(k):                                             # body row k
+        return torch.gather(body[:, k], 1, wb)
+    inv = 1.0 / torch.clamp(pick(dist), min=1e-20)
+    wnx = pick(dxb) * inv
+    wny = pick(dyb) * inv
+    wnz = pick(dzb) * inv
+
+    sel = torch.gather(planes_t, 2, wb[:, None].expand(T, 5 * P, N))
+    pnx, pny, pnz = sel[:, 0:P], sel[:, P:2 * P], sel[:, 2 * P:3 * P]
+    dw = pnx * px + pny * py + pnz * pz + sel[:, 3 * P:4 * P]  # (T, P, N)
+    dw0 = sel[:, 4 * P:5 * P]
+    ohm = (dw == dw.amax(dim=1, keepdim=True)).to(torch.float32)
+    cnt = torch.clamp(ohm.sum(1), min=1.0)
+    wnx = torch.where(use_hull, (ohm * pnx).sum(1) / cnt, wnx)
+    wny = torch.where(use_hull, (ohm * pny).sum(1) / cnt, wny)
+    wnz = torch.where(use_hull, (ohm * pnz).sum(1) / cnt, wnz)
+
+    one = torch.ones((), device=dev)
+    zero = torch.zeros((), device=dev)
+    miss = ((dw0 >= 0) & (dw >= 0)).any(dim=1)
+    denom = dw0 - dw
+    t = torch.where(denom != 0,
+                    dw0 / torch.where(denom == 0, one, denom), zero)
+    te = torch.where((dw0 >= 0) & (dw < 0), t, zero).amax(dim=1)
+    tx = torch.where((dw0 <= 0) & (dw > 0), t, one).amin(dim=1)
+    hit = (~miss) & (te <= tx)
+    ox, oy, oz = misc[:, 0:1], misc[:, 1:2], misc[:, 2:3]
+    px, py, pz = px[:, 0], py[:, 0], pz[:, 0]                  # (T, N)
+    rx, ry, rz = px - ox, py - oy, pz - oz
+    rinv = 1.0 / torch.clamp(torch.sqrt(rx * rx + ry * ry + rz * rz),
+                             min=1e-20)
+    front = (rx * wnx + ry * wny + rz * wnz) > 0
+    use_ray = front & hit
+    w1x = torch.where(use_ray, ox + rx * te, px - wnx * best)
+    w1y = torch.where(use_ray, oy + ry * te, py - wny * best)
+    w1z = torch.where(use_ray, oz + rz * te, pz - wnz * best)
+    nxf = torch.where(use_ray, rx * rinv, wnx)
+    nyf = torch.where(use_ray, ry * rinv, wny)
+    nzf = torch.where(use_ray, rz * rinv, wnz)
+    td = (w1x - px) * nxf + (w1y - py) * nyf + (w1z - pz) * nzf
+    active = mask > 0
+
+    r1x = w1x - pick_b(0)
+    r1y = w1y - pick_b(1)
+    r1z = w1z - pick_b(2)
+    Jx = r1y * nzf - r1z * nyf
+    Jy = r1z * nxf - r1x * nzf
+    Jz = r1x * nyf - r1y * nxf
+    iw = [pick_b(6 + k) for k in range(9)]
+    Kx = iw[0] * Jx + iw[1] * Jy + iw[2] * Jz
+    Ky = iw[3] * Jx + iw[4] * Jy + iw[5] * Jz
+    Kz = iw[6] * Jx + iw[7] * Jy + iw[8] * Jz
+    ccx = Ky * r1z - Kz * r1y
+    ccy = Kz * r1x - Kx * r1z
+    ccz = Kx * r1y - Ky * r1x
+    den = pick_b(5) + (ccx * nxf + ccy * nyf + ccz * nzf)
+    dinv = torch.where(active & (den != 0),
+                       1.0 / torch.where(den == 0, one, den), zero)
+
+    oh = (wb[:, None] == torch.arange(BP, device=dev)[None, :, None]) \
+        & active[:, None]                                      # (T, BP, N)
+    cum = torch.cumsum(oh.to(torch.int32), dim=2)
+    counts = cum[:, :, -1]                                     # (T, BP)
+    rank = torch.gather(cum, 1, wb[:, None]).squeeze(1) - 1    # (T, N)
+    cntp = torch.gather(counts, 1, wb)
+    rankf = rank.to(torch.float32)
+    cntf = cntp.to(torch.float32)
+    thin = cntf > C
+    safe = torch.clamp(cntf, min=1.0)
+    nr = torch.where(thin, torch.floor(rankf * C / safe), rankf)
+    prev = torch.floor((rankf - 1.0) * C / safe)
+    keep = (~thin) | (rankf == 0) | (nr > prev)
+    comp = torch.where(thin, cntf * (1.0 / C), one)
+    wsc = pick_b(4) * comp
+    tsm = td / misc[:, 3:4]
+    vals = torch.stack([nxf, nyf, nzf, Jx, Jy, Jz, Kx, Ky, Kz, dinv, tsm,
+                        wsc], dim=1)                           # (T, 12, N)
+
+    ok = active & keep & (nr < C)
+    col = torch.where(ok, wb * C + nr.to(torch.int64),
+                      torch.full_like(wb, -1))
+    return vals, col, counts, dw, use_hull
+
+
+def cloud_rows_solve_plain(pts_h, planes_t, body_sc, misc, slots: int):
+    """Plain PyTorch version of the kernel (see point_rows_plain)."""
+    vals, col, counts, _, _ = point_rows_plain(pts_h, planes_t, body_sc,
+                                               misc, slots)
+    T = pts_h.shape[0]
+    packed = torch.zeros((T, CH, BP * slots), device=pts_h.device)
+    tt, nn = torch.nonzero(col >= 0, as_tuple=True)
+    packed[tt, :, col[tt, nn]] = vals[tt, :, nn]
+    return packed, counts.to(torch.float32)
+
+
+@kernels.wrapper("cloud_rows_solve")
+def cloud_rows_solve(pts_h, planes_t, body_sc, misc, slots: int):
+    """Kernel wrapper: see the module docstring for the layouts."""
+    if pts_h.device.type == "cpu":
+        return cloud_rows_solve_plain(pts_h, planes_t, body_sc, misc, slots)
+    args = [x.contiguous() for x in (pts_h, planes_t, body_sc, misc)]
+    dev = kernels.require_cuda(*args)
+    T, _, N = pts_h.shape
+    P, B = planes_t.shape[1] // 5, planes_t.shape[2]
+    if N % 32 or N > 2048 or 5 * P * B > 8192 or B > BP:
+        raise ValueError(f"cloud_rows kernel takes N % 32 == 0, N <= 2048, "
+                         f"5*P*B <= 8192: N={N} P={P} B={B}")
+    packed = torch.empty((T, CH, BP * slots), device=dev)
+    counts = torch.empty((T, BP), device=dev)
+    err = kernels.library().hts_cloud_rows_solve(
+        *[a.data_ptr() for a in args], packed.data_ptr(), counts.data_ptr(),
+        T, N, P, B, slots, BP, kernels.stream_ptr(dev))
+    kernels.check(err, "cloud_rows_solve")
+    cloud_rows_solve.launches += 1
+    return packed, counts
+
+
+def cloud_rows_solve_ph(pose, model, pts_h, origin, scale_per_body,
+                        slots: int, dt):
+    """The 12-channel solve-prep pack (JAX ops/cloud_rows.py:644), batched
+    over the tracks of pose (T, B, 7) and pts_h (T, 8, N)."""
+    planes_t, body_sc, misc = _kernel_inputs_ph(pose, model, origin,
+                                                scale_per_body, dt)
+    return cloud_rows_solve(pts_h.contiguous(), planes_t, body_sc, misc,
+                            slots)

@@ -1,0 +1,54 @@
+"""Constraint-row factories on batched tensors (third_party/physics.h:328-350).
+
+The port's counterpart of hand_tracking_samples_tpu.physics.constraints, cut
+to the single-body rows of the dynamics frame (the boundary-plane chamber).
+The pair factories of the kernel path live in physics/row_planes.py.
+Every argument broadcasts over leading batch dims.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..maths.pose import pose_apply, pose_quat
+from ..maths.quat import qconj, qrot
+from .solver import LinearRows
+
+
+def constrain_along_direction_world(p0_world, pose1, p1, axisw, minforce,
+                                    maxforce, active):
+    """physics.h:328 with b0 = world: 1 row per batch element.  p0_world is
+    the world anchor, p1 the body-local anchor on the body at pose1."""
+    w1 = pose_apply(pose1, p1)
+    targetdist = ((w1 - p0_world) * axisw).sum(-1)
+    r1 = qrot(pose_quat(pose1), p1)
+    z = torch.zeros_like(targetdist)
+    shape = targetdist.shape
+    lo, hi = min(minforce, maxforce), max(minforce, maxforce)
+    return LinearRows(
+        b0=torch.full(shape, -1, dtype=torch.int64, device=z.device),
+        b1=torch.zeros(shape, dtype=torch.int64, device=z.device),
+        normal=axisw, r0=p0_world, r1=r1, targetdist=targetdist,
+        targetspeednobias=z, fmin=torch.full_like(z, lo),
+        fmax=torch.full_like(z, hi),
+        friction_master=torch.zeros(shape, dtype=torch.int64,
+                                    device=z.device),
+        friction_coef=z,
+        active=torch.as_tensor(active, device=z.device).expand(shape))
+
+
+def constrain_under_plane(pose_b, verts, vert_mask, plane, maxforce,
+                          active=True):
+    """physics.h:347-350: keep the body's support point under `plane`.
+    pose_b (..., 7); verts (..., V, 3) local (COM-frame) collision verts;
+    vert_mask (..., V); plane (..., 4).  b1 of the rows is left 0: the
+    caller knows the body of each row."""
+    q = pose_quat(pose_b)
+    dloc = qrot(qconj(q), plane[..., :3])
+    dots = (verts * dloc[..., None, :]).sum(-1)        # (..., V)
+    dots = torch.where(vert_mask, dots, torch.full_like(dots, -torch.inf))
+    idx = torch.argmax(dots, dim=-1)                   # first maximum
+    p1 = torch.gather(verts, -2, idx[..., None, None].expand(
+        idx.shape + (1, 3)))[..., 0, :]
+    return constrain_along_direction_world(
+        plane[..., :3] * -plane[..., 3:4], pose_b, p1, -plane[..., :3],
+        0.0, maxforce, active)

@@ -1,0 +1,468 @@
+"""The whole 16+4-sweep PGS solve: kernel 4 of the kernel path, with its
+host-side plan (reference semantics: third_party/physics.h:543-587).
+
+The solve is the colored solver's schedule (physics/colored.py) run inside
+one kernel:
+  * single-body rows (cloud, chamber; b0 = world) in CS slots of (14, BP)
+    channels [n(3) J1(3) K1(3) dinv tsmain tspost fmin*dt fmax*dt]: slot c
+    of every body solves at once (same-body rows keep their slot order,
+    cross-body rows commute);
+  * pair rows (joints, contacts) in units of U consecutive rows on one
+    static body pair, precedence-colored into groups of body-disjoint units;
+    friction rows read the accumulated impulse of their contact's normal
+    row;
+  * the last iterations_post sweeps use the bias-free target speeds.
+
+`pgs_solve` is the wrapper: on CUDA tensors it launches csrc/pgs_kernel.cu
+(which replaces the Pallas kernel hand_tracking_samples_tpu/physics/
+pgs_kernel.py:185, launched by _pallas_solve at :479), on CPU tensors it runs
+`pgs_solve_plain`, the same sweeps in plain PyTorch.  Layouts, tracks
+leading (the port has no lane blocks, so no track padding):
+  mom0     (T, 6, BP)           momenta, rows [lin xyz, ang xyz] x bodies
+  mi       (BP,)                inverse masses (0 on padded bodies)
+  singles  (T, CS, 14, BP)
+  lin rows (T, n_phases, 23, W) per class, phase p = group*U + u
+  ang rows (T, n_phases, 14, W)
+  out      (T, 2, 6, BP)        momenta after the main and the post sweeps
+Both versions stop the slot loop at the last slot with an active row.  That
+is exact only if every single-body row class has fmin <= 0 <= fmax (an
+inactive slot then clamps to a zero impulse); `check_slot_bound` asserts it
+on the host before a solve.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .. import kernels
+from ..maths.quat import cross, qrot
+from .colored import precedence_coloring
+
+BP = 24          # body slots (17 padded; at most 32, one warp)
+MAX_CLASSES = 4
+MAX_GROUPS = 256
+
+
+def _batched_world_iinv(q, tinv, massinv):
+    """_world_iinv (physics.h:518) elementwise over (..., B): R tinv R^T
+    massinv with the JAX package's term order.  q (..., B, 4), tinv (B, 3, 3),
+    massinv (B,) -> (..., B, 3, 3)."""
+    eye = torch.eye(3, dtype=q.dtype, device=q.device)
+    R = torch.stack([qrot(q, eye[i].expand(q.shape[:-1] + (3,)))
+                     for i in range(3)], dim=-1)
+    A = torch.stack([torch.stack(
+        [sum(R[..., i, k] * tinv[..., k, j] for k in range(3))
+         for j in range(3)], dim=-1) for i in range(3)], dim=-2)
+    W = torch.stack([torch.stack(
+        [sum(A[..., i, k] * R[..., j, k] for k in range(3))
+         for j in range(3)], dim=-1) for i in range(3)], dim=-2)
+    return W * massinv[..., None, None]
+
+
+def _mv33(M, v):
+    """(..., 3, 3) @ (..., 3) as explicit products, in the JAX order."""
+    return torch.stack(
+        [M[..., i, 0] * v[..., 0] + M[..., i, 1] * v[..., 1]
+         + M[..., i, 2] * v[..., 2] for i in range(3)], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# host plan
+# ---------------------------------------------------------------------------
+
+class PairClassPlan(NamedTuple):
+    """Static schedule of one pair-row class."""
+    kind: str              # "lin" | "ang"
+    U: int                 # rows per unit (consecutive, same body pair)
+    W: int                 # units per group, padded
+    n_groups: int
+    n_phases: int          # n_groups * U
+    row_index: np.ndarray  # (n_phases * W,) into the class's rows, -1 pad
+    unit_b0: np.ndarray    # (n_groups, W) int32 body ids, -1 world / pad
+    unit_b1: np.ndarray
+    friction: bool
+    b0: np.ndarray         # (R,) static per-row body ids (prep gathers)
+    b1: np.ndarray
+
+
+class SolvePlan(NamedTuple):
+    key: str
+    CS: int
+    lin_classes: tuple
+    ang_classes: tuple
+    massinv: np.ndarray    # (B,) host copy
+    bp: int = BP
+
+
+def build_pair_class(kind: str, unit_b0, unit_b1, U: int,
+                     friction: bool = False,
+                     mode: str = "exact") -> PairClassPlan:
+    """Schedule a class of n_units*U rows (row i*U+u belongs to unit i) by
+    precedence coloring over units: the concatenated phases are an exact
+    reordering of the sequential sweep (conflicting units keep order) and
+    every group's units touch disjoint bodies."""
+    if mode != "exact":
+        raise NotImplementedError(
+            f"contacts_mode={mode!r}: the port's solve runs the exact "
+            "schedule only (the jacobi schedule is a later slice)")
+    unit_b0 = np.asarray(unit_b0, np.int32)
+    unit_b1 = np.asarray(unit_b1, np.int32)
+    groups = precedence_coloring(list(zip(unit_b0, unit_b1)))
+    G = len(groups)
+    W = max(8, -(-max(len(g) for g in groups) // 8) * 8)
+    row_index = np.full((G, U, W), -1, np.int32)
+    ub0 = np.full((G, W), -1, np.int32)
+    ub1 = np.full((G, W), -1, np.int32)
+    for g, us in enumerate(groups):
+        for w, u in enumerate(us):
+            ub0[g, w] = unit_b0[u]
+            ub1[g, w] = unit_b1[u]
+            for uu in range(U):
+                row_index[g, uu, w] = u * U + uu
+    return PairClassPlan(kind=kind, U=U, W=W, n_groups=G, n_phases=G * U,
+                         row_index=row_index.reshape(-1), unit_b0=ub0,
+                         unit_b1=ub1, friction=friction,
+                         b0=np.repeat(unit_b0, U), b1=np.repeat(unit_b1, U))
+
+
+_PLANS: dict = {}
+
+
+def _model_digest(model_np) -> str:
+    h = hashlib.sha1()
+    for k in ("massinv", "collide_pairs", "joint_rbi0", "joint_rbi1"):
+        h.update(np.asarray(model_np[k]).tobytes())
+    return h.hexdigest()[:12]
+
+
+def build_dynamics_plan(model_np: dict, CS: int, contacts_mode: str = "exact",
+                        use_contacts: bool = True) -> SolvePlan:
+    """Solve plan of the main-fit FitPointCloud row structure:
+    [CS single-body slots][joint nailed U=3][contacts U=3*CONTACT_POINTS,
+    friction]; angular: [joint ranges U=6] (physmodel.h:321-334,
+    physics.h:451-489)."""
+    from .contacts import CONTACT_POINTS
+    key = f"dyn:{_model_digest(model_np)}:{CS}:{contacts_mode}:{use_contacts}"
+    if key in _PLANS:
+        return _PLANS[key]
+    j0 = np.asarray(model_np["joint_rbi0"])
+    j1 = np.asarray(model_np["joint_rbi1"])
+    lin = [build_pair_class("lin", j0, j1, 3)]
+    if use_contacts:
+        pairs = np.asarray(model_np["collide_pairs"])
+        lin.append(build_pair_class("lin", pairs[:, 0], pairs[:, 1],
+                                    3 * CONTACT_POINTS, friction=True,
+                                    mode=contacts_mode))
+    ang = [build_pair_class("ang", j0, j1, 6)]
+    plan = SolvePlan(key=key, CS=CS, lin_classes=tuple(lin),
+                     ang_classes=tuple(ang),
+                     massinv=np.asarray(model_np["massinv"], np.float32))
+    _PLANS[key] = plan
+    return plan
+
+
+def check_slot_bound(*limits):
+    """The last-active-slot bound is exact only when every single-body row
+    class keeps fmin <= 0 <= fmax.  limits: (fmin, fmax) pairs of the
+    classes' static force limits (scalars or arrays)."""
+    for fmin, fmax in limits:
+        fmin = np.asarray(fmin, np.float64)
+        fmax = np.asarray(fmax, np.float64)
+        if not ((fmin <= 0).all() and (fmax >= 0).all()):
+            raise ValueError(
+                "the slot bound needs fmin <= 0 <= fmax for every "
+                f"single-body row class: got fmin {fmin.max()} fmax "
+                f"{fmax.min()}")
+
+
+# ---------------------------------------------------------------------------
+# prep (batched over tracks, T-leading)
+# ---------------------------------------------------------------------------
+
+def _to_planes(channels, bp: int = BP):
+    """channels: list of (T, C, B) tensors -> (T, C, nch, bp)."""
+    x = torch.stack(channels, dim=2)                    # (T, C, nch, B)
+    B = x.shape[-1]
+    if B < bp:
+        x = torch.nn.functional.pad(x, (0, bp - B))
+    return x.contiguous()
+
+
+def _prep_singles(sb, iinv, massinv, dt, bp: int = BP):
+    """sb: SingleBodyLinear with (T, C, B, ...) fields -> (T, C, 14, bp)."""
+    act = sb.active.to(torch.float32)
+    n = sb.normal * act[..., None]
+    r1 = sb.r1
+    J1 = cross(r1, n)
+    K1 = _mv33(iinv[:, None], J1)
+    cc = cross(K1, r1)
+    denom = massinv + (cc[..., 0] * n[..., 0] + cc[..., 1] * n[..., 1]
+                       + cc[..., 2] * n[..., 2])
+    ok = sb.active & (denom != 0)
+    dinv = torch.where(ok, 1.0 / torch.where(ok, denom,
+                                             torch.ones_like(denom)),
+                       torch.zeros_like(denom))
+    tsm = sb.targetdist / dt * act
+    tsp = torch.minimum(tsm, sb.targetspeednobias * act)
+    chans = [n[..., 0], n[..., 1], n[..., 2],
+             J1[..., 0], J1[..., 1], J1[..., 2],
+             K1[..., 0], K1[..., 1], K1[..., 2],
+             dinv, tsm, tsp, sb.fmin * dt * act, sb.fmax * dt * act]
+    return _to_planes(chans, bp)
+
+
+# ---------------------------------------------------------------------------
+# the solve: plain PyTorch version
+# ---------------------------------------------------------------------------
+
+def _slot_count(singles) -> int:
+    """Last slot (over all tracks) with an active row, plus one."""
+    if singles is None or singles.shape[1] == 0:
+        return 0
+    act = (singles[:, :, 9].abs().sum(dim=(0, 2)) > 0).cpu().numpy()
+    nz = np.nonzero(act)[0]
+    return int(nz[-1]) + 1 if len(nz) else 0
+
+
+def pgs_solve_plain(plan: SolvePlan, iterations: int, iterations_post: int,
+                    mom0, mi, singles, lin_rows, ang_rows):
+    """The kernel's sweeps in plain PyTorch, same operation order."""
+    T, _, bp = mom0.shape
+    dev = mom0.device
+    mom = mom0.clone()
+    CS = plan.CS
+    isum_s = torch.zeros((T, CS, bp), device=dev)
+    lin_isum = [torch.zeros((T, c.n_phases, c.W), device=dev)
+                for c in plan.lin_classes]
+    ang_torq = [torch.zeros((T, c.n_phases, c.W), device=dev)
+                for c in plan.ang_classes]
+    nact = _slot_count(singles)
+    gact = []
+    for cls, rows in zip(plan.lin_classes, lin_rows):
+        if cls.friction:
+            a = rows[:, :, 15].abs().sum(dim=(0, 2)).reshape(
+                cls.n_groups, cls.U).sum(1) > 0
+            gact.append(a.cpu().numpy())
+        else:
+            gact.append(None)
+    units = []
+    for cls in plan.lin_classes + plan.ang_classes:
+        per = []
+        for g in range(cls.n_groups):
+            b0 = cls.unit_b0[g]
+            b1 = cls.unit_b1[g]
+            w0 = np.nonzero(b0 >= 0)[0]
+            w1 = np.nonzero(b1 >= 0)[0]
+            per.append(tuple(torch.as_tensor(x, dtype=torch.int64, device=dev)
+                             for x in (w0, b0[w0], w1, b1[w1])))
+        units.append(per)
+    mi0_full = mi                                           # (bp,)
+
+    def gather(cols, w_idx, b_idx, W, scale):
+        out = torch.zeros((T, 3, W), device=dev)
+        if len(w_idx):
+            v = mom[:, cols][:, :, b_idx]
+            out[:, :, w_idx] = v * mi0_full[b_idx] if scale else v
+        return out
+
+    def single_slot(c, post):
+        blk = singles[:, c]                                 # (T, 14, bp)
+        lin = mom[:, 0:3]
+        ang = mom[:, 3:6]
+        n = blk[:, 0:3]
+        ln = lin * n
+        ak = ang * blk[:, 6:9]
+        vn = (ln[:, 0] + ln[:, 1] + ln[:, 2]) * mi + ak[:, 0] + ak[:, 1] \
+            + ak[:, 2]
+        ts = blk[:, 11 if post else 10]
+        imp = (-ts - vn) * blk[:, 9]
+        isc = isum_s[:, c]
+        imp = torch.minimum(imp, blk[:, 13] - isc)
+        imp = torch.maximum(imp, blk[:, 12] - isc)
+        isum_s[:, c] = isc + imp
+        mom[:, 0:3] = lin + n * imp[:, None]
+        mom[:, 3:6] = ang + blk[:, 3:6] * imp[:, None]
+
+    def lin_group(cls, rows, isum, unit, g, post):
+        U, W = cls.U, cls.W
+        w0, b0, w1, b1 = unit
+        l0m = gather(slice(0, 3), w0, b0, W, True)
+        a0 = gather(slice(3, 6), w0, b0, W, False)
+        l1m = gather(slice(0, 3), w1, b1, W, True)
+        a1 = gather(slice(3, 6), w1, b1, W, False)
+        sv = None
+        for u in range(U):
+            p = g * U + u
+            blk = rows[:, p]                                # (T, 23, W)
+            n = blk[:, 0:3]
+            J0, J1 = blk[:, 3:6], blk[:, 6:9]
+            K0, K1 = blk[:, 9:12], blk[:, 12:15]
+            vn3 = (l1m - l0m) * n + a1 * K1 - a0 * K0
+            vn = vn3[:, 0] + vn3[:, 1] + vn3[:, 2]
+            imp = (-blk[:, 17 if post else 16] - vn) * blk[:, 15]
+            isc = isum[:, p]
+            if cls.friction and u % 3 != 0:
+                mst = isum[:, g * U + (u // 3) * 3]
+            else:
+                mst = isc
+            hi = blk[:, 19] + blk[:, 20] * mst
+            lo = blk[:, 18] - blk[:, 20] * mst
+            imp = torch.minimum(imp, hi - isc)
+            imp = torch.maximum(imp, lo - isc)
+            isum[:, p] = isc + imp
+            imp3 = imp[:, None]
+            dl = n * imp3
+            da0 = J0 * imp3
+            da1 = J1 * imp3
+            svu = torch.cat([dl, da0, da1], dim=1)
+            sv = svu if sv is None else sv + svu
+            if u + 1 < U:
+                l0m = l0m - blk[:, 21:22] * dl
+                l1m = l1m + blk[:, 22:23] * dl
+                a0 = a0 - da0
+                a1 = a1 + da1
+        if len(w0):
+            mom[:, 0:3, b0] = mom[:, 0:3, b0] - sv[:, 0:3][:, :, w0]
+            mom[:, 3:6, b0] = mom[:, 3:6, b0] - sv[:, 3:6][:, :, w0]
+        if len(w1):
+            mom[:, 0:3, b1] = mom[:, 0:3, b1] + sv[:, 0:3][:, :, w1]
+            mom[:, 3:6, b1] = mom[:, 3:6, b1] + sv[:, 6:9][:, :, w1]
+
+    def ang_group(cls, rows, torq, unit, g, post):
+        U, W = cls.U, cls.W
+        w0, b0, w1, b1 = unit
+        a0 = gather(slice(3, 6), w0, b0, W, False)
+        a1 = gather(slice(3, 6), w1, b1, W, False)
+        sv = None
+        for u in range(U):
+            p = g * U + u
+            blk = rows[:, p]                                # (T, 14, W)
+            axis = blk[:, 0:3]
+            cur3 = a1 * blk[:, 6:9] - a0 * blk[:, 3:6]
+            cur = cur3[:, 0] + cur3[:, 1] + cur3[:, 2]
+            dtq = (blk[:, 11 if post else 10] - cur) * blk[:, 9]
+            tq = torq[:, p]
+            dtq = torch.minimum(dtq, blk[:, 13] - tq)
+            dtq = torch.maximum(dtq, blk[:, 12] - tq)
+            torq[:, p] = tq + dtq
+            da = axis * dtq[:, None]
+            sv = da if sv is None else sv + da
+            if u + 1 < U:
+                a0 = a0 - da
+                a1 = a1 + da
+        if len(w0):
+            mom[:, 3:6, b0] = mom[:, 3:6, b0] - sv[:, :, w0]
+        if len(w1):
+            mom[:, 3:6, b1] = mom[:, 3:6, b1] + sv[:, :, w1]
+
+    nl = len(plan.lin_classes)
+    out0 = mom.clone()
+    for sweep in range(iterations + iterations_post):
+        post = sweep >= iterations
+        if sweep == iterations:
+            out0 = mom.clone()
+        for c in range(nact):
+            single_slot(c, post)
+        for k, (cls, rows, isum) in enumerate(zip(plan.lin_classes,
+                                                  lin_rows, lin_isum)):
+            for g in range(cls.n_groups):
+                if gact[k] is not None and not gact[k][g]:
+                    continue
+                lin_group(cls, rows, isum, units[k][g], g, post)
+        for k, (cls, rows, torq) in enumerate(zip(plan.ang_classes,
+                                                  ang_rows, ang_torq)):
+            for g in range(cls.n_groups):
+                ang_group(cls, rows, torq, units[nl + k][g], g, post)
+    if iterations_post == 0:
+        out0 = mom.clone()
+    return torch.stack([out0, mom], dim=1)
+
+
+# ---------------------------------------------------------------------------
+# the solve: kernel wrapper
+# ---------------------------------------------------------------------------
+
+class _Class(ctypes.Structure):
+    _fields_ = [("rows", ctypes.c_void_p), ("ub0", ctypes.c_void_p),
+                ("ub1", ctypes.c_void_p), ("U", ctypes.c_int),
+                ("W", ctypes.c_int), ("n_groups", ctypes.c_int),
+                ("friction", ctypes.c_int)]
+
+
+class _Args(ctypes.Structure):
+    _fields_ = [("mom0", ctypes.c_void_p), ("mi", ctypes.c_void_p),
+                ("singles", ctypes.c_void_p), ("out", ctypes.c_void_p),
+                ("scratch", ctypes.c_void_p), ("T", ctypes.c_int),
+                ("CS", ctypes.c_int), ("BP", ctypes.c_int),
+                ("iters", ctypes.c_int), ("iters_post", ctypes.c_int),
+                ("n_lin", ctypes.c_int), ("n_ang", ctypes.c_int),
+                ("scratch_per_track", ctypes.c_int),
+                ("lin", _Class * MAX_CLASSES), ("ang", _Class * MAX_CLASSES)]
+
+
+_UNIT_IDS: dict = {}
+
+
+def _unit_ids(plan, device):
+    key = (plan.key, str(device))
+    if key not in _UNIT_IDS:
+        _UNIT_IDS[key] = [
+            tuple(torch.as_tensor(np.ascontiguousarray(x), dtype=torch.int32,
+                                  device=device)
+                  for x in (c.unit_b0, c.unit_b1))
+            for c in plan.lin_classes + plan.ang_classes]
+    return _UNIT_IDS[key]
+
+
+@kernels.wrapper("pgs_solve")
+def pgs_solve(plan: SolvePlan, iterations: int, iterations_post: int, mom0,
+              mi, singles, lin_rows, ang_rows):
+    """Kernel wrapper: see the module docstring for the layouts."""
+    if mom0.device.type == "cpu":
+        return pgs_solve_plain(plan, iterations, iterations_post, mom0, mi,
+                               singles, lin_rows, ang_rows)
+    T, _, bp = mom0.shape
+    if bp > 32 or len(plan.lin_classes) > MAX_CLASSES \
+            or len(plan.ang_classes) > MAX_CLASSES:
+        raise ValueError("pgs kernel: at most 32 body slots and 4 classes "
+                         "of each kind")
+    for c in plan.lin_classes + plan.ang_classes:
+        if c.W > 32 or c.n_groups > MAX_GROUPS:
+            raise ValueError(f"pgs kernel: class W={c.W} > 32 or "
+                             f"{c.n_groups} groups > {MAX_GROUPS}")
+    mom0, mi = mom0.contiguous(), mi.contiguous()
+    lin_rows = [r.contiguous() for r in lin_rows]
+    ang_rows = [r.contiguous() for r in ang_rows]
+    singles = singles.contiguous() if plan.CS else None
+    dev = kernels.require_cuda(mom0, mi, *lin_rows, *ang_rows,
+                               *([singles] if plan.CS else []))
+    spt = plan.CS * bp + sum(c.n_phases * c.W for c in plan.lin_classes
+                             + plan.ang_classes)
+    out = torch.empty((T, 2, 6, bp), device=dev)
+    scratch = torch.empty((T, max(spt, 1)), device=dev)
+    ids = _unit_ids(plan, dev)
+    a = _Args()
+    a.mom0, a.mi, a.out, a.scratch = (mom0.data_ptr(), mi.data_ptr(),
+                                      out.data_ptr(), scratch.data_ptr())
+    a.singles = singles.data_ptr() if plan.CS else None
+    a.T, a.CS, a.BP = T, plan.CS, bp
+    a.iters, a.iters_post = iterations, iterations_post
+    a.n_lin, a.n_ang = len(plan.lin_classes), len(plan.ang_classes)
+    a.scratch_per_track = spt
+    nl = len(plan.lin_classes)
+    for k, (c, r) in enumerate(zip(plan.lin_classes, lin_rows)):
+        a.lin[k] = _Class(r.data_ptr(), ids[k][0].data_ptr(),
+                          ids[k][1].data_ptr(), c.U, c.W, c.n_groups,
+                          int(c.friction))
+    for k, (c, r) in enumerate(zip(plan.ang_classes, ang_rows)):
+        a.ang[k] = _Class(r.data_ptr(), ids[nl + k][0].data_ptr(),
+                          ids[nl + k][1].data_ptr(), c.U, c.W, c.n_groups, 0)
+    err = kernels.library().hts_pgs_solve(ctypes.byref(a),
+                                          kernels.stream_ptr(dev))
+    kernels.check(err, "pgs_solve")
+    pgs_solve.launches += 1
+    return out
