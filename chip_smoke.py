@@ -20,8 +20,27 @@ Phases, each printing one line with its elapsed seconds:
      last frame's shapes beside its plain version's time and its bound; the
      timed kernel and plain outputs are held to each other under phase 3's
      tolerances, so every kernel is also checked at the main path's shapes
+  6. the CNN frame's kernels against their plain versions at T=4: the
+     unpacked-rows and vals variants of the cloud-rows kernel, and the PGS
+     kernel on a multistep plan and on the unibody plan; and the card forms
+     of the contracted arithmetic (maths/fma.py) against its CPU forms
+  7. the CNN frame (segmentation, net, FitError, reset with UnibodyFit,
+     MultiStepSim, then the dynamics pass) at T=512 for 8 frames on the
+     port's fake_depth renders of bank[30:38], with the trained net
+     (DEFAULT_CNNB): a quarter of the tracks (every 4th) start from
+     initial_state, so the reset fires and the unibody kernel launches; the
+     rest start at bank[30].  Each group's per-frame joint error is held to
+     CNN_BAND_MM; two tracks (one of each kind) re-run through the plain
+     versions on the CPU must agree to 1e-4 m; every kernel and both new
+     PGS plans must have launched
+  8. the CNN frame's timing, its device-time split, and the new kernels
+     and plans timed at its T=512 shapes, each held to its plain version
+     again under phase 6's tolerances
 
-The line before the last is the kernels' JSON record; the last line is
+Each phase drives its path with the launch counts set to 0 just before it
+and reads them just after.  The line before the last is the kernels' JSON
+record (launches: the dynamics path's for the first four kernels, the CNN
+frame's for the rest); the last line is
 {"ok": true, "device": {...}}.  Exits non-zero, printing no result, when a
 phase fails, when there is no CUDA device, or when run outside the
 repository.  --json PATH writes every measured number to PATH.
@@ -49,6 +68,15 @@ TRACKS, FRAMES = 512, 30  # the main path: bench.py's track count, dyn30
 # frames, and the 30-frame mean.
 ODD_BAND_MM = dict(before=4.0, peak=60.0, last5=4.0, mean=12.0)
 PORT, JAXPKG = "hand_tracking_samples_tpu_torch", "hand_tracking_samples_tpu"
+CNN_TRACKS, CNN_FRAMES = 512, 8   # the CNN frame: T=512, bank[30:38]
+CNN_CPU_FRAMES = 2                # frames of its CPU plain-version reference
+# The CNN frame's per-frame joint error against the animbank (a track's
+# mean over its joints, the largest over the group's tracks), in mm: tracks
+# started on the hand (gt) and tracks started from initial_state (reset;
+# their first frame is the reset itself).  Set from the measured curve
+# (PERF.md): gt 0.39-3.15, reset 18.72 on frame 0 and 4.64 on frame 7 on an
+# H100.
+CNN_BAND_MM = dict(gt=6.0, reset_first=30.0, reset_last=8.0)
 KERNELS = {   # name: (source, the TPU kernel it replaces)
     "cloud_from_depth": (f"{PORT}/csrc/cloud_kernel.cu",
                          f"{JAXPKG}/ops/cloud_kernel.py:26"),
@@ -58,7 +86,16 @@ KERNELS = {   # name: (source, the TPU kernel it replaces)
                        f"{JAXPKG}/physics/contact_kernel.py:46"),
     "pgs_solve": (f"{PORT}/csrc/pgs_kernel.cu",
                   f"{JAXPKG}/physics/pgs_kernel.py:185"),
+    "cloud_rows_unpacked": (f"{PORT}/csrc/cloud_rows.cu",
+                            f"{JAXPKG}/ops/cloud_rows.py:34"),
+    "cloud_vals": (f"{PORT}/csrc/cloud_rows.cu",
+                   f"{JAXPKG}/ops/cloud_rows.py:34"),
 }
+FIRST = ("cloud_from_depth", "cloud_rows_solve", "contact_fields",
+         "pgs_solve")            # the dynamics path's kernels (phases 3-5)
+# the PGS kernel's plans that the CNN frame adds: row name -> plan kind
+PLANS = {"pgs_solve[multistep]": "ms", "pgs_solve[unibody]": "uni"}
+NEW = ("cloud_rows_unpacked", "cloud_vals") + tuple(PLANS)
 
 
 class PhaseError(RuntimeError):
@@ -115,7 +152,11 @@ class Smoke:
         from hand_tracking_samples_tpu_torch.data.synth import fake_depth
         self.fake = fake_depth(torch.tensor(self.bank[30:60], device=self.dev),
                                self.model, self.cam, chunk=8)
-        self.results = {k: {} for k in KERNELS}
+        self.results = {k: {} for k in (*KERNELS, *PLANS)}
+        self.cnn_cfg = TrackerConfig(cnn_every_frame=True, cnn_every_k=1,
+                                     solver="kernel", use_pallas=True,
+                                     point_budget=2048,
+                                     cloud_rows_per_body=128)
 
     # ---- inputs -----------------------------------------------------------
     def depth_frame(self, f, T):
@@ -200,7 +241,8 @@ class Smoke:
         from hand_tracking_samples_tpu_torch.ops.cloud_kernel import (
             cloud_from_depth_planes, cloud_from_depth_planes_plain)
         from hand_tracking_samples_tpu_torch.ops.cloud_rows import (
-            cloud_rows_solve, cloud_rows_solve_plain)
+            cloud_rows_solve, cloud_rows_solve_plain, cloud_rows_unpacked,
+            cloud_rows_unpacked_plain, cloud_vals_k, cloud_vals_plain)
         from hand_tracking_samples_tpu_torch.physics.contact_kernel import (
             contact_fields_plain, contact_fields_raw)
         from hand_tracking_samples_tpu_torch.physics.pgs_kernel import (
@@ -210,7 +252,13 @@ class Smoke:
                     cloud_rows_solve=(cloud_rows_solve,
                                       cloud_rows_solve_plain),
                     contact_fields=(contact_fields_raw, contact_fields_plain),
-                    pgs_solve=(pgs_solve, pgs_solve_plain))
+                    pgs_solve=(pgs_solve, pgs_solve_plain),
+                    cloud_rows_unpacked=(cloud_rows_unpacked,
+                                         cloud_rows_unpacked_plain),
+                    cloud_vals=(cloud_vals_k,
+                                lambda pts, pl, body, misc:
+                                cloud_vals_plain(pts, pl, body)),
+                    **{k: (pgs_solve, pgs_solve_plain) for k in PLANS})
 
     # ---- kernel against plain: phases 3 and 5 ------------------------------
     def hold(self, name, k, p, P=None):
@@ -245,6 +293,36 @@ class Smoke:
             err = (k - p).abs().max().item()
             return err, (f"contacts {err:.3g} ({int(pa.sum())} active "
                          f"rows)")
+        if name == "cloud_vals":
+            # equal winners, values < 1e-6 (the same fused multiply-adds
+            # on both sides: bit-identical expected)
+            check(torch.equal(k[:, 1], p[:, 1]), "vals: winners differ")
+            err = (k - p).abs().max().item()
+            check(err < 1e-6, f"vals differ: {err}")
+            return err, f"vals {err:.3g} ({k.shape[2]} points a track)"
+        if name == "cloud_rows_unpacked":
+            # every row field < 1e-6 of its channel's scale
+            scale = p.abs().amax(dim=(0, 2)).clamp(min=1.0)
+            rel = ((k - p).abs().amax(dim=(0, 2)) / scale).max().item()
+            err = (k - p).abs().max().item()
+            check(rel < 1e-6, f"unpacked rows differ: {rel}")
+            return err, (f"unibody rows {err:.3g} "
+                         f"({int((p[:, 7] > 0.5).sum())} active)")
+        if name == "pgs_solve[unibody]":
+            # the free body's motion: positions < 1e-5 m, quats < 1e-5
+            from hand_tracking_samples_tpu_torch.tracker.runtime import (
+                unibody_pose)
+            x, body = P
+            dt = self.params.deltaT
+            sk = unibody_pose(x, k, body, self.model, dt)
+            sp = unibody_pose(x, p, body, self.model, dt)
+            perr = (sk.pose[..., :3] - sp.pose[..., :3]).abs().max().item()
+            qerr = quat_err(sk.pose[..., 3:], sp.pose[..., 3:])
+            check(perr < 1e-5 and qerr < 1e-5,
+                  f"unibody pgs differs: {perr} {qerr}")
+            err = (k - p).abs().max().item()
+            return err, (f"unibody pgs momenta {err:.3g}, pos {perr:.3g} m, "
+                         f"quat {qerr:.3g}")
         # PGS on identical planes: positions < 1e-5 m, quats < 1e-5
         from hand_tracking_samples_tpu_torch.physics.fused_fit import integrate
         sk = integrate(k, P, self.model.np, self.params.deltaT)
@@ -263,7 +341,8 @@ class Smoke:
         inp = self.kernel_inputs(st, self.depth_frame(3, T))
         fns = self.pairs_of()
         lines = []
-        for name, (kfn, pfn) in fns.items():
+        for name in FIRST:
+            kfn, pfn = fns[name]
             err, note = self.hold(name, kfn(*inp[name]), pfn(*inp[name]),
                                   inp["P"])
             self.results[name]["max_abs_err_t4"] = err
@@ -319,11 +398,11 @@ class Smoke:
         hist_box = []
         kernels.reset_counts()
         st, hist = self.run(self.init_state(T), F, T, keep=keep)
-        counts = kernels.counts()
+        counts = {k: n for k, n in kernels.counts().items() if k in FIRST}
         torch.cuda.synchronize()
         for name, n in counts.items():
             self.results[name]["launches"] = n
-        check(all(n > 0 for n in counts.values()),
+        check(all(counts[n] > 0 for n in FIRST),
               f"a kernel did not launch on the main path: {counts}")
         dmax = torch.stack([h[0] for h in hist]).cpu().numpy()
         dmin = torch.stack([h[1] for h in hist]).cpu().numpy()
@@ -418,7 +497,8 @@ class Smoke:
         inp = self.kernel_inputs(self.final_state, self.depth_frame(F - 1, T))
         fns = self.pairs_of()
         parts = []
-        for name, (kfn, pfn) in fns.items():
+        for name in FIRST:
+            kfn, pfn = fns[name]
             args = inp[name]
             ms, k = self.event_ms(kfn, args, warm=2, reps=10)
             plain_ms, p = self.event_ms(pfn, args, warm=1, reps=1)
@@ -435,30 +515,36 @@ class Smoke:
         return (f"T={T}: {fps:.1f} tracked frames/s{busy}; "
                 + "; ".join(parts))
 
-    def profile(self, T, frames):
+    def profile(self, T, frames, run=None, state=None):
         """Device time and kernel launches per frame, from torch.profiler
-        over `frames` frames (a measurement only: a profiler that records
-        nothing is reported, not fatal)."""
+        over `frames` frames of `run` (default the dynamics frame; a
+        measurement only: a profiler that records nothing is reported, not
+        fatal)."""
         torch = self.torch
+        run = run or self.run
         try:
             from torch.profiler import ProfilerActivity, profile
-            st, _ = self.run(self.init_state(T), 1, T)
+            st, _ = run(self.init_state(T) if state is None else state, 1, T)
             torch.cuda.synchronize()
+            t0 = time.perf_counter()
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as p:
-                self.run(st, frames, T)
+                run(st, frames, T)
                 torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
             dev = [e for e in p.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA]
             def us(e):
                 return getattr(e, "self_device_time_total",
                                getattr(e, "self_cuda_time_total", 0))
             ours = ("cloud_from_depth_kernel", "cloud_rows_solve_kernel",
-                    "contact_fields_kernel", "pgs_kernel")
+                    "cloud_rows_unpacked_kernel", "contact_fields_kernel",
+                    "pgs_kernel")
             own = [e for e in dev if e.key.startswith(ours)]
             total = sum(us(e) for e in dev)
             check(total > 0, "the profiler recorded no device time")
             return dict(
+                profiled_wall_ms_per_frame=wall * 1e3 / frames,
                 device_ms_per_frame=total / 1e3 / frames,
                 launches_per_frame=sum(e.count for e in dev) / frames,
                 port_kernels_ms_per_frame=sum(us(e) for e in own)
@@ -520,13 +606,24 @@ class Smoke:
             ops = near * (2 * P * V * 6 + 4 * 2 * V * 7 + V * 15 + 200) \
                 + (T * NP - near) * 10
             return nin + pairs.numel() * 4 + T * NP * 12 * npt * 4, ops
+        if name in ("cloud_vals", "cloud_rows_unpacked"):
+            pts, planes, body, misc = args
+            T, _, N = pts.shape
+            P, B = planes.shape[1] // 5, planes.shape[2]
+            nin = sum(x.numel() * 4 for x in (pts, planes, body, misc))
+            # the winner scan (hull planes: 3 mul, 3 add, 1 max; spheres);
+            # the rows add the winner's planes again and the row itself
+            per_pt = B * P * 7 + B * 12
+            if name == "cloud_vals":
+                return nin + T * 2 * N * 4, T * N * per_pt
+            return nin + T * 8 * N * 4, T * N * (per_pt + P * 23 + 60)
         plan, it, ip, mom0, mi, singles, lin_rows, ang_rows = args
-        T = mom0.shape[0]
-        B = self.model.n_bodies
+        T, _, bp = mom0.shape
+        B = len(plan.massinv)                 # the real bodies
         act = singles[:, :, 9].abs().sum(-1) > 0              # (T, CS)
         idx = torch.arange(1, act.shape[1] + 1, device=act.device)
         nact = int((act * idx).amax(-1).sum())
-        nbytes = nact * 14 * 24 * 4 + mom0.numel() * 4 * 3
+        nbytes = nact * 14 * bp * 4 + mom0.numel() * 4 * 3
         sweeps = it + ip
         ops = nact * B * 32 * sweeps
         for cls, rows in zip(plan.lin_classes, lin_rows):
@@ -549,6 +646,260 @@ class Smoke:
             ops += T * units * cls.U * 30 * sweeps
         return nbytes, ops
 
+
+    # ---- the CNN frame: phases 6-8 -----------------------------------------
+    def cnn_setup(self):
+        from hand_tracking_samples_tpu_torch.assets_paths import DEFAULT_CNNB
+        from hand_tracking_samples_tpu_torch.cnn.model import load_cnnb
+        check(os.path.exists(DEFAULT_CNNB),
+              f"the trained net {DEFAULT_CNNB} is missing")
+        self.cnn = load_cnnb(DEFAULT_CNNB, self.dev)
+        return os.path.relpath(DEFAULT_CNNB, REPO)
+
+    def cnn_state(self, T):
+        """Every 4th track from initial_state (the reset fires), the rest
+        at bank[30]."""
+        from hand_tracking_samples_tpu_torch.parallel.tracks import (
+            batched_tracker_state)
+        torch = self.torch
+        st = batched_tracker_state(self.model, T)
+        gt = torch.tensor(self.bank[30], device=self.dev).expand(T, 17, 7)
+        pose = torch.where(self.reset_group(T)[:, None, None],
+                           st.body.pose, gt).contiguous()
+        return st._replace(body=st.body._replace(pose=pose))
+
+    def reset_group(self, T):
+        return self.torch.arange(T, device=self.dev) % 4 == 3
+
+    def cnn_depth(self, f, T):
+        return self.fake[f].expand(T, -1, -1).contiguous()
+
+    def cnn_run(self, st, frames, T, idx=None, keep=None, dev=None):
+        from hand_tracking_samples_tpu_torch.parallel.tracks import (
+            batched_update)
+        model, cnn = self.model, self.cnn
+        if dev is not None:                  # the CPU plain reference
+            from hand_tracking_samples_tpu_torch.cnn.model import from_numpy
+            from hand_tracking_samples_tpu_torch.model.bake import (
+                from_numpy_model)
+            model = from_numpy_model(self.model.np, dev)
+            cnn = from_numpy({k: {kk: vv.cpu().numpy()
+                                  for kk, vv in v.items()}
+                              for k, v in cnn.items()}, dev)
+        hist = []
+        for f in range(frames):
+            d = self.cnn_depth(f, T)
+            if idx is not None:
+                d = d[idx]
+            if dev is not None:
+                d = d.to(dev)
+            st, _ = batched_update(st, model, cnn, d, self.cam,
+                                   self.cnn_cfg, self.params)
+            if keep is not None:
+                hist.append(keep(st))
+        return st, hist
+
+    def cnn_kernel_inputs(self, st, depth):
+        """The CNN frame's kernel inputs for state st and depth (T, H, W):
+        vals (FitError at st), unpacked rows and the unibody solve (at the
+        PoseFromScratch pose, as the reset runs them), and the multistep
+        step with keypoints, cloud and angles (step 1)."""
+        torch = self.torch
+        from hand_tracking_samples_tpu_torch.imaging.image_ops import (
+            compact_planes)
+        from hand_tracking_samples_tpu_torch.model.hand import body_params
+        from hand_tracking_samples_tpu_torch.ops.cloud_rows import (
+            _kernel_inputs_ph)
+        from hand_tracking_samples_tpu_torch.physics.fused_fit import (
+            solve_inputs)
+        from hand_tracking_samples_tpu_torch.physics.pgs_kernel import (
+            build_multistep_plan)
+        from hand_tracking_samples_tpu_torch.tracker import runtime as rt
+        cfg, m, body = self.cnn_cfg, self.model, st.body
+        B, it, ip = m.n_bodies, cfg.physics_iterations, \
+            cfg.physics_iterations_post
+        seg, an, _, _, ph = rt._cnn_frame_inputs(self.cnn, depth, self.cam,
+                                                 cfg)
+        cam = seg.cam.pose
+        zb = torch.zeros(B, device=self.dev)
+        vals = (ph,) + _kernel_inputs_ph(body.pose, m, (0.0, 0.0, 0.0), zb,
+                                         0.0)
+        b0 = rt.pose_from_scratch(body, m, an, ph, cam)
+        keep, N = rt._subsample4(ph)
+        uph = compact_planes(ph, keep, max(N // 4, 64))
+        rows = (uph,) + _kernel_inputs_ph(b0.pose, m, cam[:, :3], zb, 0.0)
+        x = rt.unibody_inputs(b0, m, self.params, ph, cam[:, :3],
+                              cfg.unibody_force)
+        uni = (x["plan"], it, ip, x["mom0"], x["mi"], x["singles"], [], [])
+        blk = rt._keypoint_block(body, m, an, cam, cfg)
+        plan = build_multistep_plan(m.np, 4 + cfg.cloud_rows_per_body, True)
+        xs = solve_inputs(body, body_params(m), blk, plan, self.params, m,
+                          rt.multistep_cloud(ph, cam, cfg, B),
+                          cfg.cloud_rows_per_body, "ms_angles",
+                          (an.palmq, an.finger_clenched, cam[:, 3:7]),
+                          10000.0)
+        ms = (plan, it, ip, xs["mom0"], xs["mi"], xs["singles"],
+              xs["lin_rows"], xs["ang_rows"])
+        return {"cloud_vals": vals, "cloud_rows_unpacked": rows,
+                "pgs_solve[multistep]": ms, "pgs_solve[unibody]": uni,
+                "P": {"pgs_solve[multistep]": xs["P"],
+                      "pgs_solve[unibody]": (x, b0)}}
+
+    def contracted_ops(self):
+        """maths.fma's card forms (addcmul, sqrt) equal its exact CPU forms
+        bit for bit: the plain versions' contracted expressions then equal
+        the kernels' fmaf/sqrtf."""
+        torch = self.torch
+        from hand_tracking_samples_tpu_torch.maths import fma as fq
+        rng = self.np.random.default_rng(11)
+        n = 1 << 20
+        a, b, c = (rng.standard_normal(n).astype(self.np.float32)
+                   for _ in range(3))
+        c[: n // 2] = -(a[: n // 2].astype(self.np.float64)
+                        * b[: n // 2]).astype(self.np.float32)  # near ties
+        x = self.np.float32(1 + 2 ** -12)          # a double-rounding case
+        a[0], b[0], c[0] = x, x, self.np.float32(2 ** -70)
+        cpu = fq.fma(*(torch.tensor(v) for v in (a, b, c)))
+        card = fq.fma(*(torch.tensor(v, device=self.dev)
+                        for v in (a, b, c))).cpu()
+        check(torch.equal(cpu, card), "addcmul on the card is not one fused "
+              f"multiply-add: {int((cpu != card).sum())} of {n} differ")
+        r = torch.tensor(self.np.abs(a) * 1e3)
+        check(torch.equal(fq.sqrt(r), fq.sqrt(r.to(self.dev)).cpu()),
+              "sqrt on the card is not correctly rounded")
+        return f"fma and sqrt card forms equal the CPU forms ({n} values)"
+
+    def compare_cnn(self):
+        T = 4
+        inp = self.cnn_kernel_inputs(self.cnn_state(T), self.cnn_depth(0, T))
+        fns = self.pairs_of()
+        lines = [self.contracted_ops()]
+        for name in NEW:
+            kfn, pfn = fns[name]
+            err, note = self.hold(name, kfn(*inp[name]), pfn(*inp[name]),
+                                  inp["P"].get(name))
+            self.results[name]["max_abs_err_t4"] = err
+            lines.append(note)
+        return "; ".join(lines)
+
+    def cnn_slice(self):
+        torch = self.torch
+        from hand_tracking_samples_tpu_torch import kernels
+        from hand_tracking_samples_tpu_torch.physics.pgs_kernel import (
+            pgs_solve)
+        T, F = CNN_TRACKS, CNN_FRAMES
+        grp = self.reset_group(T)
+        bank = torch.tensor(self.bank, device=self.dev)
+        box = []
+
+        def keep(st):
+            pose = st.body.pose
+            je = (pose[..., :3] - bank[30 + len(box)][:, :3]).norm(
+                dim=-1).mean(-1)
+            box.append(0)
+            return (je[~grp].mean(), je[~grp].max(), je[grp].mean(),
+                    je[grp].max(), pose[[0, 3]].clone())
+        st0 = self.cnn_state(T)
+        kernels.reset_counts()
+        st, hist = self.cnn_run(st0, F, T, keep=keep)
+        counts = kernels.counts()
+        kinds = dict(pgs_solve.kinds)
+        torch.cuda.synchronize()
+        for name in ("cloud_rows_unpacked", "cloud_vals"):
+            self.results[name]["launches"] = counts[name]
+        for name, kind in PLANS.items():
+            self.results[name]["launches"] = kinds.get(kind, 0)
+        for name in FIRST:
+            self.results[name]["launches_cnn_frame"] = counts[name]
+        check(all(n > 0 for n in counts.values()),
+              f"a kernel did not launch on the CNN frame: {counts}")
+        check(all(kinds.get(k, 0) > 0 for k in ("dyn", "ms", "uni")),
+              f"a PGS plan did not launch on the CNN frame: {kinds}")
+        check(bool(torch.isfinite(st.body.pose).all()), "non-finite poses")
+        h = [torch.stack([x[i] for x in hist]).cpu().numpy() * 1e3
+             for i in range(4)]
+        gt_mean, gt_max, rs_mean, rs_max = h
+        band = CNN_BAND_MM
+        curve = lambda v: " ".join(f"{e:.2f}" for e in v)
+        check(gt_max.max() < band["gt"] and rs_max[0] < band["reset_first"]
+              and rs_max[-1] < band["reset_last"],
+              f"CNN frame outside {band}: on-hand tracks per frame "
+              f"[{curve(gt_max)}] mm, reset tracks [{curve(rs_max)}] mm")
+        cerr = self.cnn_cpu_reference([x[4] for x in hist][:CNN_CPU_FRAMES])
+        self.cnn_stats = dict(
+            gt_joint_err_mm_per_frame=gt_mean.tolist(),
+            gt_joint_err_mm_max_per_frame=gt_max.tolist(),
+            reset_joint_err_mm_per_frame=rs_mean.tolist(),
+            reset_joint_err_mm_max_per_frame=rs_max.tolist(),
+            cpu_reference_err_m=cerr, launches=counts, pgs_plans=kinds)
+        self.cnn_final = st
+        return (f"T={T} F={F}: joint err on-hand tracks [{curve(gt_mean)}] "
+                f"mm, reset tracks (every 4th, from initial_state) "
+                f"[{curve(rs_mean)}] mm; CPU plain reference "
+                f"({CNN_CPU_FRAMES} frames) {cerr:.2g} m; launches {counts}, "
+                f"PGS plans {kinds}")
+
+    def cnn_cpu_reference(self, poses):
+        """Tracks 0 (on the hand) and 3 (reset) through the plain versions
+        on the CPU; the largest position difference from the card's."""
+        torch = self.torch
+        idx = torch.tensor([0, 3], device=self.dev)
+        full = self.cnn_state(4)
+        st = type(full)(type(full.body)(*[x[idx].cpu() for x in full.body]),
+                        full.prev_frame_error[idx].cpu(),
+                        full.initializing[idx].cpu())
+        err = 0.0
+        _, hist = self.cnn_run(st, len(poses), 4, idx=idx,
+                               keep=lambda s: s.body.pose.clone(),
+                               dev="cpu")
+        for mine, ref in zip(hist, poses):
+            err = max(err, (mine[..., :3] - ref[..., :3].cpu()).abs().max()
+                      .item())
+        check(err < 1e-4, f"CNN frame: CPU plain reference differs: {err} m")
+        return err
+
+    def cnn_timing(self):
+        torch = self.torch
+        T, F = CNN_TRACKS, CNN_FRAMES
+        st, _ = self.cnn_run(self.cnn_state(T), 1, T)           # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        self.cnn_run(self.cnn_state(T), F, T)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        prof = self.profile(T, 2, run=self.cnn_run,
+                            state=self.cnn_state(T))
+        self.cnn_speed = dict(tracks=T, frames=F, seconds=dt,
+                              ms_per_frame=dt / F * 1e3,
+                              tracked_fps=T * F / dt, **prof)
+        busy = (f"; device busy {prof['device_ms_per_frame']:.2f} ms a frame "
+                f"(port kernels {prof['port_kernels_ms_per_frame']:.2f}, "
+                f"{prof['torch_launches_per_frame']:.0f} PyTorch launches "
+                f"{prof['torch_ops_ms_per_frame']:.2f})"
+                if "device_ms_per_frame" in prof
+                else f"; profile not measured ({prof['profile_error']})")
+        inp = self.cnn_kernel_inputs(self.cnn_final,
+                                     self.cnn_depth(F - 1, T))
+        fns = self.pairs_of()
+        parts = []
+        for name in NEW:
+            kfn, pfn = fns[name]
+            args = inp[name]
+            ms, k = self.event_ms(kfn, args, warm=2, reps=10)
+            plain_ms, p = self.event_ms(pfn, args, warm=0, reps=1)
+            err, note = self.hold(name, k, p, inp["P"].get(name))
+            nbytes, ops = self.work(name, args)
+            tb, to = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_S * 1e3
+            self.results[name].update(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=max(tb, to),
+                bound_by="bytes" if tb >= to else "operations",
+                library_ms=None, bytes=nbytes, operations=ops)
+            parts.append(f"{name} {ms:.4f} ms (plain {plain_ms:.2f}; "
+                         f"{note})")
+        return (f"T={T}: {dt / F * 1e3:.1f} ms a CNN frame, "
+                f"{T * F / dt:.1f} tracked frames/s{busy}; "
+                + "; ".join(parts))
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -617,9 +968,17 @@ def main(argv=None) -> int:
     s = state["s"]
     phase(4, "slice", s.slice_run)
     phase(5, "timing and kernels vs plain (T=512)", s.timing)
+
+    def setup_and_compare_cnn():
+        net = s.cnn_setup()
+        return f"net {net}; " + s.compare_cnn()
+    phase(6, "CNN-frame kernels vs plain (T=4)", setup_and_compare_cnn)
+    phase(7, "CNN frame", s.cnn_slice)
+    phase(8, "CNN-frame timing and kernels vs plain (T=512)", s.cnn_timing)
     record["total_s"] = time.perf_counter() - t_all
     rows = []
-    for name, (src, rep) in KERNELS.items():
+    src_of = dict(KERNELS, **{k: KERNELS["pgs_solve"] for k in PLANS})
+    for name, (src, rep) in src_of.items():
         r = s.results[name]
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": rep, "launches": r["launches"],
@@ -631,8 +990,9 @@ def main(argv=None) -> int:
                     exist_ok=True)
         with open(args.json, "w") as f:
             json.dump(dict(record, device=smi["line"], kernels=s.results,
-                           slice=s.slice_stats, speed=s.fps), f, indent=1,
-                      default=str)
+                           slice=s.slice_stats, speed=s.fps,
+                           cnn_frame=s.cnn_stats, cnn_speed=s.cnn_speed),
+                      f, indent=1, default=str)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

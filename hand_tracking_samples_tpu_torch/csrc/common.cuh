@@ -38,3 +38,21 @@ __device__ __forceinline__ int hts_block_excl_scan(int v, int* sh,
   __syncthreads();
   return res;
 }
+
+// The JAX CPU build's contracted arithmetic (maths/fma.py in the package):
+// a fused multiply-add, rounded once.  The plain PyTorch versions compute
+// the same correctly rounded value, so kernel and plain version stay
+// bit-identical.  (-fmad=false leaves explicit fmaf calls fused.)
+__device__ __forceinline__ float hts_fma(float a, float b, float c) {
+  return fmaf(a, b, c);
+}
+// a0*b0 + a1*b1 + a2*b2 as fma(a2, b2, fma(a0, b0, a1*b1))
+__device__ __forceinline__ float hts_dot3(float a0, float a1, float a2,
+                                          float b0, float b1, float b2) {
+  return hts_fma(a2, b2, hts_fma(a0, b0, a1 * b1));
+}
+// a*b - c*d as fma(a, b, -(c*d))
+__device__ __forceinline__ float hts_subp(float a, float b, float c,
+                                          float d) {
+  return hts_fma(a, b, -(c * d));
+}

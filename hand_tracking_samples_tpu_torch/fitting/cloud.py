@@ -187,3 +187,48 @@ def rows_to_single_block(rows: LinearRows, layout):
         targetdist=rs(rows.targetdist),
         targetspeednobias=rs(rows.targetspeednobias),
         fmin=rs(rows.fmin), fmax=rs(rows.fmax), active=rs(rows.active))
+
+
+def scale_cloud_forces(rows: LinearRows, per_row_scale) -> LinearRows:
+    """Per-row force-limit scaling (physmodel.h:347 and the other call
+    sites multiply the +-1 base limits by their factors)."""
+    return rows._replace(fmin=rows.fmin * per_row_scale,
+                         fmax=rows.fmax * per_row_scale)
+
+
+def fit_error(pose, model, points_ph, depth, depth_cam,
+              bone_sum_error_scale: float = 4.0):
+    """FitError (handtrack.h:369-399) for every track, on the kernel path:
+    the correspondence of the cloud (planes carrier points_ph (T, 8, N),
+    mask in row 4) by the vals kernel (ops.cloud_rows.cloud_vals_ph), the
+    per-body maximum point error, and the bones seen in front of the depth
+    image (depth (T, H, W) int16 holding u16 bits; depth_cam the camera).
+    pose (T, B, 7).  Returns (T,) float32."""
+    from ..imaging.image_ops import depth_u16
+    from ..ops.cloud_rows import cloud_vals_ph
+    T, B = pose.shape[0], pose.shape[1]
+    dev = pose.device
+    body, val = cloud_vals_ph(pose, model, points_ph)
+    mask = points_ph[:, 4] > 0.5
+    ninf = torch.full((), -torch.inf, device=dev)
+    contrib = torch.where(mask, val, ninf)                  # (T, N)
+    oh = torch.arange(B, device=dev)[None, :, None] == body[:, None, :]
+    pointerror = torch.where(oh, contrib[:, None, :], ninf).amax(dim=2)
+    point_error_sum = torch.clamp(pointerror, min=0.0).sum(dim=1)
+
+    cam_pose = torch.tensor(depth_cam.pose, device=dev)
+    local = pose_apply(pose_inverse(cam_pose), pose[..., :3])  # (T, B, 3)
+    px = depth_cam.projectz(local)
+    pi = px.to(torch.int32)
+    H, W = depth.shape[1], depth.shape[2]
+    inside = ((pi[..., 0] >= 0) & (pi[..., 0] <= W - 1)
+              & (pi[..., 1] >= 0) & (pi[..., 1] <= H - 1))
+    cx = torch.clamp(pi[..., 0], 0, W - 1).long()
+    cy = torch.clamp(pi[..., 1], 0, H - 1).long()
+    flat = depth_u16(depth).reshape(T, H * W)
+    dvals = torch.gather(flat, 1, cy * W + cx).to(torch.float32) \
+        * depth_cam.depth_scale
+    bone_error = torch.clamp(dvals - local[..., 2], 0.0, 0.01)
+    bone_error_sum = torch.where(inside, bone_error,
+                                 torch.zeros((), device=dev)).sum(dim=1)
+    return point_error_sum + bone_error_sum * bone_sum_error_scale

@@ -10,6 +10,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..maths.fma import fma
+
 
 def _f32(x) -> float:
     return float(np.float32(x))
@@ -48,7 +50,97 @@ class DCamera(NamedTuple):
         y = (p[..., 1] - self.principal[1]) / self.focal[1]
         return torch.stack([x, y, torch.ones_like(x)], dim=-1) * d[..., None]
 
+    def deprojectz_folded(self, p, d):
+        """deprojectz as the JAX CPU build runs it inside a jitted function
+        that holds this camera as a constant: XLA folds `/ focal` into
+        `* (1/focal)` (float32 reciprocal)."""
+        rx = float(np.float32(1.0) / np.float32(self.focal[0]))
+        ry = float(np.float32(1.0) / np.float32(self.focal[1]))
+        x = (p[..., 0] - self.principal[0]) * rx
+        y = (p[..., 1] - self.principal[1]) * ry
+        return torch.stack([x, y, torch.ones_like(x)], dim=-1) * d[..., None]
+
     def projectz(self, v):
+        """v (..., 3) -> (..., 2) pixel coordinates; (v/z)*f + c runs
+        contracted, as the JAX CPU build runs it (maths.fma)."""
         f = torch.tensor(self.focal, dtype=v.dtype, device=v.device)
         c = torch.tensor(self.principal, dtype=v.dtype, device=v.device)
-        return v[..., :2] / v[..., 2:3] * f + c
+        return fma(v[..., :2] / v[..., 2:3], f, c)
+
+    def fov(self):
+        """misc_image.h:53: the field of view in radians, with the
+        half-pixel convention (float32, as the JAX package computes it)."""
+        w, h = self.dim
+        f = np.float32
+        fx = (np.arctan2(f(self.principal[0]) + f(0.5), f(self.focal[0]))
+              + np.arctan2(f(w) - f(self.principal[0]) - f(0.5),
+                           f(self.focal[0])))
+        fy = (np.arctan2(f(self.principal[1]) + f(0.5), f(self.focal[1]))
+              + np.arctan2(f(h) - f(self.principal[1]) - f(0.5),
+                           f(self.focal[1])))
+        return torch.tensor(np.stack([fx, fy]).astype(np.float32))
+
+    def deproject_extents(self):
+        """misc_image.h:52: xy corners of the z=1 plane, (2, 2)."""
+        one = torch.ones(())
+        ul = self.deprojectz(torch.zeros(2), one)[:2]
+        lr = self.deprojectz(torch.tensor(self.dim, dtype=torch.float32),
+                             one)[:2]
+        return torch.stack([ul, lr])
+
+    def crop(self, offset, dim):
+        """camcrop (misc_image.h:59)."""
+        return self._replace(
+            dim=(int(dim[0]), int(dim[1])),
+            principal=(_f32(np.float32(self.principal[0])
+                            - np.float32(offset[0])),
+                       _f32(np.float32(self.principal[1])
+                            - np.float32(offset[1]))))
+
+    def sub(self, s: int):
+        """camsub (misc_image.h:60): dims, focal and principal over s."""
+        f = np.float32
+        return self._replace(
+            dim=(self.dim[0] // s, self.dim[1] // s),
+            focal=tuple(_f32(f(x) / f(s)) for x in self.focal),
+            principal=tuple(_f32(f(x) / f(s)) for x in self.principal))
+
+    def scaled(self, s: int):
+        f = np.float32
+        return self._replace(
+            dim=(self.dim[0] * s, self.dim[1] * s),
+            focal=tuple(_f32(f(x) * f(s)) for x in self.focal),
+            principal=tuple(_f32(f(x) * f(s)) for x in self.principal))
+
+
+class TrackCamera(NamedTuple):
+    """One camera per track, tracks leading: the virtual cameras that the
+    segmentation makes (focal (T, 2), principal (T, 2), pose (T, 7)
+    tensors), with DCamera's deprojectz/projectz."""
+    dim: tuple
+    focal: torch.Tensor
+    principal: torch.Tensor
+    depth_scale: float
+    pose: torch.Tensor
+
+    def _bc(self, x, nd):
+        return x.reshape(x.shape[:1] + (1,) * (nd - 2) + x.shape[1:])
+
+    def deprojectz(self, p, d):
+        """p (T, ..., 2), d (T, ...) -> (T, ..., 3)."""
+        c = self._bc(self.principal, p.dim())
+        f = self._bc(self.focal, p.dim())
+        x = (p[..., 0] - c[..., 0]) / f[..., 0]
+        y = (p[..., 1] - c[..., 1]) / f[..., 1]
+        return torch.stack([x, y, torch.ones_like(x)], dim=-1) * d[..., None]
+
+    def projectz(self, v):
+        """v (T, ..., 3) -> (T, ..., 2)."""
+        f = self._bc(self.focal, v.dim())
+        c = self._bc(self.principal, v.dim())
+        return fma(v[..., :2] / v[..., 2:3], f, c)
+
+    def sub(self, s: int):
+        return self._replace(dim=(self.dim[0] // s, self.dim[1] // s),
+                             focal=self.focal / s,
+                             principal=self.principal / s)

@@ -13,7 +13,7 @@ from contracting a*b+c into one FMA: the kernels then round each operation
 as the plain PyTorch versions do, which is what lets the cloud kernel be
 bit-identical to its plain version and the others agree to the last bits.
 
-Each kernel wrapper (ops/cloud_kernel.py, ops/cloud_rows.py,
+Each kernel wrapper (ops/cloud_kernel.py, ops/cloud_rows.py (three),
 physics/contact_kernel.py, physics/pgs_kernel.py) registers itself here with
 `wrapper(name)`; its `launches` attribute counts the launches it made.
 Nothing here runs when the package is imported.
@@ -40,9 +40,12 @@ BUILD_INFO: dict = {}
 
 
 def wrapper(name: str):
-    """Register a kernel wrapper under `name` and give it a launch count."""
+    """Register a kernel wrapper under `name` and give it a launch count
+    (`launches`) and a per-kind tally of the same launches (`kinds`, for a
+    wrapper whose kernel serves several plans)."""
     def deco(fn):
         fn.launches = 0
+        fn.kinds = {}
         WRAPPERS[name] = fn
         return fn
     return deco
@@ -51,6 +54,7 @@ def wrapper(name: str):
 def reset_counts():
     for fn in WRAPPERS.values():
         fn.launches = 0
+        fn.kinds.clear()
 
 
 def counts() -> dict:
@@ -112,9 +116,12 @@ def _declare(lib):
                                          I, P]
     lib.hts_contact_fields.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I,
                                        I, F, P]
+    lib.hts_cloud_rows_unpacked.argtypes = [P, P, P, P, P, I, I, I, I, I,
+                                            P]
     lib.hts_pgs_solve.argtypes = [P, P]
     for fn in (lib.hts_cloud_from_depth, lib.hts_cloud_rows_solve,
-               lib.hts_contact_fields, lib.hts_pgs_solve):
+               lib.hts_cloud_rows_unpacked, lib.hts_contact_fields,
+               lib.hts_pgs_solve):
         fn.restype = ctypes.c_int
 
 

@@ -1,5 +1,13 @@
-"""Cloud correspondence, row geometry and slot pack: kernel 2 of the kernel
-path (the 12-channel solve-prep variant).
+"""Cloud correspondence, row geometry and slot pack: three variants of one
+TPU kernel (hand_tracking_samples_tpu/ops/cloud_rows.py:34), each a CUDA
+kernel in csrc/cloud_rows.cu with its plain version here:
+
+  cloud_rows_solve     the 12-channel solve-prep pack (kernel 2, the
+                       dynamics and MultiStepSim fits)
+  cloud_rows_unpacked  per-point directed rows without a pack (kernel 6,
+                       UnibodyFit: cloud_rows_unibody)
+  cloud_vals_k         the winner body and value per point (kernel 7,
+                       FitError: cloud_vals_ph)
 
 Per point (physmodel.h:137-181): the winner over 17 sphere and 17 hull
 most-above candidates by the reference's strict-< scan order; the slab-clip
@@ -10,27 +18,38 @@ of its active points (slot order = point order, pgs_kernel.py:16-17 of the
 JAX package), uniform thinning to `slots` with the force scale compensated
 by count/slots.
 
-`cloud_rows_solve` is the wrapper: on CUDA tensors it launches
-csrc/cloud_rows.cu (which replaces the Pallas kernel
-hand_tracking_samples_tpu/ops/cloud_rows.py:34 with solve_ch=True, launched
+`cloud_rows_solve` is kernel 2's wrapper: on CUDA tensors it launches the
+kernel (which replaces the Pallas kernel with solve_ch=True, launched
 through _cloud_rows_call_b at :387), on CPU tensors it runs
 `cloud_rows_solve_plain`.  Output: packed (T, 12, BP*slots) channels
 [n(3), J1(3), K1(3), dinv, tsm, scale], body-major slot blocks, and the
-per-body active counts (T, BP).
+per-body active counts (T, BP).  The plane values, the world planes and
+inertia and the row and prep expressions are the JAX CPU build's
+contracted ones (maths/fma.py), so the output equals the JAX package's bit
+for bit on the CPU.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import kernels
+from ..maths.fma import dot3, fma, sqrt, sub_prod
 
 BP = 24          # body slots (17 padded)
 CH = 12
 
 
+def _origin(origin, T, dev):
+    """origin: (3,) floats or a (T, 3) tensor -> (T, 3) tensor."""
+    if torch.is_tensor(origin):
+        return origin.to(device=dev, dtype=torch.float32).expand(T, 3)
+    return torch.tensor(origin, dtype=torch.float32, device=dev).expand(T, 3)
+
+
 def _kernel_inputs_ph(pose, model, origin, scale_b, dt):
     """The kernel's per-track inputs (JAX ops/cloud_rows.py:485), batched:
-    pose (T, B, 7), origin (3,) floats, scale_b (B,) tensor, dt float.
+    pose (T, B, 7), origin (3,) floats or (T, 3), scale_b (B,) tensor,
+    dt float.
     Returns planes_t (T, 5P, B) [world n.x | n.y | n.z | d | d at origin],
     body_sc (T, 16, BP) [pos(3), radius_inner, scale, massinv, iinv(9), 0]
     and misc (T, 8) [origin(3), dt, 0...]."""
@@ -46,12 +65,13 @@ def _kernel_inputs_ph(pose, model, origin, scale_b, dt):
     q = pose[..., 3:7]
     qx, qy, qz, qw = (q[..., 0][:, None], q[..., 1][:, None],
                       q[..., 2][:, None], q[..., 3][:, None])  # (T, 1, B)
-    tx = 2.0 * (qy * nlz - qz * nly)
-    ty = 2.0 * (qz * nlx - qx * nlz)
-    tz = 2.0 * (qx * nly - qy * nlx)
-    wnx = nlx + qw * tx + (qy * tz - qz * ty)
-    wny = nly + qw * ty + (qz * tx - qx * tz)
-    wnz = nlz + qw * tz + (qx * ty - qy * tx)
+    # the JAX package's qrot expansion, contracted as its CPU build runs it
+    tx = 2.0 * sub_prod(qy, nlz, qz, nly)
+    ty = 2.0 * sub_prod(qz, nlx, qx, nlz)
+    tz = 2.0 * sub_prod(qx, nly, qy, nlx)
+    wnx = fma(qw, tx, nlx) + sub_prod(qy, tz, qz, ty)
+    wny = fma(qw, ty, nly) + sub_prod(qz, tx, qx, tz)
+    wnz = fma(qw, tz, nlz) + sub_prod(qx, ty, qy, tx)
     px = pose[..., 0][:, None]
     py = pose[..., 1][:, None]
     pz = pose[..., 2][:, None]
@@ -59,9 +79,11 @@ def _kernel_inputs_ph(pose, model, origin, scale_b, dt):
     wnx = torch.where(mask_t, wnx, zero)
     wny = torch.where(mask_t, wny, zero)
     wnz = torch.where(mask_t, wnz, zero)
-    ww = dl - (px * wnx + py * wny + pz * wnz)
+    ww = dl - dot3(px, py, pz, wnx, wny, wnz)
     ww = torch.where(mask_t, ww, torch.full((), -1e9, device=dev))
-    d0 = (origin[0] * wnx + origin[1] * wny + origin[2] * wnz) + ww
+    o = _origin(origin, T, dev)
+    d0 = dot3(o[:, 0:1, None], o[:, 1:2, None], o[:, 2:3, None],
+              wnx, wny, wnz) + ww
     d0 = torch.where(mask_t, d0, torch.full((), -1.0, device=dev))
     planes_t = torch.cat([wnx, wny, wnz, ww, d0], dim=1)   # (T, 5P, B)
     iinv = _batched_world_iinv(q, model.tensorinv_massless, model.massinv)
@@ -73,51 +95,51 @@ def _kernel_inputs_ph(pose, model, origin, scale_b, dt):
     body_sc = torch.zeros((T, 16, BP), device=dev)
     body_sc[:, :, :B] = torch.stack(rows, dim=1)
     misc = torch.zeros((T, 8), device=dev)
-    misc[:, 0] = origin[0]
-    misc[:, 1] = origin[1]
-    misc[:, 2] = origin[2]
+    misc[:, 0:3] = o
     misc[:, 3] = dt
     return planes_t.contiguous(), body_sc, misc
 
 
-def point_rows_plain(pts_h, planes_t, body_sc, misc, slots: int):
-    """The kernel's per-point half in plain PyTorch, the same float32
-    operations in the same order.  pts_h (T, 8, N) [x, y, z, 1, mask, ...].
-    Returns vals (T, 12, N) (the packed channels of every point), col
-    (T, N) (the slot column a point is packed into, -1 where it is not),
-    the per-body counts (T, BP) int32, and what the hull-normal blend reads:
-    the winning body's plane values dw (T, P, N) and use_hull (T, N)."""
-    T, _, N = pts_h.shape
+def _winner_plain(pts_h, planes_t, body_sc):
+    """The strict-< winner scan over [17 sphere, 17 hull most-above]
+    candidates: (best value, widx (T, N), dist/dxb/dyb/dzb (T, B, N))."""
     P, B = planes_t.shape[1] // 5, planes_t.shape[2]
-    C = slots
     dev = pts_h.device
     px, py, pz = pts_h[:, 0:1], pts_h[:, 1:2], pts_h[:, 2:3]   # (T, 1, N)
-    mask = pts_h[:, 4]                                         # (T, N)
     body = body_sc[:, :, :B]                                   # (T, 16, B)
     hv = []
     for b in range(B):
         c = lambda k: planes_t[:, k * P:(k + 1) * P, b:b + 1]  # (T, P, 1)
-        hv.append((c(0) * px + c(1) * py + c(2) * pz + c(3)).amax(dim=1))
+        hv.append((dot3(c(0), c(1), c(2), px, py, pz) + c(3)).amax(dim=1))
     hvals = torch.stack(hv, dim=1)                             # (T, B, N)
     posx, posy, posz = (body[:, k][..., None] for k in range(3))
     dxb = px - posx                                            # (T, B, N)
     dyb = py - posy
     dzb = pz - posz
-    dist = torch.sqrt(dxb * dxb + dyb * dyb + dzb * dzb)
+    dist = sqrt(dot3(dxb, dyb, dzb, dxb, dyb, dzb))
     svals = dist - body[:, 3][..., None]
     vals2 = torch.cat([svals, hvals], dim=1)                   # (T, 2B, N)
     best = vals2.amin(dim=1)                                   # (T, N)
     iota = torch.arange(2 * B, device=dev)[None, :, None]
     widx = torch.where(vals2 == best[:, None], iota,
                        torch.full_like(iota, 2 * B)).amin(dim=1)
+    return best, widx, (dist, dxb, dyb, dzb)
+
+
+def _rows_plain(pts_h, planes_t, body_sc, misc):
+    """Correspondence + CloudConstraint row of every point (directed): a
+    dict with wb (T, N), n (3 x (T, N)), w1 (3 x (T, N)) and td."""
+    T, _, N = pts_h.shape
+    P, B = planes_t.shape[1] // 5, planes_t.shape[2]
+    dev = pts_h.device
+    px, py, pz = pts_h[:, 0:1], pts_h[:, 1:2], pts_h[:, 2:3]   # (T, 1, N)
+    best, widx, (dist, dxb, dyb, dzb) = _winner_plain(pts_h, planes_t,
+                                                      body_sc)
     use_hull = widx >= B
     wb = torch.where(use_hull, widx - B, widx)                 # (T, N)
 
     def pick(x):                                               # (T, B, N)
         return torch.gather(x, 1, wb[:, None]).squeeze(1)
-
-    def pick_b(k):                                             # body row k
-        return torch.gather(body[:, k], 1, wb)
     inv = 1.0 / torch.clamp(pick(dist), min=1e-20)
     wnx = pick(dxb) * inv
     wny = pick(dyb) * inv
@@ -125,7 +147,7 @@ def point_rows_plain(pts_h, planes_t, body_sc, misc, slots: int):
 
     sel = torch.gather(planes_t, 2, wb[:, None].expand(T, 5 * P, N))
     pnx, pny, pnz = sel[:, 0:P], sel[:, P:2 * P], sel[:, 2 * P:3 * P]
-    dw = pnx * px + pny * py + pnz * pz + sel[:, 3 * P:4 * P]  # (T, P, N)
+    dw = dot3(pnx, pny, pnz, px, py, pz) + sel[:, 3 * P:4 * P]  # (T, P, N)
     dw0 = sel[:, 4 * P:5 * P]
     ohm = (dw == dw.amax(dim=1, keepdim=True)).to(torch.float32)
     cnt = torch.clamp(ohm.sum(1), min=1.0)
@@ -145,33 +167,54 @@ def point_rows_plain(pts_h, planes_t, body_sc, misc, slots: int):
     ox, oy, oz = misc[:, 0:1], misc[:, 1:2], misc[:, 2:3]
     px, py, pz = px[:, 0], py[:, 0], pz[:, 0]                  # (T, N)
     rx, ry, rz = px - ox, py - oy, pz - oz
-    rinv = 1.0 / torch.clamp(torch.sqrt(rx * rx + ry * ry + rz * rz),
+    rinv = 1.0 / torch.clamp(sqrt(dot3(rx, ry, rz, rx, ry, rz)),
                              min=1e-20)
-    front = (rx * wnx + ry * wny + rz * wnz) > 0
+    front = dot3(rx, ry, rz, wnx, wny, wnz) > 0
     use_ray = front & hit
-    w1x = torch.where(use_ray, ox + rx * te, px - wnx * best)
-    w1y = torch.where(use_ray, oy + ry * te, py - wny * best)
-    w1z = torch.where(use_ray, oz + rz * te, pz - wnz * best)
+    w1x = torch.where(use_ray, fma(rx, te, ox), fma(-wnx, best, px))
+    w1y = torch.where(use_ray, fma(ry, te, oy), fma(-wny, best, py))
+    w1z = torch.where(use_ray, fma(rz, te, oz), fma(-wnz, best, pz))
     nxf = torch.where(use_ray, rx * rinv, wnx)
     nyf = torch.where(use_ray, ry * rinv, wny)
     nzf = torch.where(use_ray, rz * rinv, wnz)
-    td = (w1x - px) * nxf + (w1y - py) * nyf + (w1z - pz) * nzf
-    active = mask > 0
+    td = dot3(w1x - px, w1y - py, w1z - pz, nxf, nyf, nzf)
+    return dict(wb=wb, n=(nxf, nyf, nzf), w1=(w1x, w1y, w1z), td=td)
+
+
+def point_rows_plain(pts_h, planes_t, body_sc, misc, slots: int):
+    """The solve kernel's per-point half in plain PyTorch, the same float32
+    operations in the same order.  pts_h (T, 8, N) [x, y, z, 1, mask, ...].
+    Returns vals (T, 12, N) (the packed channels of every point), col
+    (T, N) (the slot column a point is packed into, -1 where it is not) and
+    the per-body counts (T, BP) int32."""
+    B = planes_t.shape[2]
+    C = slots
+    dev = pts_h.device
+    one = torch.ones((), device=dev)
+    zero = torch.zeros((), device=dev)
+    body = body_sc[:, :, :B]                                   # (T, 16, B)
+    r = _rows_plain(pts_h, planes_t, body_sc, misc)
+    wb, (nxf, nyf, nzf), (w1x, w1y, w1z) = r["wb"], r["n"], r["w1"]
+    td = r["td"]
+    active = pts_h[:, 4] > 0
+
+    def pick_b(k):                                             # body row k
+        return torch.gather(body[:, k], 1, wb)
 
     r1x = w1x - pick_b(0)
     r1y = w1y - pick_b(1)
     r1z = w1z - pick_b(2)
-    Jx = r1y * nzf - r1z * nyf
-    Jy = r1z * nxf - r1x * nzf
-    Jz = r1x * nyf - r1y * nxf
+    Jx = sub_prod(r1y, nzf, r1z, nyf)
+    Jy = sub_prod(r1z, nxf, r1x, nzf)
+    Jz = sub_prod(r1x, nyf, r1y, nxf)
     iw = [pick_b(6 + k) for k in range(9)]
-    Kx = iw[0] * Jx + iw[1] * Jy + iw[2] * Jz
-    Ky = iw[3] * Jx + iw[4] * Jy + iw[5] * Jz
-    Kz = iw[6] * Jx + iw[7] * Jy + iw[8] * Jz
-    ccx = Ky * r1z - Kz * r1y
-    ccy = Kz * r1x - Kx * r1z
-    ccz = Kx * r1y - Ky * r1x
-    den = pick_b(5) + (ccx * nxf + ccy * nyf + ccz * nzf)
+    Kx = dot3(iw[0], iw[1], iw[2], Jx, Jy, Jz)
+    Ky = dot3(iw[3], iw[4], iw[5], Jx, Jy, Jz)
+    Kz = dot3(iw[6], iw[7], iw[8], Jx, Jy, Jz)
+    ccx = sub_prod(Ky, r1z, Kz, r1y)
+    ccy = sub_prod(Kz, r1x, Kx, r1z)
+    ccz = sub_prod(Kx, r1y, Ky, r1x)
+    den = pick_b(5) + dot3(ccx, ccy, ccz, nxf, nyf, nzf)
     dinv = torch.where(active & (den != 0),
                        1.0 / torch.where(den == 0, one, den), zero)
 
@@ -197,13 +240,13 @@ def point_rows_plain(pts_h, planes_t, body_sc, misc, slots: int):
     ok = active & keep & (nr < C)
     col = torch.where(ok, wb * C + nr.to(torch.int64),
                       torch.full_like(wb, -1))
-    return vals, col, counts, dw, use_hull
+    return vals, col, counts
 
 
 def cloud_rows_solve_plain(pts_h, planes_t, body_sc, misc, slots: int):
     """Plain PyTorch version of the kernel (see point_rows_plain)."""
-    vals, col, counts, _, _ = point_rows_plain(pts_h, planes_t, body_sc,
-                                               misc, slots)
+    vals, col, counts = point_rows_plain(pts_h, planes_t, body_sc, misc,
+                                         slots)
     T = pts_h.shape[0]
     packed = torch.zeros((T, CH, BP * slots), device=pts_h.device)
     tt, nn = torch.nonzero(col >= 0, as_tuple=True)
@@ -241,3 +284,98 @@ def cloud_rows_solve_ph(pose, model, pts_h, origin, scale_per_body,
                                                 scale_per_body, dt)
     return cloud_rows_solve(pts_h.contiguous(), planes_t, body_sc, misc,
                             slots)
+
+
+# ---------------------------------------------------------------------------
+# kernels 6 and 7: per-point rows (UnibodyFit) and winner values (FitError)
+# ---------------------------------------------------------------------------
+
+def cloud_rows_unpacked_plain(pts_h, planes_t, body_sc, misc):
+    """Plain version of the unpacked kernel: (T, 8, N) rows
+    [n(3), w1(3) (world attach point), td, active] in point order."""
+    r = _rows_plain(pts_h, planes_t, body_sc, misc)
+    act = (pts_h[:, 4] > 0).to(torch.float32)
+    return torch.stack([*r["n"], *r["w1"], r["td"], act], dim=1)
+
+
+def cloud_vals_plain(pts_h, planes_t, body_sc):
+    """Plain version of the vals kernel: (T, 2, N) [winner value, winner
+    body (as float)]."""
+    B = planes_t.shape[2]
+    best, widx, _ = _winner_plain(pts_h, planes_t, body_sc)
+    wb = torch.where(widx >= B, widx - B, widx)
+    return torch.stack([best, wb.to(torch.float32)], dim=1)
+
+
+def _unpacked_launch(pts_h, planes_t, body_sc, misc, vals_only: bool):
+    args = [x.contiguous() for x in (pts_h, planes_t, body_sc, misc)]
+    dev = kernels.require_cuda(*args)
+    T, _, N = pts_h.shape
+    P, B = planes_t.shape[1] // 5, planes_t.shape[2]
+    if 5 * P * B > 8192 or B > BP:
+        raise ValueError(f"cloud_rows kernel takes 5*P*B <= 8192: P={P} "
+                         f"B={B}")
+    out = torch.empty((T, 2 if vals_only else 8, N), device=dev)
+    err = kernels.library().hts_cloud_rows_unpacked(
+        *[a.data_ptr() for a in args], out.data_ptr(), T, N, P, B,
+        int(vals_only), kernels.stream_ptr(dev))
+    kernels.check(err, "cloud_rows_unpacked")
+    return out
+
+
+@kernels.wrapper("cloud_rows_unpacked")
+def cloud_rows_unpacked(pts_h, planes_t, body_sc, misc):
+    """Kernel wrapper (replaces hand_tracking_samples_tpu/ops/
+    cloud_rows.py:34 with pack=False, launched by
+    _cloud_rows_unpacked_call_b at :430): per-point directed rows."""
+    if pts_h.device.type == "cpu":
+        return cloud_rows_unpacked_plain(pts_h, planes_t, body_sc, misc)
+    out = _unpacked_launch(pts_h, planes_t, body_sc, misc, False)
+    cloud_rows_unpacked.launches += 1
+    return out
+
+
+@kernels.wrapper("cloud_vals")
+def cloud_vals_k(pts_h, planes_t, body_sc, misc):
+    """Kernel wrapper (replaces hand_tracking_samples_tpu/ops/
+    cloud_rows.py:34 with vals_only=True, same call): winner per point."""
+    if pts_h.device.type == "cpu":
+        return cloud_vals_plain(pts_h, planes_t, body_sc)
+    out = _unpacked_launch(pts_h, planes_t, body_sc, misc, True)
+    cloud_vals_k.launches += 1
+    return out
+
+
+def cloud_vals_ph(pose, model, pts_h):
+    """FitError's correspondence (JAX ops/cloud_rows.py:564), batched:
+    pose (T, B, 7), pts_h (T, 8, N).  Returns (winner body (T, N) int64,
+    winner value (T, N))."""
+    B = pose.shape[1]
+    planes_t, body_sc, misc = _kernel_inputs_ph(
+        pose, model, (0.0, 0.0, 0.0), torch.zeros(B, device=pose.device),
+        0.0)
+    v = cloud_vals_k(pts_h.contiguous(), planes_t, body_sc, misc)
+    return v[:, 1].to(torch.int64), v[:, 0]
+
+
+def cloud_rows_unibody(pose, model, pts_h, origin, uni_pos, force: float):
+    """CloudConstraints retargeted to the UnibodyFit free body
+    (JAX ops/cloud_rows.py:573, handtrack.h:453-461), batched: the
+    correspondence against the whole hand, rows in point order on one body
+    with r1 measured from uni_pos (T, 3) and force limits +-force.
+    pts_h (T, 8, N); origin (T, 3).  Returns a SingleBodyLinear with
+    (T, N, 1, ...) fields."""
+    from ..physics.colored import SingleBodyLinear
+    B = pose.shape[1]
+    planes_t, body_sc, misc = _kernel_inputs_ph(
+        pose, model, origin, torch.zeros(B, device=pose.device), 0.0)
+    x = cloud_rows_unpacked(pts_h.contiguous(), planes_t, body_sc, misc)
+    T, _, N = x.shape
+    n = x[:, 0:3].transpose(1, 2)                          # (T, N, 3)
+    w1 = x[:, 3:6].transpose(1, 2)
+    f = torch.full((T, N, 1), float(force), device=x.device)
+    return SingleBodyLinear(
+        normal=n[:, :, None], r1=(w1 - uni_pos[:, None])[:, :, None],
+        targetdist=x[:, 6][..., None],
+        targetspeednobias=torch.zeros((T, N, 1), device=x.device),
+        fmin=-f, fmax=f, active=(x[:, 7] > 0.5)[..., None])

@@ -1,7 +1,8 @@
 """Constraint-row factories on batched tensors (third_party/physics.h:328-350).
 
 The port's counterpart of hand_tracking_samples_tpu.physics.constraints, cut
-to the single-body rows of the dynamics frame (the boundary-plane chamber).
+to the single-body rows of the tracking frames (the boundary-plane chamber,
+the CNN keypoint dead zones).
 The pair factories of the kernel path live in physics/row_planes.py.
 Every argument broadcasts over leading batch dims.
 """
@@ -52,3 +53,29 @@ def constrain_under_plane(pose_b, verts, vert_mask, plane, maxforce,
     return constrain_along_direction_world(
         plane[..., :3] * -plane[..., 3:4], pose_b, p1, -plane[..., :3],
         0.0, maxforce, active)
+
+
+def constrain_along_direction_deadzone(p0_world, pose1, p1, axisw, radius,
+                                       fmin, fmax, active):
+    """physics.h:332-340 with b0 = world: 2 rows forming a dead zone of the
+    given radius along axisw, [push, pull].  p0_world (..., 3) the world
+    anchor, pose1 (..., 7) the body's pose, p1 (..., 3) its local anchor.
+    Returns LinearRows with (..., 2) rows (b1 left 0 for the caller)."""
+    w1 = pose_apply(pose1, p1)
+    d = ((w1 - p0_world) * axisw).sum(-1)
+    r1 = qrot(pose_quat(pose1), p1)
+    shape = d.shape + (2,)
+    dev = d.device
+    two = lambda x: torch.stack([x, x], dim=-2)
+    z = torch.zeros(shape, device=dev)
+    lim = lambda a, b: torch.tensor([a, b], dtype=torch.float32,
+                                    device=dev).expand(shape)
+    return LinearRows(
+        b0=torch.full(shape, -1, dtype=torch.int64, device=dev),
+        b1=torch.zeros(shape, dtype=torch.int64, device=dev),
+        normal=two(axisw), r0=two(p0_world), r1=two(r1),
+        targetdist=torch.stack([d + radius, d - radius], dim=-1),
+        targetspeednobias=z, fmin=lim(0.0, fmin), fmax=lim(fmax, 0.0),
+        friction_master=torch.zeros(shape, dtype=torch.int64, device=dev),
+        friction_coef=z,
+        active=torch.as_tensor(active, device=dev)[..., None].expand(shape))

@@ -39,7 +39,8 @@ import numpy as np
 import torch
 
 from .. import kernels
-from ..maths.quat import cross, qrot
+from ..maths import fma as fq
+from ..maths.quat import cross
 from .colored import precedence_coloring
 
 BP = 24          # body slots (17 padded; at most 32, one warp)
@@ -49,16 +50,19 @@ MAX_GROUPS = 256
 
 def _batched_world_iinv(q, tinv, massinv):
     """_world_iinv (physics.h:518) elementwise over (..., B): R tinv R^T
-    massinv with the JAX package's term order.  q (..., B, 4), tinv (B, 3, 3),
-    massinv (B,) -> (..., B, 3, 3)."""
+    massinv with the JAX package's term order, contracted as its CPU build
+    runs it (maths.fma).  q (..., B, 4), tinv (B, 3, 3), massinv (B,) ->
+    (..., B, 3, 3)."""
     eye = torch.eye(3, dtype=q.dtype, device=q.device)
-    R = torch.stack([qrot(q, eye[i].expand(q.shape[:-1] + (3,)))
+    R = torch.stack([fq.qrot(q, eye[i].expand(q.shape[:-1] + (3,)))
                      for i in range(3)], dim=-1)
     A = torch.stack([torch.stack(
-        [sum(R[..., i, k] * tinv[..., k, j] for k in range(3))
+        [fq.dot3(R[..., i, 0], R[..., i, 1], R[..., i, 2], tinv[..., 0, j],
+                 tinv[..., 1, j], tinv[..., 2, j])
          for j in range(3)], dim=-1) for i in range(3)], dim=-2)
     W = torch.stack([torch.stack(
-        [sum(A[..., i, k] * R[..., j, k] for k in range(3))
+        [fq.dot3(A[..., i, 0], A[..., i, 1], A[..., i, 2], R[..., j, 0],
+                 R[..., j, 1], R[..., j, 2])
          for j in range(3)], dim=-1) for i in range(3)], dim=-2)
     return W * massinv[..., None, None]
 
@@ -161,6 +165,57 @@ def build_dynamics_plan(model_np: dict, CS: int, contacts_mode: str = "exact",
     plan = SolvePlan(key=key, CS=CS, lin_classes=tuple(lin),
                      ang_classes=tuple(ang),
                      massinv=np.asarray(model_np["massinv"], np.float32))
+    _PLANS[key] = plan
+    return plan
+
+
+def build_multistep_plan(model_np: dict, CS: int, has_angles: bool,
+                         contacts_mode: str = "exact",
+                         use_contacts: bool = True) -> SolvePlan:
+    """Solve plan of one MultiStepSim step (handtrack.h:658-688): the
+    dynamics plan's linear classes; angular classes [ApplyAngles palm
+    drive (world, 1) U=3][the 9 finger cones U=1] when has_angles, then
+    [the arm cone (world, 0) U=1][joint ranges U=6]: with angles, exactly
+    MAX_CLASSES angular classes."""
+    from .contacts import CONTACT_POINTS
+    key = (f"ms:{_model_digest(model_np)}:{CS}:{int(has_angles)}:"
+           f"{contacts_mode}:{use_contacts}")
+    if key in _PLANS:
+        return _PLANS[key]
+    j0 = np.asarray(model_np["joint_rbi0"])
+    j1 = np.asarray(model_np["joint_rbi1"])
+    lin = [build_pair_class("lin", j0, j1, 3)]
+    if use_contacts:
+        pairs = np.asarray(model_np["collide_pairs"])
+        lin.append(build_pair_class("lin", pairs[:, 0], pairs[:, 1],
+                                    3 * CONTACT_POINTS, friction=True,
+                                    mode=contacts_mode))
+    ang = []
+    if has_angles:
+        # tracker.runtime.apply_angles emission: drive, then the cones
+        cone_b1 = [4]
+        for finger in (1, 2, 3, 4):
+            cone_b1 += [3 + finger * 3, 2 + finger * 3]
+        ang.append(build_pair_class("ang", [-1], [1], 3))
+        ang.append(build_pair_class("ang", [1] * 9, cone_b1, 1))
+    ang.append(build_pair_class("ang", [-1], [0], 1))
+    ang.append(build_pair_class("ang", j0, j1, 6))
+    plan = SolvePlan(key=key, CS=CS, lin_classes=tuple(lin),
+                     ang_classes=tuple(ang),
+                     massinv=np.asarray(model_np["massinv"], np.float32))
+    _PLANS[key] = plan
+    return plan
+
+
+def build_unibody_plan(CS: int) -> SolvePlan:
+    """Solve plan of UnibodyFit (handtrack.h:444-470): one free body, CS
+    cloud rows solved in their sequential order, no pair classes, 8 body
+    slots (body 0 real)."""
+    key = f"uni:{CS}"
+    if key in _PLANS:
+        return _PLANS[key]
+    plan = SolvePlan(key=key, CS=CS, lin_classes=(), ang_classes=(),
+                     massinv=np.ones(1, np.float32), bp=8)
     _PLANS[key] = plan
     return plan
 
@@ -465,4 +520,6 @@ def pgs_solve(plan: SolvePlan, iterations: int, iterations_post: int, mom0,
                                           kernels.stream_ptr(dev))
     kernels.check(err, "pgs_solve")
     pgs_solve.launches += 1
+    kind = plan.key.split(":")[0]              # dyn, ms or uni
+    pgs_solve.kinds[kind] = pgs_solve.kinds.get(kind, 0) + 1
     return out

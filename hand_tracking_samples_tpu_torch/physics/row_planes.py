@@ -4,14 +4,15 @@ The port's counterpart of hand_tracking_samples_tpu.physics.row_planes: the
 same algebra, term for term, on (rows, T) planes with every body reference
 static (joint topology, collide pairs), so every gather is a constant index.
 Produces, per PairClassPlan (physics/pgs_kernel.py), the kernel's phase
-planes (T, n_phases, nch, W).  The multistep drives (apply_angles_*,
-armdir_cone) are a later slice.
+planes (T, n_phases, nch, W).
 
 Reference semantics per factory:
   * joint nailed rows      physics.h:342-346 via physmodel.h:328-334
   * joint angular ranges   physics.h:351-399 via physmodel.h:321-327
   * HandModelEnhancements  handtrack.h:402-441 (range mutation)
   * contact rows           physics.h:451-489 (fields from the contact kernel)
+  * ApplyAngles drive and finger cones   handtrack.h:203-216
+  * the enhancement arm cone             handtrack.h:430
 """
 from __future__ import annotations
 
@@ -64,6 +65,33 @@ def p_qrot(q, v):
 
 def p_norm(v):
     return torch.sqrt(v[0] * v[0] + v[1] * v[1] + v[2] * v[2])
+
+
+def p_safenormalize(v):
+    """maths.quat.safenormalize: +z for the zero vector."""
+    n = p_norm(v)
+    zero = n == 0.0
+    inv = 1.0 / torch.where(zero, torch.ones_like(n), n)
+    z0 = torch.zeros((), device=n.device)
+    return [torch.where(zero, z0, v[0] * inv),
+            torch.where(zero, z0, v[1] * inv),
+            torch.where(zero, torch.ones((), device=n.device), v[2] * inv)]
+
+
+def p_orth(v):
+    """maths.quat.orth: first-max argmax over |components|, zeroed,
+    crossed."""
+    ax, ay, az = v[0].abs(), v[1].abs(), v[2].abs()
+    i0 = (ax >= ay) & (ax >= az)
+    i1 = (~i0) & (ay >= az)
+    i2 = ~(i0 | i1)
+    one = torch.ones((), device=ax.device)
+    z0 = torch.zeros((), device=ax.device)
+    u = [torch.where(i0, z0, one), torch.where(i1, z0, one),
+         torch.where(i2, z0, one)]
+    c = p_cross(u, v)
+    inv = 1.0 / p_norm(c)
+    return [cc * inv for cc in c]
 
 
 def p_qzdir(q):
@@ -397,6 +425,92 @@ def joint_ang_geometry(P: PosePlanes, model_np, params, rmin, rmax):
     act = inter6([x_on, x_on & ~x_eq, tru, ~y_eq, tru, ~z_eq])
     return (np.repeat(j0, 6), np.repeat(j1, 6), axis, spins, mints,
             torch.full((6 * J, T), FLT_MAX, device=dev), act)
+
+
+# ---------------------------------------------------------------------------
+# ApplyAngles (handtrack.h:203-216) + enhancement arm cone (handtrack.h:430)
+# ---------------------------------------------------------------------------
+
+def _cone_rows(a0, a1, limit_deg, params):
+    """constrain_cone_angle's row math on (K, T) planes, limit > 0."""
+    axis = p_safenormalize(p_cross(a1, a0))
+    rbangle = torch.arccos(torch.clamp(p_dot(a0, a1), 0.0, 1.0))
+    dangle = rbangle - limit_deg * 3.14 / 180.0
+    return axis, dangle / params.deltaT      # bias = 1 (limit > 0)
+
+
+def apply_angles_drive(P: PosePlanes, palmq, camq, drive_force, params):
+    """The palm angular drive (3 rows, pair (-1, 1)).  palmq/camq: 4-lists
+    of (1, T) planes; drive_force a Python float."""
+    target = p_qmul(camq, palmq)
+    q1 = [P.q[c][1:2] for c in range(4)]
+    dq = p_qmul(q1, p_qconj(target))
+    neg = dq[3] < 0
+    dq = [torch.where(neg, -dq[c], dq[c]) for c in range(4)]
+    axis = p_safenormalize(dq[0:3])
+    binormal = p_orth(axis)
+    normal = p_cross(axis, binormal)
+    spin0 = (-params.biasfactorjoint
+             * (torch.arccos(torch.clamp(dq[3], -1.0, 1.0)) * 2.0)
+             / params.deltaT)
+    T = P.T
+    dev = spin0.device
+    zero = torch.zeros((1, T), device=dev)
+    ax = [torch.cat([axis[c], binormal[c], normal[c]], dim=0)
+          for c in range(3)]
+    spins = torch.cat([spin0, zero, zero], dim=0)
+    mint = torch.full((3, T), -float(drive_force), device=dev)
+    maxt = torch.full((3, T), float(drive_force), device=dev)
+    act = torch.ones((3, T), dtype=torch.bool, device=dev)
+    return ax, spins, mint, maxt, act
+
+
+def apply_angles_cones(P: PosePlanes, clenched, model_np, params,
+                       coneangle=10.0):
+    """The 9 finger cones (pair (1, b1) each, U=1).  clenched: (5, T)."""
+    jf = np.asarray(model_np["joint_frame"], np.float32)
+    T = P.T
+    dev = clenched.device
+    zero = torch.zeros((1, T), device=dev)
+    a0 = clenched[0:1]
+    n0s = [[torch.cos(a0), zero, torch.sin(a0)]]
+    b1s = [4]
+    for finger in (1, 2, 3, 4):
+        a = clenched[finger:finger + 1]
+        n0s.append([zero, -torch.sin(a), torch.cos(a)])
+        b1s.append(3 + finger * 3)
+        jfq = [torch.full((1, T), float(jf[1 + finger * 3, c]), device=dev)
+               for c in range(4)]
+        inner = [zero, -torch.sin(a / 2.0), torch.cos(a / 2.0)]
+        n0s.append(p_qrot(jfq, p_qrot(jfq, inner)))
+        b1s.append(2 + finger * 3)
+    K = len(b1s)
+    n0 = [torch.cat([n[c] for n in n0s], dim=0) for c in range(3)]
+    q1 = [P.q[c][1:2].expand(K, T) for c in range(4)]
+    a0w = p_qrot(q1, n0)
+    qb = [take(P.q[c], np.asarray(b1s)) for c in range(4)]
+    # a1 = qrot(q, (0,0,1)): the factory's qrot expansion, not qzdir
+    zk = torch.zeros((K, T), device=dev)
+    a1w = p_qrot(qb, [zk, zk, torch.ones((K, T), device=dev)])
+    axis, spins = _cone_rows(a0w, a1w, coneangle, params)
+    return (np.full(K, 1), np.asarray(b1s), axis, spins, zk,
+            torch.full((K, T), FLT_MAX, device=dev),
+            torch.ones((K, T), dtype=torch.bool, device=dev))
+
+
+def armdir_cone(P: PosePlanes, camq, params):
+    """hand_model_enhancements' arm cone: pair (-1, 0), limit 70 degrees,
+    armdir = qrot(camq, (0, -1, 0))."""
+    T = P.T
+    dev = camq[0].device
+    zero = torch.zeros((1, T), device=dev)
+    one = torch.ones((1, T), device=dev)
+    armdir = p_qrot(camq, [zero, -one, zero])
+    a1 = p_qrot([P.q[c][0:1] for c in range(4)], [zero, zero, one])
+    axis, spins = _cone_rows(armdir, a1, 70.0, params)
+    return (np.asarray([-1]), np.asarray([0]), axis, spins, zero,
+            torch.full((1, T), FLT_MAX, device=dev),
+            torch.ones((1, T), dtype=torch.bool, device=dev))
 
 
 # ---------------------------------------------------------------------------

@@ -1,15 +1,21 @@
 """HandTracker runtime: the per-frame tracking step (include/handtrack.h:
-748-785), the port's counterpart of hand_tracking_samples_tpu.tracker.runtime.
+693-785), the port's counterpart of hand_tracking_samples_tpu.tracker.runtime.
 
-This slice runs the dynamics-only frame on the kernel path, for every track
-at once (tracks are the leading dimension of the state and the depth):
+Every function runs all tracks at once (tracks are the leading dimension of
+the state, the depth and every intermediate), on the kernel path:
 
-  depth -> cloud kernel -> boundary-plane chamber rows -> cloud-rows kernel
-  -> joint / contact (contact kernel) / angular rows -> PGS kernel -> poses
+  dynamics frame   depth -> cloud kernel -> boundary-plane chamber rows ->
+                   cloud-rows kernel -> joint / contact (contact kernel) /
+                   angular rows -> PGS kernel -> poses
+  CNN frame        segmentation -> CNN -> FitError (vals kernel) -> reset
+                   (PoseFromScratch + UnibodyFit: unpacked-rows kernel and
+                   the PGS kernel's unibody plan, on the resetting tracks
+                   only) -> MultiStepSim (the PGS kernel's multistep plans)
+                   -> FitError -> take, then the dynamics frame
 
-Other settings of TrackerConfig (the CNN frame, the sequential and colored
-solvers, the voxel and mirror clouds, angles-only) raise NotImplementedError
-naming the slice that will bring them.
+Other settings of TrackerConfig (the sequential and colored solvers, the
+voxel and mirror clouds, angles-only) raise NotImplementedError naming the
+slice that will bring them.
 """
 from __future__ import annotations
 
@@ -18,10 +24,19 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..fitting.cloud import cloud_chamber_rows, rows_to_single_block
-from ..model.hand import fit_point_cloud, get_pose_user, initial_state
+from ..cnn.labels import CNNAnalysis, analyze_cnn_output
+from ..cnn.model import forward as cnn_forward
+from ..fitting.cloud import (cloud_chamber_rows, fit_error,
+                             rows_to_single_block)
+from ..imaging.image_ops import compact_planes
+from ..maths.pose import pose_inverse, pose_mul, pose_quat
+from ..maths.quat import qmul, quat_from_axis_angle, quat_from_to, qxdir, qydir
+from ..model.bake import FEATURE_BONES, FEATURE_OFFSETS
+from ..model.hand import (body_params, fit_fused, fit_point_cloud,
+                          fix_positions, get_pose_user, initial_state)
 from ..ops.cloud_kernel import cloud_from_depth_planes, planes_points
-from ..physics.solver import BodyState, PhysicsParams
+from ..physics.solver import BodyState, PhysicsParams, sanity_check
+from ..segment.handsegment import cnn_input_from_segment, hand_segment_vr
 from .config import TrackerConfig
 
 BOUNDARY_OUTDIRS = ((-1.0, -0.25, 0.0), (-1.0, -1.0, 0.0), (0.0, -1.0, 0.0),
@@ -71,8 +86,6 @@ def state_from_numpy(state, device):
 
 def _check_config(config: TrackerConfig):
     later = {
-        "cnn_every_frame": (config.cnn_every_frame, "the CNN frame "
-                            "(ROADMAP queue 1, items 12-13)"),
         "solver": (config.solver != "kernel", "the sequential and colored "
                    "solvers (ROADMAP queue 1, items 5-6)"),
         "use_pallas": (not config.use_pallas, "the reference-shaped cloud "
@@ -88,15 +101,356 @@ def _check_config(config: TrackerConfig):
         if bad:
             raise NotImplementedError(
                 f"TrackerConfig.{name}={getattr(config, name)!r}: the port "
-                f"runs the dynamics-only kernel-solver frame so far; "
+                f"runs the kernel-solver dynamics and CNN frames so far; "
                 f"{where} come in a later slice")
 
 
+_UNIBODY_TINV = 6.0 / (0.2 * 0.2)   # solid cube of side 0.2, unit mass
+
+
+class CnnDebug(NamedTuple):
+    """Last CNN inputs and outputs (handtrack.h:618-640), tracks leading."""
+    cnn_input: torch.Tensor     # (T, 64, 64)
+    cnn_output: torch.Tensor    # (T, 2304)
+    image_points: torch.Tensor  # (T, 8, 2)
+    segment_cam_pose: torch.Tensor  # (T, 7)
+
+
+# ---------------------------------------------------------------------------
+# PoseFromScratch (handtrack.h:473-506)
+# ---------------------------------------------------------------------------
+
+def pose_from_scratch(body: BodyState, model, analysis: CNNAnalysis, ph,
+                      camera_pose) -> BodyState:
+    """The hand placed from the CNN alone: the palm on the weighted cloud
+    centre along the palm ray, oriented by the net's palm angles, fingers
+    curled by its clench angles.  ph (T, 8, N) planes carrier;
+    camera_pose (T, 7)."""
+    points, mask = planes_points(ph)
+    crays = analysis.crays
+    palmray = crays[:, 0, :3] + crays[:, 1, :3] + crays[:, 2, :3]
+    palmray = palmray / torch.clamp(
+        torch.linalg.vector_norm(palmray, dim=-1, keepdim=True), min=1e-20)
+    c = torch.linalg.cross(points, palmray[:, None].expand_as(points))
+    w = 1.0 / (1e-6 + (c * c).sum(-1))
+    w = torch.where(mask, w, torch.zeros((), device=w.device))
+    wsum = 1e-11 + w.sum(1)
+    pcom = (points * w[..., None]).sum(1) / wsum[:, None]
+
+    st = model.start_pose
+    T = points.shape[0]
+    p1 = torch.cat([pcom, qmul(pose_quat(camera_pose), analysis.palmq)], -1)
+    dp = pose_mul(p1, pose_inverse(st[1]).expand(T, 7))
+    pose = pose_mul(dp[:, None].expand(T, st.shape[0], 7),
+                    st[None].expand(T, -1, -1)).contiguous()
+    xaxis = torch.tensor([1.0, 0.0, 0.0], device=pose.device).expand(T, 3)
+    for finger in (1, 2, 3, 4):
+        a = analysis.finger_clenched[:, finger]
+        jf = model.joint_frame[1 + finger * 3].expand(T, 4)
+        for k, mult in ((2, 0.5), (3, 1.0), (4, 1.25)):
+            b = k + finger * 3
+            pose[:, b, 3:7] = qmul(jf, qmul(
+                pose[:, b, 3:7], quat_from_axis_angle(xaxis, a * mult)))
+    z = torch.zeros_like(body.linear_momentum)
+    return fix_positions(BodyState(pose=pose, linear_momentum=z,
+                                   angular_momentum=z.clone()), model)
+
+
+# ---------------------------------------------------------------------------
+# UnibodyFit (handtrack.h:444-470)
+# ---------------------------------------------------------------------------
+
+def _subsample4(ph):
+    """takesubsample (handtrack.h:453, :679): the mask (T, N) of every 4th
+    valid point of the planes carrier ph, and N."""
+    mask = ph[:, 4] > 0.5
+    keep = mask & ((torch.cumsum(mask.to(torch.int64), 1) - 1) % 4 == 0)
+    return keep, ph.shape[2]
+
+
+def unibody_inputs(body: BodyState, model, params, ph, camera_position,
+                   unibody_force: float = 0.1) -> dict:
+    """What UnibodyFit's solve reads: the cloud rows against the
+    articulated hand (the unpacked-rows kernel on the stride-4 subsample),
+    retargeted to one free body at the palm (a cube of side 0.2 and unit
+    mass), prepped for the PGS kernel's unibody plan.  Returns a dict with
+    plan, mom0, mi, singles (pgs_kernel's layouts), uni_pose (T, 7) and
+    tinv."""
+    from ..ops.cloud_rows import cloud_rows_unibody
+    from ..physics.fused_fit import initial_momenta
+    from ..physics.pgs_kernel import (_batched_world_iinv, _prep_singles,
+                                      build_unibody_plan, check_slot_bound)
+    from ..physics.solver import BodyParams
+    keep, N = _subsample4(ph)
+    uph = compact_planes(ph, keep, max(N // 4, 64))
+    T = ph.shape[0]
+    dev = ph.device
+    uni_pose = body.pose[:, 1]                              # (T, 7)
+    blk = cloud_rows_unibody(body.pose, model, uph, camera_position,
+                             uni_pose[:, :3], unibody_force)
+    check_slot_bound((-unibody_force, unibody_force))
+    plan = build_unibody_plan(blk.targetdist.shape[1])
+    tinv = torch.eye(3, device=dev)[None] * _UNIBODY_TINV
+    one = torch.ones(1, device=dev)
+    ubody = BodyParams(massinv=one, tensorinv_massless=tinv,
+                       damping=torch.zeros(1, device=dev), gravscale=one,
+                       start_pose=uni_pose[:1])
+    z = torch.zeros((T, 1, 3), device=dev)
+    ustate = BodyState(pose=uni_pose[:, None], linear_momentum=z,
+                       angular_momentum=z)
+    mom0, mi = initial_momenta(ustate, ubody, params, plan.bp)
+    iinv = _batched_world_iinv(uni_pose[:, None, 3:7], tinv, one)
+    singles = _prep_singles(blk, iinv, one, params.deltaT, plan.bp)
+    return dict(plan=plan, mom0=mom0, mi=mi, singles=singles,
+                uni_pose=uni_pose, tinv=tinv)
+
+
+def unibody_pose(x: dict, out, body: BodyState, model, dt) -> BodyState:
+    """The free body's motion from the solve's momenta out (T, 2, 6, 8),
+    applied to every bone."""
+    from ..physics.solver import rkupdateq
+    uni_pose, T, B = x["uni_pose"], body.pose.shape[0], body.pose.shape[1]
+    pos = uni_pose[:, :3] + out[:, 0, 0:3, 0] * dt       # massinv 1
+    qn = rkupdateq(uni_pose[:, 3:7], x["tinv"], out[:, 0, 3:6, 0], dt)
+    dp = pose_mul(torch.cat([pos, qn], -1), pose_inverse(uni_pose))
+    pose = pose_mul(dp[:, None].expand(T, B, 7), body.pose)
+    return sanity_check(body._replace(pose=pose), body_params(model))
+
+
+def unibody_fit(body: BodyState, model, params, ph, camera_position,
+                unibody_force: float = 0.1, iterations: int = 16,
+                iterations_post: int = 4) -> BodyState:
+    """Rigid fit of the whole hand as one free body to the cloud
+    (unibody_inputs), solved in the rows' sequential order by the PGS
+    kernel's unibody plan, and the palm's motion applied to every bone.
+    ph (T, 8, N); camera_position (T, 3)."""
+    from ..physics.pgs_kernel import pgs_solve
+    x = unibody_inputs(body, model, params, ph, camera_position,
+                       unibody_force)
+    out = pgs_solve(x["plan"], iterations, iterations_post, x["mom0"],
+                    x["mi"], x["singles"], [], [])
+    return unibody_pose(x, out, body, model, params.deltaT)
+
+
+# ---------------------------------------------------------------------------
+# MultiStepSim (handtrack.h:642-690)
+# ---------------------------------------------------------------------------
+
+def _keypoint_block(body: BodyState, model, analysis, camera_pose,
+                    config: TrackerConfig):
+    """The CNN keypoint dead zones of MultiStepSim (handtrack.h:665-676):
+    for the features 3-7, two rows along each of the ray's two normal axes,
+    packed 4 slots per body."""
+    from ..physics.colored import pack_single_body_linear
+    from ..physics.constraints import constrain_along_direction_deadzone
+    from ..physics.solver import LinearRows
+    T = body.pose.shape[0]
+    dev = body.pose.device
+    zaxis = torch.tensor([0.0, 0.0, 1.0], device=dev).expand(T, 3)
+    start = 3 if config.steps_keyangles else 0
+    parts = []
+    for i in range(max(start, 3), 8):
+        ok = ((analysis.finger_clenched[:, i - 3] < 3.14 / 2.0)
+              & (analysis.crays[:, i, 3] >= config.min_cray_prob))
+        q = quat_from_to(zaxis, analysis.crays[:, i, :3])
+        bone = int(FEATURE_BONES[i])
+        offset = torch.tensor(FEATURE_OFFSETS[i], dtype=torch.float32,
+                              device=dev).expand(T, 3)
+        for axis in (qxdir(q), qydir(q)):
+            r = constrain_along_direction_deadzone(
+                camera_pose[:, :3], body.pose[:, bone], offset, axis, 0.01,
+                -100000.0, 100000.0, ok)
+            parts.append(r._replace(b1=torch.full_like(r.b1, bone)))
+    rows = LinearRows(*[torch.cat(xs, dim=1) for xs in zip(*parts)])
+    return pack_single_body_linear(rows, body.pose.shape[1], 4)
+
+
+def multistep_cloud(ph, camera_pose, config: TrackerConfig, B: int):
+    """MultiStepSim's cloud (handtrack.h:679): the stride-4 subsample,
+    compacted to ceil(budget/4) slots rounded up to 128 (the most it can
+    hold), with the cloud force min(cloudforce_max_point,
+    cloudforce_max_sum / points), a tenth of it on the wrist.  Returns the
+    fused fit's cloud argument (ph (T, 8, M), origin (T, 3), scale
+    (T, B))."""
+    mask = ph[:, 4] > 0.5
+    dev = ph.device
+    npts = torch.clamp(mask.sum(1), min=1).to(torch.float32)
+    cloudforce = torch.clamp(config.cloudforce_max_sum / npts,
+                             max=config.cloudforce_max_point)
+    keep, N = _subsample4(ph)
+    q4 = -(-N // 4)
+    mph = compact_planes(ph, keep, max(-(-q4 // 128) * 128, 128))
+    wrist = torch.where(torch.arange(B, device=dev) == 0,
+                        torch.full((), 0.1, device=dev),
+                        torch.ones((), device=dev))
+    return mph, camera_pose[:, :3], cloudforce[:, None] * wrist
+
+
+def multi_step_sim(body: BodyState, model, analysis: CNNAnalysis, ph,
+                   camera_pose, config: TrackerConfig,
+                   params) -> BodyState:
+    """The staged constraint schedule of the CNN refit: per step, the CNN
+    keypoint rows (steps < steps_keypoints), the subsampled cloud
+    (steps >= steps_cloudstart), the ApplyAngles drive and cones
+    (steps < steps_keyangles; palm drive torque while
+    steps < steps_palmangle), the arm cone and the joint ranges, solved by
+    the PGS kernel's multistep plan.  ph (T, 8, N); camera_pose (T, 7)."""
+    from ..physics.pgs_kernel import build_multistep_plan
+    bp = body_params(model)
+    body = sanity_check(body, bp)
+    cloud_all = multistep_cloud(ph, camera_pose, config, model.n_bodies)
+    camq = pose_quat(camera_pose)
+    aa = (analysis.palmq, analysis.finger_clenched, camq)
+    for s in range(config.steps):
+        has_angles = s < config.steps_keyangles
+        blocks, limits = [], []
+        if s < config.steps_keypoints:
+            blocks.append(_keypoint_block(body, model, analysis,
+                                          camera_pose, config))
+            limits.append(((0.0, -100000.0), (100000.0, 0.0)))
+        cloud = None
+        if config.steps_cloudstart <= s:
+            cloud = cloud_all
+        cs = sum(int(b.targetdist.shape[1]) for b in blocks)
+        if cloud is not None:
+            cs += config.cloud_rows_per_body
+        plan = build_multistep_plan(model.np, cs, has_angles,
+                                    config.contacts_mode,
+                                    bool(config.physics_use_collision))
+        body = fit_fused(
+            body, model, params, plan, blocks, limits, cloud=cloud,
+            cloud_limits=(-1.0, 1.0),        # +-scale, scale >= 0
+            cloud_slots=(config.cloud_rows_per_body if cloud is not None
+                         else 0),
+            mode="ms_angles" if has_angles else "ms_noangles", aa=aa,
+            drive_force=10000.0 if s < config.steps_palmangle else 0.0,
+            iterations=config.physics_iterations,
+            iterations_post=config.physics_iterations_post)
+        body = body._replace(
+            linear_momentum=torch.zeros_like(body.linear_momentum),
+            angular_momentum=torch.zeros_like(body.angular_momentum))
+    return sanity_check(body, bp)
+
+
+# ---------------------------------------------------------------------------
+# the reset branch (handtrack.h:712-719), on the resetting tracks only
+# ---------------------------------------------------------------------------
+
+def _take(x, idx):
+    return type(x)(*[_take(f, idx) for f in x]) if isinstance(x, tuple) \
+        else x[idx]
+
+
+def reset_tracks(do_reset, body: BodyState, model, analysis, ph,
+                 camera_pose, config: TrackerConfig, params) -> BodyState:
+    """PoseFromScratch and steps_unibody UnibodyFits for the tracks whose
+    do_reset (T,) is set; the others keep `body`.  The resetting tracks are
+    gathered (one host read of the decision), run as one batch and
+    scattered back; a frame where no track resets launches nothing here."""
+    idx = torch.nonzero(do_reset).flatten()
+    if idx.numel() == 0:
+        return body
+    cam = camera_pose[idx]
+    ph_r = ph[idx]
+    b = pose_from_scratch(_take(body, idx), model, _take(analysis, idx),
+                          ph_r, cam)
+    for _ in range(config.steps_unibody):
+        b = unibody_fit(b, model, params, ph_r, cam[:, :3],
+                        config.unibody_force, config.physics_iterations,
+                        config.physics_iterations_post)
+    out = []
+    for full, part in zip(body, b):
+        full = full.clone()
+        full[idx] = part
+        out.append(full)
+    return BodyState(*out)
+
+
+# ---------------------------------------------------------------------------
+# update_cnn_model (handtrack.h:693-746)
+# ---------------------------------------------------------------------------
+
+def _cnn_frame_inputs(cnn_params, depth, cam, config: TrackerConfig,
+                      ph=None):
+    """The CNN frame's prologue: segment, net forward, decode, cloud.
+    Returns (seg, analysis, cnn_input, cnn_output, ph)."""
+    drange = (0.1, config.drangey)
+    seg = hand_segment_vr(depth, cam, 0xF, drange, config.segment_scale)
+    cnn_input = cnn_input_from_segment(seg.depth, cam.depth_scale, drange)
+    cnn_output = cnn_forward(cnn_params, cnn_input)
+    analysis = analyze_cnn_output(cnn_output, seg.cam.sub(4))
+    if ph is None:
+        ph = cloud_from_depth_planes(depth, cam, drange[0], drange[1],
+                                     config.subsample_fraction,
+                                     config.point_budget)
+    return seg, analysis, cnn_input, cnn_output, ph
+
+
+def update_cnn_model(state: TrackerState, model, cnn_params, depth, cam,
+                     config: TrackerConfig, params, ph=None):
+    """The background-thread body of the reference, for every track:
+    FitError of the current pose, a reset where it exceeds
+    full_reset_on_error, MultiStepSim, FitError of the result, and the
+    take decision.  depth (T, H, W) int16 (u16 bits); ph: the frame's cloud
+    (planes carrier) when the caller has it.  Returns (state, CnnDebug)."""
+    _check_config(config)
+    seg, analysis, cnn_input, cnn_output, ph = _cnn_frame_inputs(
+        cnn_params, depth, cam, config, ph)
+    olderror = fit_error(state.body.pose, model, ph, depth, cam,
+                         config.bone_sum_error_scale)
+    do_reset = olderror > config.full_reset_on_error
+    other = reset_tracks(do_reset, state.body, model, analysis, ph,
+                         seg.cam.pose, config, params)
+    other = multi_step_sim(other, model, analysis, ph, seg.cam.pose, config,
+                           params)
+    newerror = fit_error(other.pose, model, ph, depth, cam,
+                         config.bone_sum_error_scale)
+    zero = torch.zeros((), device=olderror.device)
+    prev = torch.where(newerror > olderror, zero,
+                       state.prev_frame_error + (olderror - newerror))
+    npts = (ph[:, 4] > 0.5).sum(1)
+    init_take = (npts > config.min_point_num) & (state.initializing > 0)
+    if config.init_take_gated:
+        init_take = init_take & (newerror <= olderror)
+    take = init_take | bool(config.always_take_cnn) \
+        | (prev > config.accum_error_threshold)
+    prev = torch.where(prev > config.accum_error_threshold, zero, prev)
+    initializing = torch.clamp(state.initializing - 1, min=0)
+    body = state.body._replace(pose=torch.where(
+        take[:, None, None], other.pose, state.body.pose))
+    dbg = CnnDebug(cnn_input=cnn_input, cnn_output=cnn_output,
+                   image_points=analysis.image_points,
+                   segment_cam_pose=seg.cam.pose)
+    return TrackerState(body, prev, initializing), dbg
+
+
+def kickstart(state: TrackerState, model, cnn_params, depth, cam, config,
+              params):
+    """handtrack.h:743: run the CNN frame synchronously and take its pose
+    (the returned state already holds the taken pose)."""
+    return update_cnn_model(state, model, cnn_params, depth, cam, config,
+                            params)
+
+
+def kickstart_multi(*args, **kwargs):
+    raise NotImplementedError(
+        "kickstart_multi (multi-hypothesis re-acquisition) comes in a later "
+        "slice of the port (ROADMAP queue 1, item 13)")
+
+
+# ---------------------------------------------------------------------------
+# update (handtrack.h:748-785)
+# ---------------------------------------------------------------------------
+
 def update(state: TrackerState, model, depth, cam, config: TrackerConfig,
-           params: PhysicsParams | None = None):
+           params: PhysicsParams | None = None, cnn_params=None,
+           run_cnn: bool | None = None):
     """Per-frame tracking step for every track.  depth: (T, H, W) int16
     (u16 bits, ops.cloud_kernel.depth_tensor); state: TrackerState with
-    leading dimension T.  Returns (state, user poses (T, 17, 7))."""
+    leading dimension T.  run_cnn overrides config.cnn_every_frame for this
+    call (the cadence hook of parallel.tracks.track_sequences); the CNN
+    frame needs cnn_params (cnn.model.load_cnnb).  Returns (state, user
+    poses (T, 17, 7), CnnDebug or None)."""
     from ..physics.pgs_kernel import build_dynamics_plan
     _check_config(config)
     if params is None:
@@ -110,6 +464,13 @@ def update(state: TrackerState, model, depth, cam, config: TrackerConfig,
                                  config.point_budget)
     points, mask = planes_points(ph)
     npts = mask.sum(-1)
+    dbg = None
+    if config.cnn_every_frame if run_cnn is None else run_cnn:
+        if cnn_params is None:
+            raise ValueError("the CNN frame needs cnn_params "
+                             "(cnn.model.load_cnnb)")
+        state, dbg = update_cnn_model(state, model, cnn_params, depth, cam,
+                                      config, params, ph)
     body = state.body
     B = model.n_bodies
     for _ in range(config.mainthreadpasses):
@@ -132,4 +493,4 @@ def update(state: TrackerState, model, depth, cam, config: TrackerConfig,
                                torch.full_like(state.initializing, 50),
                                state.initializing)
     state = TrackerState(body, state.prev_frame_error, initializing)
-    return state, get_pose_user(body, model)
+    return state, get_pose_user(body, model), dbg

@@ -2,21 +2,14 @@
 the JAX package's 12-channel solve pack (ops.cloud_rows.cloud_rows_solve_ph,
 its Pallas kernel in interpret mode), batched over tracks.
 
-Tolerance: the same winners (slot occupancy) and per-body counts exactly;
-n, J1, tsm*dt (= targetdist) and the force scale within 1e-6, the JAX
-suite's bound on the row fields (test_cloud_rows_kernel.py:49).  K1 =
-Iinv_w J1 and dinv are derived channels: the world inverse inertia (entries
-up to ~3e3) scales J1's last-ulp differences (~3e-8) to ~1e-4, so they are
-held to 1e-5 of the channel's largest value (K1 reaches ~3e2).  The one
-exception is the hull-normal blend: the hulls carry near-coplanar plane
-pairs, and where a point's two best planes tie to the last ulp the normal is
-their mean in one implementation and one plane in the other (the JAX CPU
-build contracts the plane dot into FMAs, the port does not).  Tie slots are
-found from the inputs: a hull winner whose two best plane values lie within
-4 ulp of the point's |x|+|y|+|z|.  Every slot whose normal differs by more
-than 1e-6 must be such a tie; those slots must stay rare (at most 0.5% of
-the active slots) and within 1e-3, and every other slot is held to the
-tolerances above."""
+Tolerance: the same winners (slot occupancy) and per-body counts exactly,
+and every channel of every active slot within 1e-6, the JAX suite's bound
+on the row fields (test_cloud_rows_kernel.py:49), tsm compared as
+tsm*dt (= targetdist).  The port computes the plane values that pick the
+winner and the hull-normal blend, the world inverse inertia and J1, K1 and
+dinv with the JAX CPU build's contracted expressions (maths/fma.py), so
+near-coplanar hull planes that tie to the last ulp tie in both packages
+(measured: every channel bit-identical at both widths)."""
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -32,7 +25,7 @@ from hand_tracking_samples_tpu.ops.cloud_rows import (
 from hand_tracking_samples_tpu.physics.solver import BodyState as JBody
 from hand_tracking_samples_tpu_torch.model.bake import from_numpy_model
 from hand_tracking_samples_tpu_torch.ops.cloud_rows import (
-    _kernel_inputs_ph, cloud_rows_solve_plain, point_rows_plain)
+    _kernel_inputs_ph, cloud_rows_solve_plain)
 from tests.conftest import cached_fake_depths
 
 # the port tests run small tensors: one intra-op thread each, so the
@@ -55,24 +48,6 @@ def _case(hand_model, budget):
     return poses, np.asarray(ph)
 
 
-def _tie_slots(ph, args, slots, width):
-    """(T, width) bool: the packed slots whose point is a hull winner with
-    its two best plane values within 4 ulp of |x|+|y|+|z|, from the
-    inputs (the port's float32 plane values, not either output)."""
-    _, col, _, dw, use_hull = point_rows_plain(torch.tensor(ph), *args,
-                                               slots)
-    top2 = torch.topk(dw, 2, dim=1).values.numpy()          # (T, 2, N)
-    mag = np.abs(ph[:, :3]).sum(1)
-    tie_pt = use_hull.numpy() & (top2[:, 0] - top2[:, 1]
-                                 <= 4 * np.finfo(np.float32).eps * mag)
-    col = col.numpy()
-    tie = np.zeros((len(ph), width), bool)
-    for t in range(len(ph)):
-        k = col[t] >= 0
-        tie[t, col[t][k]] = tie_pt[t][k]
-    return tie
-
-
 def _compare(hand_model, budget, slots):
     poses, ph = _case(hand_model, budget)
     B = 17
@@ -91,27 +66,17 @@ def _compare(hand_model, budget, slots):
                              torch.tensor(scale_b), DT)
     tp, tc = cloud_rows_solve_plain(torch.tensor(ph), *args, slots)
     tp, tc = tp.numpy(), tc.numpy()
-    tie = _tie_slots(ph, args, slots, tp.shape[2])
 
     np.testing.assert_array_equal(tc, jc[:, :, 0])          # counts
     occ = jp[:, 9] != 0
     np.testing.assert_array_equal(tp[:, 9] != 0, occ)       # winners, slots
     assert occ.sum() > 100
     d = np.abs(tp - jp)
-    differ = d[:, 0:3].max(1) > 1e-6                        # (T, slots)
-    assert not (differ & ~tie).any(), np.argwhere(differ & ~tie)
-    assert differ.sum() <= max(1, 0.005 * occ.sum()), differ.sum()
-    assert d[:, 0:3].max() < 1e-3
-    ok = ~tie
     for ch in range(12):
-        err = d[:, ch][ok].max()
-        tol = 1e-6
-        if ch in (6, 7, 8, 9):                 # K1, dinv: relative
-            err = err / np.abs(jp[:, ch]).max()
-            tol = 1e-5
-        elif ch == 10:                         # tsm = td / dt
+        err = d[:, ch][occ].max()
+        if ch == 10:                           # tsm = td / dt
             err = err * DT
-        assert err < tol, (ch, err)
+        assert err < 1e-6, (ch, err)
     return tc
 
 

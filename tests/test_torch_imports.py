@@ -44,7 +44,7 @@ def test_port_imports_no_jax():
 
 
 def test_wrappers_registered_and_plain_on_cpu():
-    """The four kernel wrappers register their launch counts; on CPU
+    """The six kernel wrappers register their launch counts; on CPU
     tensors they run the plain version and count no launch."""
     from hand_tracking_samples_tpu_torch import kernels
     from hand_tracking_samples_tpu_torch.imaging.camera import DCamera
@@ -53,6 +53,7 @@ def test_wrappers_registered_and_plain_on_cpu():
     import hand_tracking_samples_tpu_torch.physics.contact_kernel  # noqa
     import hand_tracking_samples_tpu_torch.physics.pgs_kernel  # noqa: F401
     assert set(kernels.counts()) == {"cloud_from_depth", "cloud_rows_solve",
+                                     "cloud_rows_unpacked", "cloud_vals",
                                      "contact_fields", "pgs_solve"}
     kernels.reset_counts()
     cam = DCamera.make((64, 8), (30.0, 30.0), (32.0, 4.0), 0.001)
@@ -73,14 +74,37 @@ def test_config_matches_jax_package():
 
 def test_entry_points_refuse_later_slices():
     from hand_tracking_samples_tpu_torch.tracker.config import TrackerConfig
-    from hand_tracking_samples_tpu_torch.tracker.runtime import _check_config
-    _check_config(TrackerConfig(cnn_every_frame=False, solver="kernel",
-                                use_pallas=True))
-    for kw in (dict(), dict(solver="colored"), dict(use_pallas=False)):
-        cfg = dict(cnn_every_frame=False, solver="kernel", use_pallas=True)
-        cfg.update(kw or dict(cnn_every_frame=True))
+    from hand_tracking_samples_tpu_torch.tracker import runtime
+    for cnn in (False, True):                  # the two ported frames
+        runtime._check_config(TrackerConfig(cnn_every_frame=cnn,
+                                            solver="kernel",
+                                            use_pallas=True))
+    for kw in (dict(angles_only=True), dict(solver="colored"),
+               dict(use_pallas=False), dict(subsample_voxel=1),
+               dict(mirror_plane=(0.0, 0.0, 1.0, 0.0))):
+        cfg = dict(cnn_every_frame=True, solver="kernel", use_pallas=True)
+        cfg.update(kw)
         with pytest.raises(NotImplementedError):
-            _check_config(TrackerConfig(**cfg))
+            runtime._check_config(TrackerConfig(**cfg))
+    with pytest.raises(NotImplementedError):
+        runtime.kickstart_multi()
+
+
+def test_every_port_module_imports():
+    """Every module of the port imports on a machine without CUDA, nvcc
+    or Triton, and importing builds no kernel."""
+    import importlib
+    import pkgutil
+    import hand_tracking_samples_tpu_torch as pkg
+    from hand_tracking_samples_tpu_torch import kernels
+    names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                                   pkg.__name__ + ".")]
+    for name in ("cnn.model", "cnn.labels", "segment.handsegment",
+                 "imaging.heatmaps", "imaging.image_ops", "maths.fma"):
+        assert f"{pkg.__name__}.{name}" in names, name
+    for name in names:
+        importlib.import_module(name)
+    assert kernels._LIB is None
 
 
 def test_device_helper():
