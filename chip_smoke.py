@@ -36,11 +36,30 @@ Phases, each printing one line with its elapsed seconds:
   8. the CNN frame's timing, its device-time split, and the new kernels
      and plans timed at its T=512 shapes, each held to its plain version
      again under phase 6's tolerances
+  9. the reference solvers' kernels against their plain versions, bit for
+     bit, at T=4 and at T=512 (the T=512 ones timed): the correspondence
+     kernel and the row sweep on a sequential and on a colored solve's
+     rows; and the reference-layout contact rows at T=512 on poses with
+     active contacts (the golden's contact pose and animbank poses)
+ 10. the sequential frame (use_pallas=True) at T=512 for 30 frames on
+     phase 4's renders: even tracks held to golden.json's dyntrack poses
+     (per frame < 1.5 mm, mean <= 1.0 mm, tests/test_tracker_e2e.py:39),
+     odd tracks to the JAX package's curve on the same renders
+     (SEQ_ODD_BAND_MM); the colored frame against the sequential one at
+     2048 cloud rows a body (no body thinned) over 3 frames (COLORED_M,
+     COLORED_QUAT); two tracks through the plain versions on the CPU
+     (< 1e-4 m); the sequential frame with use_pallas=False on two tracks
+     against the CPU (< 1e-4 m) and its peak memory at T=64; the new
+     kernels launched every frame
+ 11. both reference solvers' frame time at T=512, their device-time split
+     and the launch counts of the timed frames
 
 Each phase drives its path with the launch counts set to 0 just before it
 and reads them just after.  The line before the last is the kernels' JSON
 record (launches: the dynamics path's for the first four kernels, the CNN
-frame's for the rest); the last line is
+frame's for kernels 6-7 and the plans, the sequential frame's (phase 10)
+for the correspondence kernel and the row sweep, the colored frame's
+(phase 11) for the row sweep on colored rows); the last line is
 {"ok": true, "device": {...}}.  Exits non-zero, printing no result, when a
 phase fails, when there is no CUDA device, or when run outside the
 repository.  --json PATH writes every measured number to PATH.
@@ -90,12 +109,35 @@ KERNELS = {   # name: (source, the TPU kernel it replaces)
                             f"{JAXPKG}/ops/cloud_rows.py:34"),
     "cloud_vals": (f"{PORT}/csrc/cloud_rows.cu",
                    f"{JAXPKG}/ops/cloud_rows.py:34"),
+    "correspondence": (f"{PORT}/csrc/correspondence.cu",
+                       f"{JAXPKG}/ops/correspondence.py:32"),
+    # no Pallas kernel: the JAX package's sequential solve is a lax.scan
+    "row_sweep": (f"{PORT}/csrc/row_sweep.cu",
+                  f"{JAXPKG}/physics/solver.py:223"),
 }
 FIRST = ("cloud_from_depth", "cloud_rows_solve", "contact_fields",
          "pgs_solve")            # the dynamics path's kernels (phases 3-5)
 # the PGS kernel's plans that the CNN frame adds: row name -> plan kind
 PLANS = {"pgs_solve[multistep]": "ms", "pgs_solve[unibody]": "uni"}
 NEW = ("cloud_rows_unpacked", "cloud_vals") + tuple(PLANS)
+# the row sweep on the colored solver's rows: the JAX colored solve's
+# fori_loops (physics/colored.py:300)
+REF_ROWS = {"row_sweep[colored]": (f"{PORT}/csrc/row_sweep.cu",
+                                   f"{JAXPKG}/physics/colored.py:300")}
+REF_CPU_FRAMES = 2        # frames of the reference solvers' CPU re-run
+REF_TIMED_FRAMES = 10     # frames timed per reference solver (phase 11)
+# The odd tracks on the sequential solver against the JAX package's curve
+# on the same renders (tests/test_torch_seq_frame.jax_odd_curve), |port -
+# JAX| of the per-frame mean joint error in mm: before the fast motion
+# (frames 0-7), on any frame, and on the last five.  Set from the measured
+# gaps (PERF.md: on an H100 at most 0.002, 0.384 and 0.044 mm; on the CPU
+# 0.032 mm over all frames).
+SEQ_ODD_BAND_MM = dict(before=0.02, any=2.0, last5=0.5)
+# Colored against sequential over 3 frames with no cloud row thinned:
+# position in m (tests/test_colored_solver.py:38) and quat_err.  Measured
+# 0 and 0 on an H100 (PERF.md), as on the CPU.
+COLORED_M, COLORED_QUAT = 1e-5, 1e-5
+NOPALLAS_MEM_TRACKS = 64  # tracks of the use_pallas=False memory reading
 
 
 class PhaseError(RuntimeError):
@@ -152,7 +194,7 @@ class Smoke:
         from hand_tracking_samples_tpu_torch.data.synth import fake_depth
         self.fake = fake_depth(torch.tensor(self.bank[30:60], device=self.dev),
                                self.model, self.cam, chunk=8)
-        self.results = {k: {} for k in (*KERNELS, *PLANS)}
+        self.results = {k: {} for k in (*KERNELS, *PLANS, *REF_ROWS)}
         self.cnn_cfg = TrackerConfig(cnn_every_frame=True, cnn_every_k=1,
                                      solver="kernel", use_pallas=True,
                                      point_budget=2048,
@@ -174,7 +216,7 @@ class Smoke:
         pose = b[torch.arange(T, device=self.dev) % 2]
         return st._replace(body=st.body._replace(pose=pose))
 
-    def run(self, st, frames, T, idx=None, keep=None):
+    def run(self, st, frames, T, idx=None, keep=None, cfg=None):
         from hand_tracking_samples_tpu_torch.parallel.tracks import (
             batched_update)
         hist = []
@@ -183,7 +225,7 @@ class Smoke:
             if idx is not None:
                 d = d[idx]
             st, _ = batched_update(st, self.model, None, d, self.cam,
-                                   self.cfg, self.params)
+                                   cfg or self.cfg, self.params)
             if keep is not None:
                 hist.append(keep(st))
         return st, hist
@@ -450,7 +492,7 @@ class Smoke:
                 f"m; "
                 f"launches {counts}")
 
-    def cpu_reference(self, poses):
+    def cpu_reference(self, poses, cfg=None):
         """Tracks 0 and 1 through the plain versions on the CPU; returns
         the largest position difference from `poses` (per-frame (2, B, 7)
         card results)."""
@@ -466,7 +508,7 @@ class Smoke:
         for f, ref in enumerate(poses):
             st, _ = batched_update(st, model, None,
                                    self.depth_frame(f, 2).cpu(), self.cam,
-                                   self.cfg, self.params)
+                                   cfg or self.cfg, self.params)
             err = max(err, (st.body.pose[..., :3]
                             - ref[..., :3].cpu()).abs().max().item())
         check(err < 1e-4, f"CPU plain reference differs: {err} m")
@@ -538,8 +580,9 @@ class Smoke:
                 return getattr(e, "self_device_time_total",
                                getattr(e, "self_cuda_time_total", 0))
             ours = ("cloud_from_depth_kernel", "cloud_rows_solve_kernel",
-                    "cloud_rows_unpacked_kernel", "contact_fields_kernel",
-                    "pgs_kernel")
+                    "cloud_rows_unpacked_kernel", "cloud_vals_kernel",
+                    "contact_fields_kernel", "pgs_kernel",
+                    "correspondence_kernel", "row_sweep_kernel")
             own = [e for e in dev if e.key.startswith(ours)]
             total = sum(us(e) for e in dev)
             check(total > 0, "the profiler recorded no device time")
@@ -901,6 +944,325 @@ class Smoke:
                 f"{T * F / dt:.1f} tracked frames/s{busy}; "
                 + "; ".join(parts))
 
+    # ---- the reference solvers: phases 9-11 --------------------------------
+    def ref_cfg(self, solver, use_pallas=True, **kw):
+        from hand_tracking_samples_tpu_torch.tracker.config import (
+            TrackerConfig)
+        return TrackerConfig(cnn_every_frame=False, solver=solver,
+                             use_pallas=use_pallas, point_budget=2048, **kw)
+
+    def ref_inputs(self, st, depth):
+        """The new kernels' inputs for one reference frame of state st:
+        the correspondence kernel's, and the row sweep's for one sequential
+        and one colored solve (the frame's rows: chamber, cloud, joints,
+        contacts, ranges)."""
+        from hand_tracking_samples_tpu_torch.model.hand import body_params
+        from hand_tracking_samples_tpu_torch.ops import correspondence as oc
+        from hand_tracking_samples_tpu_torch.ops.cloud_kernel import (
+            cloud_from_depth_planes, planes_points)
+        from hand_tracking_samples_tpu_torch.physics.colored import (
+            colored_sweep_inputs)
+        from hand_tracking_samples_tpu_torch.physics.schedule import (
+            build_hand_schedule)
+        from hand_tracking_samples_tpu_torch.physics.solver import (
+            sweep_inputs)
+        from hand_tracking_samples_tpu_torch.tracker.runtime import (
+            reference_frame_rows)
+        cfg, m, body = self.ref_cfg("sequential"), self.model, st.body
+        ph = cloud_from_depth_planes(depth, self.cam, 0.1, cfg.drangey,
+                                     cfg.subsample_fraction,
+                                     cfg.point_budget)
+        pts, mask = planes_points(ph)
+        pw = oc.world_planes(body.pose, m)
+        out = {"correspondence": (oc.points_h(pts), pw,
+                                  oc.origin_dots(pw, m, (0.0, 0.0, 0.0)))}
+        it, ip = cfg.physics_iterations, cfg.physics_iterations_post
+        for name, sched, fn in (
+                ("row_sweep", None, sweep_inputs),
+                ("row_sweep[colored]", build_hand_schedule(m.np),
+                 colored_sweep_inputs)):
+            lin, ang = reference_frame_rows(body, m, self.params, pts, mask,
+                                            cfg, sched)
+            mom0, rows = fn(body, body_params(m), lin, ang, self.params)
+            out[name] = (mom0, m.massinv, rows, it, ip)
+        return out
+
+    def hold_ref(self, name, k, p):
+        """The new kernels equal their plain versions bit for bit."""
+        torch = self.torch
+        if name == "correspondence":
+            err = max((a.float() - b.float()).abs().max().item()
+                      for a, b in zip(k, p))
+            check(all(torch.equal(a, b) for a, b in zip(k, p)),
+                  f"correspondence differs from its plain version: {err}")
+            hit = ((p[4] == 0) & (p[2] <= p[3])).float().mean().item()
+            return err, f"correspondence {err:.3g} (ray hits {hit:.3f})"
+        err = (k - p).abs().max().item()
+        check(err == 0.0, f"{name} differs from its plain version: {err}")
+        return err, f"{name} momenta {err:.3g}"
+
+    def work_ref(self, name, args):
+        """(bytes, float32 operations) of one call on these inputs."""
+        torch = self.torch
+        if name == "correspondence":
+            pts_h, planes, d0 = args
+            T, B, P = d0.shape
+            N = pts_h.shape[2]
+            # slab divisions: where an origin-side plane is crossed
+            ndiv = 0
+            for i in range(0, T, 16):
+                pl, dd, ph = planes[i:i + 16], d0[i:i + 16], pts_h[i:i + 16]
+                d1 = torch.einsum("tbpk,tkn->tbpn", pl[..., :4],
+                                  ph[:, :4])
+                a = dd[..., None]
+                ndiv += int((((a >= 0) & (d1 < 0)) | ((a <= 0) & (d1 > 0)))
+                            .sum())
+            nbytes = T * N * 3 * 4 + T * B * P * 5 * 4 + 5 * T * B * N * 4
+            return nbytes, T * B * P * N * 12 + ndiv * 2
+        mom0, mi, rows, it, ip = args
+        T = mom0.shape[0]
+        al = int(((rows.lm >> 16) & 1).sum())
+        aa = int(((rows.am >> 16) & 1).sum())
+        nbytes = (al * 21 + aa * 14 + rows.lm.numel() + rows.am.numel()
+                  + mom0.numel() * 3) * 4
+        return nbytes, (al * 43 + aa * 20) * (it + ip)
+
+    def compare_ref(self):
+        """Phase 9: kernel 8 and the row sweep (a sequential and a colored
+        solve) against their plain versions at T=4 and T=512, bit for bit;
+        at T=512 timed (kernel: CUDA events over repeated launches; plain:
+        once) beside their bounds and the batched matmul of the dots alone;
+        and the reference-layout contact rows at T=512 on poses with
+        active contacts."""
+        torch = self.torch
+        from hand_tracking_samples_tpu_torch.ops.correspondence import (
+            correspondence_reductions, correspondence_reductions_plain)
+        from hand_tracking_samples_tpu_torch.physics.row_sweep import (
+            row_sweep, row_sweep_plain)
+        fns = {"correspondence": (correspondence_reductions,
+                                  correspondence_reductions_plain),
+               "row_sweep": (row_sweep, row_sweep_plain),
+               "row_sweep[colored]": (row_sweep, row_sweep_plain)}
+        lines = []
+        for T in (4, TRACKS):
+            st = self.init_state(T)
+            if T == TRACKS:                  # one frame in: momenta non-zero
+                st, _ = self.run(st, 1, T, cfg=self.ref_cfg("sequential"))
+            inp = self.ref_inputs(st, self.depth_frame(1, T))
+            for name, (kfn, pfn) in fns.items():
+                args = inp[name]
+                if T == 4:
+                    err, note = self.hold_ref(name, kfn(*args), pfn(*args))
+                    self.results[name]["max_abs_err_t4"] = err
+                    lines.append(f"T=4 {note}")
+                    continue
+                ms, k = self.event_ms(kfn, args, warm=2, reps=5)
+                plain_ms, p = self.event_ms(pfn, args, warm=0, reps=1)
+                err, note = self.hold_ref(name, k, p)
+                nbytes, ops = self.work_ref(name, args)
+                tb, to = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_S * 1e3
+                self.results[name].update(
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=max(tb, to),
+                    bound_by="bytes" if tb >= to else "operations",
+                    library_ms=None, bytes=nbytes, operations=ops)
+                if name == "correspondence":
+                    pts_h, planes, _ = args
+                    dots_ms, _ = self.event_ms(
+                        lambda a, b: torch.matmul(
+                            a.reshape(T, -1, 8), b), (planes, pts_h),
+                        warm=2, reps=5)
+                    self.results[name]["dots_only_matmul_ms"] = dots_ms
+                    note += f"; dots-only matmul {dots_ms:.4f} ms"
+                lines.append(f"T={T} {name} {ms:.4f} ms (plain "
+                             f"{plain_ms:.1f} ms, bound {max(tb, to):.4f} "
+                             f"ms; {note})")
+        lines.append(self.contacts_active_t512())
+        return "; ".join(lines)
+
+    def contacts_active_t512(self):
+        """The reference-layout contact rows (contacts.contact_rows_from_
+        fields) at T=512 on the golden's contact pose and a spread of
+        animbank poses, tiled, with small random momenta: the kernel's
+        fields and rows against the plain version's."""
+        torch, np = self.torch, self.np
+        from hand_tracking_samples_tpu_torch.physics.contact_kernel import (
+            contact_fields_plain, contact_fields_raw, contact_inputs,
+            fields_of)
+        from hand_tracking_samples_tpu_torch.physics.contacts import (
+            contact_rows_from_fields)
+        with open(os.path.join(REPO, "tests", "fixtures", "golden.json")) as f:
+            cf = int(json.load(f)["contact_frame"][0])
+        frames = [cf] + list(range(0, len(self.bank),
+                                   len(self.bank) // 63))[:63]
+        frames = (frames * (TRACKS // len(frames) + 1))[:TRACKS]
+        rng = np.random.RandomState(5)
+        f32 = lambda a: torch.tensor(a.astype(np.float32), device=self.dev)
+        cin = contact_inputs(f32(self.bank[frames]),
+                             f32(rng.randn(TRACKS, 17, 3) * 1e-3),
+                             f32(rng.randn(TRACKS, 17, 3) * 1e-4),
+                             self.model)
+        pairs = torch.as_tensor(self.model.np["collide_pairs"],
+                                device=self.dev)
+        args = cin + (pairs, 4, 3, self.params.driftmax)
+        k, p = contact_fields_raw(*args), contact_fields_plain(*args)
+        err, note = self.hold("contact_fields", k, p)
+        rk = contact_rows_from_fields(fields_of(k), self.model, self.params)
+        rp = contact_rows_from_fields(fields_of(p), self.model, self.params)
+        check(torch.equal(rk.active, rp.active),
+              "contact rows: active masks differ")
+        act = rp.active
+        nact = int(act.sum())
+        check(nact > 0, "contact rows: no active row at T=512")
+        rerr = max((getattr(rk, f) - getattr(rp, f))[act].abs().max().item()
+                   for f in ("normal", "r0", "r1", "targetdist",
+                             "targetspeednobias"))
+        check(rerr <= 2e-5, f"contact rows differ: {rerr}")
+        self.results["contact_fields"]["t512_active_rows"] = nact
+        self.results["contact_fields"]["t512_active_rows_err"] = rerr
+        return (f"T={TRACKS} contact poses: {note}; reference rows "
+                f"{nact} active compared, max err {rerr:.3g}")
+
+    def ref_slice(self):
+        """Phase 10: the sequential frame (use_pallas=True) at T=512 x 30
+        frames on phase 4's renders; the colored frame against it with no
+        body thinned; two tracks through the plain versions on the CPU;
+        use_pallas=False on the card against the CPU."""
+        torch, np = self.torch, self.np
+        from hand_tracking_samples_tpu_torch import kernels
+        T, F = TRACKS, FRAMES
+        cfg = self.ref_cfg("sequential")
+        even = torch.arange(0, T, 2, device=self.dev)
+        odd = torch.arange(1, T, 2, device=self.dev)
+        ref, bank = self.ref, torch.tensor(self.bank, device=self.dev)
+        box = []
+
+        def keep(st):
+            pose = st.body.pose
+            dev = (pose[even, :, :3] - ref[len(box)][:, :3]).norm(
+                dim=-1).mean(-1)
+            je = (pose[odd, :, :3] - bank[30 + len(box)][:, :3]).norm(
+                dim=-1).mean(-1)
+            box.append(0)
+            return dev.max(), je.max(), je.min(), pose[:2].clone()
+        kernels.reset_counts()
+        st, hist = self.run(self.init_state(T), F, T, keep=keep, cfg=cfg)
+        counts = kernels.counts()
+        torch.cuda.synchronize()
+        for name in ("correspondence", "row_sweep"):
+            self.results[name]["launches"] = counts[name]
+        need = ("cloud_from_depth", "correspondence", "contact_fields",
+                "row_sweep")
+        check(all(counts[n] >= F for n in need),
+              f"a kernel did not launch every frame: {counts}")
+        check(bool(torch.isfinite(st.body.pose).all()), "non-finite poses")
+        dmax = torch.stack([h[0] for h in hist]).cpu().numpy()
+        je = torch.stack([h[1] for h in hist]).cpu().numpy() * 1e3
+        spread = (torch.stack([h[1] for h in hist])
+                  - torch.stack([h[2] for h in hist])).max().item() * 1e3
+        check((dmax < 1.5e-3).all() and dmax.mean() <= 1.0e-3,
+              f"sequential dyn30 tracks: per frame max "
+              f"{dmax.max() * 1e3:.3f} mm, mean {dmax.mean() * 1e3:.3f} mm")
+        curve = glob.glob(os.path.join(REPO, "tests", "fixtures", "cache",
+                                       "seqcurve_*.json"))
+        check(len(curve) == 1, "the JAX sequential curve is missing")
+        with open(curve[0]) as f:
+            jc = np.asarray(json.load(f)["joint_err_mm"])[:F]
+        gap = np.abs(je - jc)
+        fmt = lambda v: " ".join(f"{x:.2f}" for x in v)
+        band = SEQ_ODD_BAND_MM
+        check(gap[:8].max() <= band["before"] and gap.max() <= band["any"]
+              and gap[-5:].max() <= band["last5"],
+              f"odd tracks off the JAX curve beyond {band}: port "
+              f"[{fmt(je)}] mm, JAX [{fmt(jc)}] mm")
+        # colored against sequential with as many cloud rows a body as
+        # there are points, so that the colored pack thins no body
+        cmp = []
+        for solver in ("sequential", "colored"):
+            c = self.ref_cfg(solver, cloud_rows_per_body=cfg.point_budget)
+            cmp.append(self.run(self.init_state(T), 3, T, cfg=c)[0])
+        cerr = (cmp[0].body.pose[..., :3]
+                - cmp[1].body.pose[..., :3]).abs().max().item()
+        qerr = quat_err(cmp[0].body.pose[..., 3:], cmp[1].body.pose[..., 3:])
+        check(cerr < COLORED_M and qerr < COLORED_QUAT,
+              f"colored differs from sequential: {cerr} m, quat {qerr}")
+        perr = self.cpu_reference([h[3] for h in hist][:REF_CPU_FRAMES],
+                                  cfg)
+        # use_pallas=False (the plain correspondence over the (T, B, N, P)
+        # plane dots) on the card: two tracks held against the CPU, and the
+        # peak memory of one frame at NOPALLAS_MEM_TRACKS tracks
+        nop = self.ref_cfg("sequential", use_pallas=False)
+        kernels.reset_counts()
+        _, nh = self.run(self.init_state(2), REF_CPU_FRAMES, 2, cfg=nop,
+                         keep=lambda s: s.body.pose.clone())
+        check(kernels.counts()["correspondence"] == 0,
+              "use_pallas=False launched the correspondence kernel")
+        nerr = self.cpu_reference(nh, nop)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        m0 = torch.cuda.memory_allocated()
+        self.run(self.init_state(NOPALLAS_MEM_TRACKS), 1,
+                 NOPALLAS_MEM_TRACKS, cfg=nop)
+        torch.cuda.synchronize()
+        npeak = (torch.cuda.max_memory_allocated() - m0) / 2**30
+        self.ref_stats = dict(
+            dyn30_dev_mm_max_per_frame=(dmax * 1e3).tolist(),
+            dyn30_dev_mm_mean=float(dmax.mean() * 1e3),
+            odd_joint_err_mm_per_frame=je.tolist(),
+            jax_joint_err_mm_per_frame=jc.tolist(),
+            odd_gap_mm_max=float(gap.max()), odd_spread_mm=spread,
+            colored_vs_sequential_m=cerr, colored_vs_sequential_quat=qerr,
+            cpu_reference_err_m=perr, nopallas_cpu_reference_err_m=nerr,
+            nopallas_peak_gib=npeak, nopallas_peak_tracks=NOPALLAS_MEM_TRACKS,
+            launches=counts)
+        self.ref_final = st
+        return (f"T={T} F={F}: dyn30 dev max {dmax.max() * 1e3:.3f} mm mean "
+                f"{dmax.mean() * 1e3:.3f} mm; odd tracks [{fmt(je)}] mm, "
+                f"JAX gap max {gap.max():.3f} mm (spread {spread:.3g}); "
+                f"colored vs sequential ({cfg.point_budget} rows a body, 3 "
+                f"frames) {cerr:.3g} m, quat {qerr:.3g}; CPU plain reference "
+                f"({REF_CPU_FRAMES} frames) {perr:.2g} m; use_pallas=False "
+                f"vs CPU {nerr:.2g} m, its peak at T={NOPALLAS_MEM_TRACKS} "
+                f"{npeak:.3f} GiB; launches {counts}")
+
+    def ref_timing(self):
+        """Phase 11: frame time and device split of both solvers at T=512,
+        with the launch counts of the timed frames."""
+        torch = self.torch
+        from hand_tracking_samples_tpu_torch import kernels
+        T, F = TRACKS, REF_TIMED_FRAMES
+        self.ref_speed = {}
+        parts = []
+        for solver in ("sequential", "colored"):
+            cfg = self.ref_cfg(solver)
+            run = lambda st, fr, t: self.run(st, fr, t, cfg=cfg)
+            st, _ = run(self.init_state(T), 1, T)                 # warm
+            torch.cuda.synchronize()
+            kernels.reset_counts()
+            t0 = time.perf_counter()
+            run(self.init_state(T), F, T)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = {k: v for k, v in kernels.counts().items() if v}
+            check(counts.get("correspondence", 0) >= F
+                  and counts.get("row_sweep", 0) >= F,
+                  f"{solver}: the new kernels did not run every frame: "
+                  f"{counts}")
+            prof = self.profile(T, 2, run=run)
+            self.ref_speed[solver] = dict(
+                tracks=T, frames=F, seconds=dt, ms_per_frame=dt / F * 1e3,
+                tracked_fps=T * F / dt, launches=counts, **prof)
+            busy = (f"device busy {prof['device_ms_per_frame']:.2f} ms "
+                    f"(port kernels {prof['port_kernels_ms_per_frame']:.2f}"
+                    f", {prof['torch_launches_per_frame']:.0f} PyTorch "
+                    f"launches {prof['torch_ops_ms_per_frame']:.2f})"
+                    if "device_ms_per_frame" in prof
+                    else f"profile not measured ({prof['profile_error']})")
+            parts.append(f"{solver} {dt / F * 1e3:.1f} ms a frame, "
+                         f"{T * F / dt:.1f} tracked frames/s, {busy}, "
+                         f"launches {counts}")
+        return f"T={T}: " + "; ".join(parts)
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--json", help="also write every measured number to "
@@ -975,9 +1337,16 @@ def main(argv=None) -> int:
     phase(6, "CNN-frame kernels vs plain (T=4)", setup_and_compare_cnn)
     phase(7, "CNN frame", s.cnn_slice)
     phase(8, "CNN-frame timing and kernels vs plain (T=512)", s.cnn_timing)
+    phase(9, "reference-solver kernels vs plain (T=4, T=512)",
+          s.compare_ref)
+    phase(10, "sequential and colored frames", s.ref_slice)
+    phase(11, "reference-solver timing", s.ref_timing)
+    s.results["row_sweep[colored]"]["launches"] = \
+        s.ref_speed["colored"]["launches"]["row_sweep"]
     record["total_s"] = time.perf_counter() - t_all
     rows = []
-    src_of = dict(KERNELS, **{k: KERNELS["pgs_solve"] for k in PLANS})
+    src_of = dict(KERNELS, **{k: KERNELS["pgs_solve"] for k in PLANS},
+                  **REF_ROWS)
     for name, (src, rep) in src_of.items():
         r = s.results[name]
         rows.append({"name": name, "route": "cuda", "source": src,
@@ -991,7 +1360,9 @@ def main(argv=None) -> int:
         with open(args.json, "w") as f:
             json.dump(dict(record, device=smi["line"], kernels=s.results,
                            slice=s.slice_stats, speed=s.fps,
-                           cnn_frame=s.cnn_stats, cnn_speed=s.cnn_speed),
+                           cnn_frame=s.cnn_stats, cnn_speed=s.cnn_speed,
+                           reference=s.ref_stats,
+                           reference_speed=s.ref_speed),
                       f, indent=1, default=str)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -99,8 +99,8 @@ def sample_d(src, src_cam, dst_cam, background: int):
                             indexing="ij")
     p = torch.stack([xs, ys], dim=-1).expand(T, H, W, 2)
     rays = dst_cam.deprojectz(p, torch.ones((T, H, W), device=dev))
-    world = fq.qrot(dst_cam.pose[:, None, None, 3:7].expand(T, H, W, 4),
-                    rays)                 # the virtual camera sits at 0
+    world = fq.qrot_z1(dst_cam.pose[:, None, None, 3:7].expand(T, H, W, 4),
+                       rays[..., 0], rays[..., 1])  # the camera sits at 0
     pp = src_cam.projectz(world)
     ppi = pp.to(torch.int32)                       # C-cast truncation
     sw, sh = src_cam.dim

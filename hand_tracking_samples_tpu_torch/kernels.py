@@ -14,7 +14,8 @@ as the plain PyTorch versions do, which is what lets the cloud kernel be
 bit-identical to its plain version and the others agree to the last bits.
 
 Each kernel wrapper (ops/cloud_kernel.py, ops/cloud_rows.py (three),
-physics/contact_kernel.py, physics/pgs_kernel.py) registers itself here with
+ops/correspondence.py, physics/contact_kernel.py, physics/pgs_kernel.py,
+physics/row_sweep.py) registers itself here with
 `wrapper(name)`; its `launches` attribute counts the launches it made.
 Nothing here runs when the package is imported.
 """
@@ -119,9 +120,12 @@ def _declare(lib):
     lib.hts_cloud_rows_unpacked.argtypes = [P, P, P, P, P, I, I, I, I, I,
                                             P]
     lib.hts_pgs_solve.argtypes = [P, P]
+    lib.hts_correspondence.argtypes = [P] * 8 + [I, I, I, I, P]
+    lib.hts_row_sweep.argtypes = [P, P]
     for fn in (lib.hts_cloud_from_depth, lib.hts_cloud_rows_solve,
                lib.hts_cloud_rows_unpacked, lib.hts_contact_fields,
-               lib.hts_pgs_solve):
+               lib.hts_pgs_solve, lib.hts_correspondence,
+               lib.hts_row_sweep):
         fn.restype = ctypes.c_int
 
 

@@ -85,6 +85,18 @@ def qrot(q, v):
     return fma(w, t, v) + cross(qv, t)
 
 
+def qrot_z1(q, x, y):
+    """qrot(q, (x, y, 1)) as the JAX CPU build runs it when the 1 is a
+    constant: XLA folds the multiplies by it, so the first cross product's
+    x and y terms contract as fma(-qz, y, qy) and fma(qz, x, -qx)."""
+    qx, qy, qz, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3:4]
+    c = torch.stack([fma(-qz, y, qy), fma(qz, x, -qx),
+                     sub_prod(qx, y, qy, x)], dim=-1)
+    t = 2.0 * c
+    v = torch.stack([x, y, torch.ones_like(x)], dim=-1)
+    return fma(w, t, v) + cross(q[..., :3], t)
+
+
 def sqrt(x):
     """Correctly rounded float32 square root: PyTorch's vectorised CPU
     sqrt is off by an ulp for a few inputs in 10^4; the float64 root rounded
@@ -119,15 +131,6 @@ def quat_from_to(v0, v1):
     q = torch.cat([c / s, s * 0.5], dim=-1)
     q180 = torch.cat([orth(v0), torch.zeros_like(d)], dim=-1)
     return torch.where(d <= -1.0, q180, q)
-
-
-def quat_from_axis_angle(axis, angle):
-    """maths.quat.quat_from_axis_angle with sin/cos taken in float64 and
-    rounded (closer to the JAX CPU build's float32 sin/cos than PyTorch's
-    float32 ones)."""
-    half = angle.double()[..., None] * 0.5
-    return torch.cat([axis * torch.sin(half).float(),
-                      torch.cos(half).float()], dim=-1)
 
 
 def qmul(a, b):

@@ -1,6 +1,8 @@
 """Articulated hand model runtime ops (include/physmodel.h:321-442): the
-port's counterpart of hand_tracking_samples_tpu.model.hand, cut to the
-dynamics frame's kernel path.  State tensors carry the tracks first."""
+port's counterpart of hand_tracking_samples_tpu.model.hand.  FitPointCloud
+runs on the reference-shaped solvers (`fit_point_cloud`: sequential, or
+colored with a schedule) or on the kernel solver (`fit_point_cloud_kernel`,
+`fit_fused`).  State tensors carry the tracks first."""
 from __future__ import annotations
 
 import torch
@@ -51,12 +53,110 @@ def fit_fused(state: BodyState, model, params: PhysicsParams, plan,
     return sanity_check(new, body_params(model))
 
 
-def fit_point_cloud(state: BodyState, model, params: PhysicsParams,
-                    points_ph, single_blocks=(), single_limits=(),
-                    microforce: float = 1.0,
-                    origin=(0.0, 0.0, 0.0), iterations: int = 16,
-                    iterations_post: int = 4, cloud_slots: int = 128,
-                    pgs_plan=None) -> BodyState:
+def joint_linear_rows(state: BodyState, model):
+    """GetLinearConstraints (physmodel.h:328-334): 3 nailed rows per joint,
+    in joint order; 16 joints -> (T, 48) rows."""
+    from ..physics.constraints import constrain_position_nailed
+    m = model.np
+    return constrain_position_nailed(state.pose, m["joint_rbi0"],
+                                     m["joint_p0"], m["joint_rbi1"],
+                                     m["joint_p1"])
+
+
+def joint_angular_rows(state: BodyState, model, params: PhysicsParams,
+                       rangemin=None, rangemax=None):
+    """GetAngularConstraints (physmodel.h:321-327): 6 masked slots per
+    joint, (T, 96) rows.  rangemin/rangemax (T, J, 3) override the baked
+    ranges (HandModelEnhancements mutates them per frame)."""
+    from ..physics.constraints import constrain_angular_range
+    m = model.np
+    return constrain_angular_range(
+        state.pose, m["joint_rbi0"], m["joint_rbi1"], m["joint_frame"],
+        m["joint_rangemin"] if rangemin is None else rangemin,
+        m["joint_rangemax"] if rangemax is None else rangemax, params)
+
+
+def _scaled_cloud(state, model, points, point_mask, microforce, origin,
+                  use_kernel):
+    """The cloud rows with the weak force on the wrist, palm and thumb
+    base (physmodel.h:347)."""
+    from ..fitting.cloud import cloud_constraint_rows, scale_cloud_forces
+    cloud = cloud_constraint_rows(state.pose, model, points, point_mask,
+                                  origin=origin, use_kernel=use_kernel)
+    weak = (cloud.b1 <= 2).to(torch.float32)
+    return scale_cloud_forces(
+        cloud, (weak * PHYSICS_WEAK_FORCE + (1.0 - weak)) * microforce)
+
+
+def fit_point_cloud(state: BodyState, model, params: PhysicsParams, points,
+                    point_mask, linears=None, angulars=None,
+                    microforce: float = 1.0, origin=(0.0, 0.0, 0.0),
+                    rangemin=None, rangemax=None, iterations: int = 16,
+                    iterations_post: int = 4, contacts: bool = False,
+                    schedule=None, single_blocks=(), cloud_slots: int = 128,
+                    use_kernel: bool = False) -> BodyState:
+    """FitPointCloud (physmodel.h:345-356) on the reference-shaped solvers,
+    for all tracks: points (T, N, 3), point_mask (T, N).
+
+    Sequential (schedule None): rows [caller linears][cloud][joint nailed]
+    [contacts], angulars [caller angulars][joint ranges], solved in that
+    order by physics_update.  Colored (schedule a HandSchedule): the
+    caller's single-body blocks, the cloud packed into cloud_slots per body,
+    the joints and contacts as pair blocks on the schedule's groups, solved
+    by physics_update_colored.  use_kernel: the correspondence kernel
+    (N a multiple of 512)."""
+    from ..physics.colored import physics_update_colored
+    from ..physics.solver import physics_update
+    lin, ang = fit_rows(state, model, params, points, point_mask, linears,
+                        angulars, microforce, origin, rangemin, rangemax,
+                        contacts, schedule, single_blocks, cloud_slots,
+                        use_kernel)
+    bp = body_params(model)
+    solve = physics_update if schedule is None else physics_update_colored
+    new = solve(state, bp, lin, ang, params, iterations=iterations,
+                iterations_post=iterations_post)
+    return sanity_check(new, bp)
+
+
+def fit_rows(state: BodyState, model, params: PhysicsParams, points,
+             point_mask, linears=None, angulars=None,
+             microforce: float = 1.0, origin=(0.0, 0.0, 0.0), rangemin=None,
+             rangemax=None, contacts: bool = False, schedule=None,
+             single_blocks=(), cloud_slots: int = 128,
+             use_kernel: bool = False):
+    """fit_point_cloud's rows: (linear rows, angular rows) for the
+    sequential solve, (linear blocks, angular blocks) for the colored
+    one."""
+    from ..physics.colored import pack_single_body_linear
+    from ..physics.contacts import contact_rows
+    from ..physics.schedule import pair_angular, pair_linear
+    from ..physics.solver import concat_angular, concat_linear
+    cloud = (_scaled_cloud(state, model, points, point_mask, microforce,
+                           origin, use_kernel)
+             if points.shape[1] > 0 else None)
+    nailed = joint_linear_rows(state, model)
+    con = contact_rows(state, model, params) if contacts else None
+    ranges = joint_angular_rows(state, model, params, rangemin, rangemax)
+    if schedule is None:
+        lin = [x for x in (linears, cloud, nailed, con) if x is not None]
+        ang = [x for x in (angulars, ranges) if x is not None]
+        return concat_linear(*lin), concat_angular(*ang)
+    lin = list(single_blocks)
+    if cloud is not None:
+        lin.append(pack_single_body_linear(cloud, model.n_bodies,
+                                           cloud_slots))
+    lin.append(pair_linear(nailed, schedule.joint_lin))
+    if con is not None:
+        lin.append(pair_linear(con, schedule.contact))
+    return lin, [pair_angular(ranges, schedule.joint_ang)]
+
+
+def fit_point_cloud_kernel(state: BodyState, model, params: PhysicsParams,
+                           points_ph, single_blocks=(), single_limits=(),
+                           microforce: float = 1.0,
+                           origin=(0.0, 0.0, 0.0), iterations: int = 16,
+                           iterations_post: int = 4, cloud_slots: int = 128,
+                           pgs_plan=None) -> BodyState:
     """FitPointCloud (physmodel.h:345-356) of the main-thread fit, all
     tracks at once: the cloud (planes carrier points_ph (T, 8, N)) is packed
     by the cloud-rows kernel behind the caller's single-body blocks, and the

@@ -221,8 +221,12 @@ def contact_fields(pose, lin, ang, model, params, n_points: int,
     pairs = torch.as_tensor(np.asarray(model.np["collide_pairs"]),
                             device=pose.device)
     vw, nw, dw, aux = contact_inputs(pose, lin, ang, model)
-    out = contact_fields_raw(vw, nw, dw, aux, pairs, n_points, refine_iters,
-                             params.driftmax)              # (T, NP, 12, Pt)
+    return fields_of(contact_fields_raw(vw, nw, dw, aux, pairs, n_points,
+                                        refine_iters, params.driftmax))
+
+
+def fields_of(out):
+    """The kernel's output (T, NP, 12, Pt) as contact_fields' planes."""
     x = out.permute(1, 2, 3, 0)                            # (NP, 12, Pt, T)
     n = [x[:, 9 + c, 0] for c in range(3)]
     return (n, x[:, 0], x[:, 1], [x[:, 2 + c] for c in range(3)],

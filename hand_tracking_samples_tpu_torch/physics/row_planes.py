@@ -351,25 +351,41 @@ def joint_ang_geometry(P: PosePlanes, model_np, params, rmin, rmax):
     J = j0.shape[0]
     T = P.T
     dev = P.q[0].device
-    dt = params.deltaT
-    bias = params.biasfactorjoint
-
     q0 = [take(P.q[c], j0) for c in range(4)]
     q1 = [take(P.q[c], j1) for c in range(4)]
     jfc = [torch.as_tensor(jf[:, c], device=dev)[:, None] for c in range(4)]
-    jb0 = p_qmul(q0, jfc)
-    jf1 = q1
+    axes, spins6, mints6, act6 = angular_range_rows(
+        p_qmul(q0, jfc), q1, [x.expand(J, T) for x in rmin],
+        [x.expand(J, T) for x in rmax], params)
 
+    def inter6(xs):
+        return torch.stack(xs, dim=1).reshape(6 * J, T)
+
+    axis = [inter6([a[c] for a in axes]) for c in range(3)]
+    return (np.repeat(j0, 6), np.repeat(j1, 6), axis, inter6(spins6),
+            inter6(mints6), torch.full((6 * J, T), FLT_MAX, device=dev),
+            inter6(act6))
+
+
+def angular_range_rows(jb0, jf1, rmin, rmax, params):
+    """ConstrainAngularRange's row math (physics.h:351-399) on planes of
+    one shape: jb0 = q0 * jointframe and jf1 = q1 (4-lists), rmin/rmax
+    degree 3-lists.  Returns the 6 slots' (axes, targetspins, mintorques,
+    active) as 6-lists, slots [x+, x-, y+, y-, z+, z-]."""
+    dt = params.deltaT
+    bias = params.biasfactorjoint
+    dev = jb0[0].device
+    shape = rmin[0].shape
     jmin0 = [rmin[c] * DEG for c in range(3)]
     jmax0 = [rmax[c] * DEG for c in range(3)]
     swap = (jmin0[0] == 0) & (jmax0[0] == 0) & (jmin0[2] < jmax0[2])
     cbv = np.asarray([0.0, -1.0, 0.0, 1.0], np.float32) / np.sqrt(2.0)
-    cb = [torch.full((J, T), float(cbv[c]), device=dev) for c in range(4)]
+    cb = [torch.full(shape, float(cbv[c]), device=dev) for c in range(4)]
     jb0s = p_qmul(jb0, cb)
     jf1s = p_qmul(jf1, cb)
     jb0 = [torch.where(swap, jb0s[c], jb0[c]) for c in range(4)]
     jf1 = [torch.where(swap, jf1s[c], jf1[c]) for c in range(4)]
-    zero = torch.zeros((J, T), device=dev)
+    zero = torch.zeros(shape, device=dev)
     jmin = [torch.where(swap, jmin0[2], jmin0[0]), jmin0[1],
             torch.where(swap, zero, jmin0[2])]
     jmax = [torch.where(swap, jmax0[2], jmax0[0]), jmax0[1],
@@ -394,7 +410,7 @@ def joint_ang_geometry(P: PosePlanes, model_np, params, rmin, rmax):
     yd = p_qydir(jf1)
     zd = p_qzdir(jf1)
 
-    negmax = torch.full((J, T), -FLT_MAX, device=dev)
+    negmax = torch.full(shape, -FLT_MAX, device=dev)
     x_eq = jmax[0] == jmin[0]
     x_on = x_eq | (jmax[0] - jmin[0] < 360.0 * DEG)
     xa_spin = 2.0 * (-s[0] + torch.sin(jmin[0] / 2.0)) / dt
@@ -413,18 +429,11 @@ def joint_ang_geometry(P: PosePlanes, model_np, params, rmin, rmax):
     zb_spin = 2.0 * (t[2] - torch.sin(jmax[2] / 2.0)) / dt
     za_min = torch.where(z_eq, negmax, zero)
 
-    tru = torch.ones((J, T), dtype=torch.bool, device=dev)
-
-    def inter6(xs):
-        return torch.stack(xs, dim=1).reshape(6 * J, T)
-
-    axis = [inter6([xd[c], -xd[c], yd[c], -yd[c], zd[c], -zd[c]])
-            for c in range(3)]
-    spins = inter6([xa_spin, xb_spin, ya_spin, yb_spin, za_spin, zb_spin])
-    mints = inter6([xa_min, zero, ya_min, zero, za_min, zero])
-    act = inter6([x_on, x_on & ~x_eq, tru, ~y_eq, tru, ~z_eq])
-    return (np.repeat(j0, 6), np.repeat(j1, 6), axis, spins, mints,
-            torch.full((6 * J, T), FLT_MAX, device=dev), act)
+    tru = torch.ones(shape, dtype=torch.bool, device=dev)
+    axes = [xd, [-c for c in xd], yd, [-c for c in yd], zd, [-c for c in zd]]
+    return (axes, [xa_spin, xb_spin, ya_spin, yb_spin, za_spin, zb_spin],
+            [xa_min, zero, ya_min, zero, za_min, zero],
+            [x_on, x_on & ~x_eq, tru, ~y_eq, tru, ~z_eq])
 
 
 # ---------------------------------------------------------------------------

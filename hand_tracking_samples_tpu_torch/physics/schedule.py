@@ -1,13 +1,16 @@
 """Host-computed static row schedules for the hand (the port's counterpart
 of hand_tracking_samples_tpu.physics.schedule): precedence-colored groups
-per row class, as lists of row-index groups."""
+per row class, as lists of row-index groups; `pair_linear`/`pair_angular`
+attach a class's exact groups, padded by `pad_groups`, to its rows for the
+colored solve."""
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import numpy as np
 
-from .colored import precedence_coloring
+from .colored import (StaticPairAngular, StaticPairLinear, pad_groups,
+                      precedence_coloring)
 from .contacts import CONTACT_POINTS
 
 
@@ -18,6 +21,16 @@ class HandSchedule(NamedTuple):
 
 
 def build_hand_schedule(model_np: dict, contacts_mode: str = "exact"):
+    """The hand's colored groups, built once per model and contacts mode
+    (cached beside the PGS kernel's plans)."""
+    from .pgs_kernel import _PLANS, _model_digest
+    key = f"sched:{_model_digest(model_np)}:{contacts_mode}"
+    if key not in _PLANS:
+        _PLANS[key] = _hand_schedule(model_np, contacts_mode)
+    return _PLANS[key]
+
+
+def _hand_schedule(model_np: dict, contacts_mode: str) -> HandSchedule:
     j0 = np.asarray(model_np["joint_rbi0"])
     j1 = np.asarray(model_np["joint_rbi1"])
     joint_lin = precedence_coloring(list(zip(np.repeat(j0, 3),
@@ -32,3 +45,11 @@ def build_hand_schedule(model_np: dict, contacts_mode: str = "exact"):
         contact = precedence_coloring(list(zip(np.repeat(pairs[:, 0], U),
                                                np.repeat(pairs[:, 1], U))))
     return HandSchedule(joint_lin, joint_ang, contact)
+
+
+def pair_linear(rows, groups) -> StaticPairLinear:
+    return StaticPairLinear(rows, *pad_groups(groups))
+
+
+def pair_angular(rows, groups) -> StaticPairAngular:
+    return StaticPairAngular(rows, *pad_groups(groups))

@@ -19,6 +19,7 @@ from ..imaging.image_ops import (depth_u16, distance_transform,
                                  downsample_min, sample_d, threshold)
 from ..maths import fma as fq
 from ..maths.fma import fma
+from ..maths.libm import atan2f, quat_from_axis_angle
 
 MIN_BLOB_RADIUS = 2  # handtrack.h:299
 
@@ -144,19 +145,22 @@ def hand_segment_vr(depth, cam, entry_options: int = 0xF,
 
     avgdepth = torch.clamp(avgdepth, 0.20, 1.0)
     valid = ok & (com != entf).any(dim=1)
-    angle = torch.where(valid, torch.atan2(com[:, 0] - entf[:, 0],
-                                           entf[:, 1] - com[:, 1]),
+    angle = torch.where(valid, atan2f(com[:, 0] - entf[:, 0],
+                                      entf[:, 1] - com[:, 1]),
                         torch.zeros((), device=dev))
     comdir = com - entf
-    cn = fq.sqrt(fma(comdir[:, 0], comdir[:, 0],
-                        comdir[:, 1] * comdir[:, 1]))
+    cn = fq.sqrt(fma(comdir[:, 1], comdir[:, 1],
+                     comdir[:, 0] * comdir[:, 0]))
     comdir = comdir / torch.clamp(cn, min=1e-20)[:, None]
     ec = extreme - com
-    exrad = fma(ec[:, 0], comdir[:, 0], ec[:, 1] * comdir[:, 1])
+    exrad = fma(ec[:, 1], comdir[:, 1], ec[:, 0] * comdir[:, 0])
     # com + comdir*(exrad - diam/2/avgdepth*f), contracted as the JAX CPU
     # build runs it
     half = float(np.float32(diam / 2.0))
-    y = fma(-(half / avgdepth), scam.focal[0], exrad)
+    # a true division: PyTorch's scalar / tensor multiplies by the
+    # reciprocal (two roundings)
+    y = fma(-(torch.full_like(avgdepth, half) / avgdepth), scam.focal[0],
+            exrad)
     com = torch.where(valid[:, None], fma(comdir, y[:, None], com), com)
 
     # the virtual 64x64 camera (handtrack.h:336-341); `/ diam` is a
@@ -166,7 +170,7 @@ def hand_segment_vr(depth, cam, entry_options: int = 0xF,
     pr = torch.tensor(scam.principal, device=dev).expand(T, 2)
     q = fq.qmul(fq.quat_from_to(scam.deprojectz_folded(pr, one),
                           scam.deprojectz_folded(com, one)),
-             fq.quat_from_axis_angle(torch.tensor([0.0, 0.0, 1.0],
+             quat_from_axis_angle(torch.tensor([0.0, 0.0, 1.0],
                                                device=dev).expand(T, 3),
                                   angle))
     pose = torch.cat([torch.zeros((T, 3), device=dev), q], dim=1)

@@ -2,7 +2,7 @@
 693-785), the port's counterpart of hand_tracking_samples_tpu.tracker.runtime.
 
 Every function runs all tracks at once (tracks are the leading dimension of
-the state, the depth and every intermediate), on the kernel path:
+the state, the depth and every intermediate).  On the kernel solver:
 
   dynamics frame   depth -> cloud kernel -> boundary-plane chamber rows ->
                    cloud-rows kernel -> joint / contact (contact kernel) /
@@ -13,9 +13,16 @@ the state, the depth and every intermediate), on the kernel path:
                    only) -> MultiStepSim (the PGS kernel's multistep plans)
                    -> FitError -> take, then the dynamics frame
 
-Other settings of TrackerConfig (the sequential and colored solvers, the
-voxel and mirror clouds, angles-only) raise NotImplementedError naming the
-slice that will bring them.
+On the sequential solver (the JAX package's default) and the colored one:
+
+  dynamics frame   depth -> cloud kernel -> chamber rows -> cloud rows (the
+                   correspondence kernel with use_pallas, the plane dots
+                   without) -> joints / contacts (contact kernel) / ranges
+                   -> the row-sweep kernel -> poses
+
+Other settings of TrackerConfig (the CNN frame on the reference solvers,
+the voxel and mirror clouds, angles-only, jacobi contacts) raise
+NotImplementedError naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -32,7 +39,7 @@ from ..imaging.image_ops import compact_planes
 from ..maths.pose import pose_inverse, pose_mul, pose_quat
 from ..maths.quat import qmul, quat_from_axis_angle, quat_from_to, qxdir, qydir
 from ..model.bake import FEATURE_BONES, FEATURE_OFFSETS
-from ..model.hand import (body_params, fit_fused, fit_point_cloud,
+from ..model.hand import (body_params, fit_fused, fit_point_cloud_kernel,
                           fix_positions, get_pose_user, initial_state)
 from ..ops.cloud_kernel import cloud_from_depth_planes, planes_points
 from ..physics.solver import BodyState, PhysicsParams, sanity_check
@@ -84,25 +91,59 @@ def state_from_numpy(state, device):
                      .to(torch.float32))
 
 
-def _check_config(config: TrackerConfig):
+def _check_config(config: TrackerConfig, run_cnn=None):
+    """Raise NotImplementedError for the settings a later slice of the port
+    brings, naming its ROADMAP item.  run_cnn: whether this frame runs the
+    CNN (default config.cnn_every_frame)."""
+    if config.solver not in ("kernel", "sequential", "colored"):
+        raise ValueError(f"TrackerConfig.solver={config.solver!r}")
+    cnn = config.cnn_every_frame if run_cnn is None else run_cnn
+    reference = config.solver != "kernel"
     later = {
-        "solver": (config.solver != "kernel", "the sequential and colored "
-                   "solvers (ROADMAP queue 1, items 5-6)"),
-        "use_pallas": (not config.use_pallas, "the reference-shaped cloud "
-                       "path (ROADMAP queue 1, item 8)"),
+        "cnn_every_frame": (reference and bool(cnn), "the CNN frame on the "
+                            "sequential and colored solvers (ROADMAP queue "
+                            "1, item 1)"),
+        "contacts_mode": (config.contacts_mode != "exact", "the jacobi "
+                          "contact schedule (ROADMAP queue 1, item 4)"),
+        "use_pallas": (config.solver == "kernel" and not config.use_pallas,
+                       "the kernel solver without the cloud kernels "
+                       "(ROADMAP queue 1, item 5)"),
         "subsample_voxel": (bool(config.subsample_voxel), "the voxel cloud "
-                            "(ROADMAP queue 1, item 11)"),
+                            "(ROADMAP queue 1, item 3)"),
         "mirror_plane": (bool(config.mirror_plane), "the mirror split "
-                         "(ROADMAP queue 1, item 11)"),
+                         "(ROADMAP queue 1, item 3)"),
         "angles_only": (config.angles_only, "the angles-only frame "
-                        "(ROADMAP queue 1, item 13)"),
+                        "(ROADMAP queue 1, item 5)"),
     }
     for name, (bad, where) in later.items():
         if bad:
             raise NotImplementedError(
-                f"TrackerConfig.{name}={getattr(config, name)!r}: the port "
-                f"runs the kernel-solver dynamics and CNN frames so far; "
-                f"{where} come in a later slice")
+                f"TrackerConfig.{name}={getattr(config, name)!r} "
+                f"(solver={config.solver!r}): not in the port yet; {where}")
+
+
+def hand_model_enhancements(body: BodyState, model, params, armdir=None,
+                            tiepinkyringmid: bool = False,
+                            fingerhold: int = 0):
+    """HandModelEnhancements (handtrack.h:402-441) for every track: (angular
+    rows, rangemin, rangemax (T, J, 3)) with the per-frame joint-range
+    mutations applied.  With armdir None and the defaults the reference
+    adds no rows; the cone rows of armdir, tiepinkyringmid and fingerhold
+    come with the CNN frame on the reference solvers and slowfit."""
+    from ..physics.row_planes import PosePlanes, enhancement_ranges
+    from ..physics.solver import empty_angular
+    if armdir is not None or tiepinkyringmid or fingerhold:
+        raise NotImplementedError(
+            "hand_model_enhancements' cone rows (armdir, tiepinkyringmid, "
+            "fingerhold): ROADMAP queue 1, items 1-2")
+    T, B = body.pose.shape[0], body.pose.shape[1]
+    pt = body.pose.permute(1, 2, 0)                          # (B, 7, T)
+    P = PosePlanes(tr=[pt[:, c] for c in range(3)],
+                   q=[pt[:, 3 + c] for c in range(4)], iinv=None, T=T, B=B)
+    rmin, rmax = enhancement_ranges(P, model.np)             # 3 x (J, T)
+    return (empty_angular(T, 0, body.pose.device),
+            torch.stack(rmin, dim=-1).transpose(0, 1),
+            torch.stack(rmax, dim=-1).transpose(0, 1))
 
 
 _UNIBODY_TINV = 6.0 / (0.2 * 0.2)   # solid cube of side 0.2, unit mass
@@ -393,7 +434,7 @@ def update_cnn_model(state: TrackerState, model, cnn_params, depth, cam,
     full_reset_on_error, MultiStepSim, FitError of the result, and the
     take decision.  depth (T, H, W) int16 (u16 bits); ph: the frame's cloud
     (planes carrier) when the caller has it.  Returns (state, CnnDebug)."""
-    _check_config(config)
+    _check_config(config, run_cnn=True)
     seg, analysis, cnn_input, cnn_output, ph = _cnn_frame_inputs(
         cnn_params, depth, cam, config, ph)
     olderror = fit_error(state.body.pose, model, ph, depth, cam,
@@ -452,9 +493,11 @@ def update(state: TrackerState, model, depth, cam, config: TrackerConfig,
     frame needs cnn_params (cnn.model.load_cnnb).  Returns (state, user
     poses (T, 17, 7), CnnDebug or None)."""
     from ..physics.pgs_kernel import build_dynamics_plan
-    _check_config(config)
+    _check_config(config, run_cnn)
     if params is None:
         params = physics_params(config)
+    if config.solver != "kernel":
+        return _update_reference(state, model, depth, cam, config, params)
     nb = len(BOUNDARY_OUTDIRS) if config.boundary_planes else 0
     plan = build_dynamics_plan(model.np, config.cloud_rows_per_body + nb,
                                config.contacts_mode,
@@ -483,7 +526,7 @@ def update(state: TrackerState, model, depth, cam, config: TrackerConfig,
             blocks.append(rows_to_single_block(chamber, (nb, B)))
             limits.append((min(0.0, CHAMBER_MAXFORCE),
                            max(0.0, CHAMBER_MAXFORCE)))
-        body = fit_point_cloud(
+        body = fit_point_cloud_kernel(
             body, model, params, ph, single_blocks=blocks,
             single_limits=limits, microforce=config.microforce,
             iterations=config.physics_iterations,
@@ -494,3 +537,68 @@ def update(state: TrackerState, model, depth, cam, config: TrackerConfig,
                                state.initializing)
     state = TrackerState(body, state.prev_frame_error, initializing)
     return state, get_pose_user(body, model), dbg
+
+
+def reference_frame_rows(body: BodyState, model, params, points, mask,
+                         config: TrackerConfig, schedule=None):
+    """One main-thread pass's rows on the reference solvers
+    (handtrack.h:770-782): HandModelEnhancements' ranges, the boundary
+    chamber (caller linears before the cloud on the sequential solver, a
+    single-body block on the colored one, schedule given), the cloud rows
+    from the correspondence kernel (use_pallas) or the plane dots, the
+    joints and the contacts: model.hand.fit_rows' (linears, angulars) or
+    (linear blocks, angular blocks)."""
+    from ..model.hand import fit_rows
+    enh, rmin, rmax = hand_model_enhancements(body, model, params)
+    linears, blocks = None, []
+    if config.boundary_planes:
+        chamber = cloud_chamber_rows(
+            body.pose, model, points, mask, BOUNDARY_OUTDIRS,
+            (0.0, 0.0, 0.0), (0.0, 0.0, 1.0), CHAMBER_MAXFORCE,
+            active=mask.sum(-1) > config.min_point_num)
+        if schedule is not None:
+            blocks.append(rows_to_single_block(
+                chamber, (len(BOUNDARY_OUTDIRS), model.n_bodies)))
+        else:
+            linears = chamber
+    return fit_rows(body, model, params, points, mask, linears=linears,
+                    angulars=None if schedule is not None else enh,
+                    microforce=config.microforce, rangemin=rmin,
+                    rangemax=rmax,
+                    contacts=bool(config.physics_use_collision),
+                    schedule=schedule, single_blocks=blocks,
+                    cloud_slots=config.cloud_rows_per_body,
+                    use_kernel=config.use_pallas)
+
+
+def _update_reference(state: TrackerState, model, depth, cam,
+                      config: TrackerConfig, params: PhysicsParams):
+    """update's sequential and colored branches (the dynamics frame,
+    handtrack.h:748-785): the cloud kernel's cloud, then per main-thread
+    pass reference_frame_rows and the solve (the row-sweep kernel)."""
+    from ..physics.colored import physics_update_colored
+    from ..physics.schedule import build_hand_schedule
+    from ..physics.solver import physics_update
+    colored = config.solver == "colored"
+    schedule = (build_hand_schedule(model.np, config.contacts_mode)
+                if colored else None)
+    solve = physics_update_colored if colored else physics_update
+    ph = cloud_from_depth_planes(depth, cam, 0.1, config.drangey,
+                                 config.subsample_fraction,
+                                 config.point_budget)
+    points, mask = planes_points(ph)
+    npts = mask.sum(-1)
+    body = state.body
+    bp = body_params(model)
+    for _ in range(config.mainthreadpasses):
+        lin, ang = reference_frame_rows(body, model, params, points, mask,
+                                        config, schedule)
+        body = sanity_check(solve(body, bp, lin, ang, params,
+                                  iterations=config.physics_iterations,
+                                  iterations_post=config
+                                  .physics_iterations_post), bp)
+    initializing = torch.where(npts < config.min_point_num,
+                               torch.full_like(state.initializing, 50),
+                               state.initializing)
+    state = TrackerState(body, state.prev_frame_error, initializing)
+    return state, get_pose_user(body, model), None

@@ -92,7 +92,7 @@ def test_cloud_rows_solve_matches_jax_small_cap(hand_model):
 
 def test_reference_rows_and_chamber_match_jax(hand_model):
     """fitting/cloud.py's reference-shaped rows (closest_planes,
-    convex_hit_check, cloud_constraint_rows) and the boundary-plane chamber
+    cloud_constraint_rows) and the boundary-plane chamber
     against the JAX package's: the same winning bodies, fields within 1e-6
     (test_cloud_rows_kernel.py:49)."""
     from hand_tracking_samples_tpu.fitting.cloud import (

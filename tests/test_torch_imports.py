@@ -44,7 +44,7 @@ def test_port_imports_no_jax():
 
 
 def test_wrappers_registered_and_plain_on_cpu():
-    """The six kernel wrappers register their launch counts; on CPU
+    """The eight kernel wrappers register their launch counts; on CPU
     tensors they run the plain version and count no launch."""
     from hand_tracking_samples_tpu_torch import kernels
     from hand_tracking_samples_tpu_torch.imaging.camera import DCamera
@@ -52,9 +52,12 @@ def test_wrappers_registered_and_plain_on_cpu():
     import hand_tracking_samples_tpu_torch.ops.cloud_rows  # noqa: F401
     import hand_tracking_samples_tpu_torch.physics.contact_kernel  # noqa
     import hand_tracking_samples_tpu_torch.physics.pgs_kernel  # noqa: F401
+    import hand_tracking_samples_tpu_torch.ops.correspondence  # noqa: F401
+    import hand_tracking_samples_tpu_torch.physics.row_sweep  # noqa: F401
     assert set(kernels.counts()) == {"cloud_from_depth", "cloud_rows_solve",
                                      "cloud_rows_unpacked", "cloud_vals",
-                                     "contact_fields", "pgs_solve"}
+                                     "contact_fields", "pgs_solve",
+                                     "correspondence", "row_sweep"}
     kernels.reset_counts()
     cam = DCamera.make((64, 8), (30.0, 30.0), (32.0, 4.0), 0.001)
     d = torch.full((2, 8, 64), 300, dtype=torch.int16)
@@ -75,17 +78,32 @@ def test_config_matches_jax_package():
 def test_entry_points_refuse_later_slices():
     from hand_tracking_samples_tpu_torch.tracker.config import TrackerConfig
     from hand_tracking_samples_tpu_torch.tracker import runtime
-    for cnn in (False, True):                  # the two ported frames
+    for cnn in (False, True):                  # the ported frames
         runtime._check_config(TrackerConfig(cnn_every_frame=cnn,
                                             solver="kernel",
                                             use_pallas=True))
-    for kw in (dict(angles_only=True), dict(solver="colored"),
-               dict(use_pallas=False), dict(subsample_voxel=1),
+    for solver in ("sequential", "colored"):
+        for pallas in (False, True):
+            runtime._check_config(TrackerConfig(cnn_every_frame=False,
+                                                solver=solver,
+                                                use_pallas=pallas))
+        with pytest.raises(NotImplementedError, match="item 1"):
+            runtime._check_config(TrackerConfig(cnn_every_frame=True,
+                                                solver=solver))
+        with pytest.raises(NotImplementedError, match="item 1"):
+            runtime._check_config(TrackerConfig(cnn_every_frame=False,
+                                                solver=solver), run_cnn=True)
+    for kw in (dict(angles_only=True), dict(use_pallas=False),
+               dict(subsample_voxel=1), dict(contacts_mode="jacobi"),
                dict(mirror_plane=(0.0, 0.0, 1.0, 0.0))):
-        cfg = dict(cnn_every_frame=True, solver="kernel", use_pallas=True)
-        cfg.update(kw)
-        with pytest.raises(NotImplementedError):
-            runtime._check_config(TrackerConfig(**cfg))
+        for solver in ("kernel", "sequential"):
+            if solver == "sequential" and "use_pallas" in kw:
+                continue                       # ported
+            cfg = dict(cnn_every_frame=solver == "kernel", solver=solver,
+                       use_pallas=True)
+            cfg.update(kw)
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                runtime._check_config(TrackerConfig(**cfg))
     with pytest.raises(NotImplementedError):
         runtime.kickstart_multi()
 
@@ -100,7 +118,9 @@ def test_every_port_module_imports():
     names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
                                                    pkg.__name__ + ".")]
     for name in ("cnn.model", "cnn.labels", "segment.handsegment",
-                 "imaging.heatmaps", "imaging.image_ops", "maths.fma"):
+                 "imaging.heatmaps", "imaging.image_ops", "maths.fma",
+                 "maths.libm", "ops.correspondence", "physics.row_sweep",
+                 "physics.colored", "physics.contacts", "physics.solver"):
         assert f"{pkg.__name__}.{name}" in names, name
     for name in names:
         importlib.import_module(name)
