@@ -53,13 +53,35 @@ Phases, each printing one line with its elapsed seconds:
      kernels launched every frame
  11. both reference solvers' frame time at T=512, their device-time split
      and the launch counts of the timed frames
+ 12. kernel 2.5 (the 16-channel cloud-rows pack) against its plain version
+     at T=4 and at T=512, on the dynamics pass's cloud (N=2048, the mirror
+     split by the cutting plane) and on MultiStepSim's (N=512): every
+     channel equal and the counts equal
+ 13. the voxel and mirror clouds at T=512 on the kernel solver: the far
+     mirror plane (a no-op on these renders) for 30 frames on phase 4's
+     renders, held to phase 4's gates (dyn30 golden, ODD_BAND_MM); the
+     voxel cloud for 30 frames, held to the JAX package's voxel curve on
+     the same renders (VOXEL_BAND_MM); the CNN frame with the far plane for
+     8 frames on phase 7's renders (CNN_BAND_MM); the sequential frame with
+     the voxel cloud (VOXEL_BAND_MM) and with the far plane (phase 10's
+     gates: the dyn30 golden and SEQ_ODD_BAND_MM) for 10 frames; a 2-track CPU re-run of each (the CNN frame's
+     first frame, with the reset) and the cutting plane's frames (dynamics,
+     sequential, colored and sequential with use_pallas=False 2 frames,
+     CNN its first) on 2 tracks against the CPU
+     (< 1e-4 m); the voxel cloud the same bits on two runs, and its counts
+     and mask equal to the CPU's; kernel 2.5 launched once a dynamics pass
+     and five times a CNN frame, kernel 2 not at all
+ 14. those frames' time at T=512, their device-time split, and kernel 2.5
+     timed at both N beside its plain version and its bound, held to the
+     plain version again at the timed shapes
 
 Each phase drives its path with the launch counts set to 0 just before it
 and reads them just after.  The line before the last is the kernels' JSON
 record (launches: the dynamics path's for the first four kernels, the CNN
 frame's for kernels 6-7 and the plans, the sequential frame's (phase 10)
 for the correspondence kernel and the row sweep, the colored frame's
-(phase 11) for the row sweep on colored rows); the last line is
+(phase 11) for the row sweep on colored rows, the far-mirror dynamics
+frame's (phase 13) for kernel 2.5); the last line is
 {"ok": true, "device": {...}}.  Exits non-zero, printing no result, when a
 phase fails, when there is no CUDA device, or when run outside the
 repository.  --json PATH writes every measured number to PATH.
@@ -114,6 +136,8 @@ KERNELS = {   # name: (source, the TPU kernel it replaces)
     # no Pallas kernel: the JAX package's sequential solve is a lax.scan
     "row_sweep": (f"{PORT}/csrc/row_sweep.cu",
                   f"{JAXPKG}/physics/solver.py:223"),
+    "cloud_rows_packed": (f"{PORT}/csrc/cloud_rows.cu",
+                          f"{JAXPKG}/ops/cloud_rows.py:34"),
 }
 FIRST = ("cloud_from_depth", "cloud_rows_solve", "contact_fields",
          "pgs_solve")            # the dynamics path's kernels (phases 3-5)
@@ -138,6 +162,27 @@ SEQ_ODD_BAND_MM = dict(before=0.02, any=2.0, last5=0.5)
 # 0 and 0 on an H100 (PERF.md), as on the CPU.
 COLORED_M, COLORED_QUAT = 1e-5, 1e-5
 NOPALLAS_MEM_TRACKS = 64  # tracks of the use_pallas=False memory reading
+# The voxel and mirror clouds (phases 12-14).  The far plane lies beyond
+# every valid depth of the renders (0.343-0.512 m), so its split is a no-op
+# there and the tracks meet the gates of the plain cloud; the cutting plane
+# (a tilted unit normal through the median valid point of dyn30 render 0)
+# reflects, drops and keeps points, and is held to the CPU only.
+FAR_PLANE = (0.0, 0.0, -1.0, 0.60)
+CUT_PLANE = (0.3007679283618927, -0.20051196217536926, -0.9323806166648865,
+             0.370469868183136)
+VOXEL_SIZE = 0.005        # m; ~470-650 voxels on the dyn30 renders
+CLOUD_CPU_FRAMES = 2      # frames of each cloud's CPU plain-version re-run
+CLOUD_SEQ_FRAMES = 10     # sequential frames with each cloud (phase 13)
+CLOUD_TIMED_FRAMES = dict(dyn=5, cnn=2, seq=5)    # frames timed (phase 14)
+# The voxel tracks against the JAX package's voxel curve on the same renders
+# (tests/test_torch_cloud_frames.jax_voxel_curve), |port - JAX| of the
+# per-frame mean joint error in mm: before the fast motion (frames 0-7) and
+# on any frame.  In both packages the dyn30 track loses the hand under the
+# voxel cloud (0.66 mm on frame 0, 41 mm on frame 29), and the gap grows
+# with it.  Set from the measured gaps (PERF.md: on an H100 at most 0.0014
+# and 0.563 mm on the kernel solver, 0.0027 and 0.0065 mm on the sequential
+# one; on the CPU 0.070 mm over all frames).
+VOXEL_BAND_MM = dict(before=0.02, any=2.0)
 
 
 class PhaseError(RuntimeError):
@@ -579,11 +624,11 @@ class Smoke:
             def us(e):
                 return getattr(e, "self_device_time_total",
                                getattr(e, "self_cuda_time_total", 0))
-            ours = ("cloud_from_depth_kernel", "cloud_rows_solve_kernel",
+            ours = ("cloud_from_depth_kernel", "cloud_rows_pack_kernel",
                     "cloud_rows_unpacked_kernel", "cloud_vals_kernel",
                     "contact_fields_kernel", "pgs_kernel",
                     "correspondence_kernel", "row_sweep_kernel")
-            own = [e for e in dev if e.key.startswith(ours)]
+            own = [e for e in dev if any(o in e.key for o in ours)]
             total = sum(us(e) for e in dev)
             check(total > 0, "the profiler recorded no device time")
             return dict(
@@ -624,12 +669,13 @@ class Smoke:
             T, H, W = depth.shape
             return T * H * W * 2 + T * 8 * budget * 4, T * (H * W * 3
                                                           + budget * 8)
-        if name == "cloud_rows_solve":
+        if name in ("cloud_rows_solve", "cloud_rows_packed"):
             pts, planes, body, misc, C = args
             T, _, N = pts.shape
             P, B = planes.shape[1] // 5, planes.shape[2]
             nin = sum(x.numel() * 4 for x in (pts, planes, body, misc))
-            nout = T * 12 * 24 * C * 4 + T * 24 * 4
+            ch = 12 if name == "cloud_rows_solve" else 16
+            nout = T * ch * 24 * C * 4 + T * 24 * 4
             # hull scan (3 mul, 3 add, 1 max a plane), the winner's planes
             # again (max, blend, slab clip), spheres, the row and its prep
             per_pt = B * P * 7 + P * 23 + B * 12 + 80
@@ -717,7 +763,8 @@ class Smoke:
     def cnn_depth(self, f, T):
         return self.fake[f].expand(T, -1, -1).contiguous()
 
-    def cnn_run(self, st, frames, T, idx=None, keep=None, dev=None):
+    def cnn_run(self, st, frames, T, idx=None, keep=None, dev=None,
+                cfg=None):
         from hand_tracking_samples_tpu_torch.parallel.tracks import (
             batched_update)
         model, cnn = self.model, self.cnn
@@ -737,7 +784,7 @@ class Smoke:
             if dev is not None:
                 d = d.to(dev)
             st, _ = batched_update(st, model, cnn, d, self.cam,
-                                   self.cnn_cfg, self.params)
+                                   cfg or self.cnn_cfg, self.params)
             if keep is not None:
                 hist.append(keep(st))
         return st, hist
@@ -854,7 +901,8 @@ class Smoke:
             self.results[name]["launches"] = kinds.get(kind, 0)
         for name in FIRST:
             self.results[name]["launches_cnn_frame"] = counts[name]
-        check(all(n > 0 for n in counts.values()),
+        off_path = ("cloud_rows_packed", "correspondence", "row_sweep")
+        check(all(n > 0 for k, n in counts.items() if k not in off_path),
               f"a kernel did not launch on the CNN frame: {counts}")
         check(all(kinds.get(k, 0) > 0 for k in ("dyn", "ms", "uni")),
               f"a PGS plan did not launch on the CNN frame: {kinds}")
@@ -882,7 +930,7 @@ class Smoke:
                 f"({CNN_CPU_FRAMES} frames) {cerr:.2g} m; launches {counts}, "
                 f"PGS plans {kinds}")
 
-    def cnn_cpu_reference(self, poses):
+    def cnn_cpu_reference(self, poses, cfg=None):
         """Tracks 0 (on the hand) and 3 (reset) through the plain versions
         on the CPU; the largest position difference from the card's."""
         torch = self.torch
@@ -894,7 +942,7 @@ class Smoke:
         err = 0.0
         _, hist = self.cnn_run(st, len(poses), 4, idx=idx,
                                keep=lambda s: s.body.pose.clone(),
-                               dev="cpu")
+                               dev="cpu", cfg=cfg)
         for mine, ref in zip(hist, poses):
             err = max(err, (mine[..., :3] - ref[..., :3].cpu()).abs().max()
                       .item())
@@ -1128,7 +1176,7 @@ class Smoke:
         frames on phase 4's renders; the colored frame against it with no
         body thinned; two tracks through the plain versions on the CPU;
         use_pallas=False on the card against the CPU."""
-        torch, np = self.torch, self.np
+        torch = self.torch
         from hand_tracking_samples_tpu_torch import kernels
         T, F = TRACKS, FRAMES
         cfg = self.ref_cfg("sequential")
@@ -1163,18 +1211,8 @@ class Smoke:
         check((dmax < 1.5e-3).all() and dmax.mean() <= 1.0e-3,
               f"sequential dyn30 tracks: per frame max "
               f"{dmax.max() * 1e3:.3f} mm, mean {dmax.mean() * 1e3:.3f} mm")
-        curve = glob.glob(os.path.join(REPO, "tests", "fixtures", "cache",
-                                       "seqcurve_*.json"))
-        check(len(curve) == 1, "the JAX sequential curve is missing")
-        with open(curve[0]) as f:
-            jc = np.asarray(json.load(f)["joint_err_mm"])[:F]
-        gap = np.abs(je - jc)
+        gap, jc = self.seq_odd_gap(je, "odd tracks")
         fmt = lambda v: " ".join(f"{x:.2f}" for x in v)
-        band = SEQ_ODD_BAND_MM
-        check(gap[:8].max() <= band["before"] and gap.max() <= band["any"]
-              and gap[-5:].max() <= band["last5"],
-              f"odd tracks off the JAX curve beyond {band}: port "
-              f"[{fmt(je)}] mm, JAX [{fmt(jc)}] mm")
         # colored against sequential with as many cloud rows a body as
         # there are points, so that the colored pack thins no body
         cmp = []
@@ -1262,6 +1300,398 @@ class Smoke:
                          f"{T * F / dt:.1f} tracked frames/s, {busy}, "
                          f"launches {counts}")
         return f"T={T}: " + "; ".join(parts)
+    # ---- the voxel and mirror clouds: phases 12-14 -------------------------
+    def cloud_cfg(self, cloud, solver="kernel", plane=FAR_PLANE, cnn=False,
+                  use_pallas=True):
+        """The frame's config with the cloud "voxel", "mirror" or both
+        ("voxel_mirror"): the parity defaults otherwise."""
+        from hand_tracking_samples_tpu_torch.tracker.config import (
+            TrackerConfig)
+        kw = {}
+        if "voxel" in cloud:
+            kw.update(subsample_voxel=1, subsample_size=VOXEL_SIZE)
+        if "mirror" in cloud:
+            kw.update(mirror_plane=plane)
+        return TrackerConfig(cnn_every_frame=cnn, cnn_every_k=1,
+                             solver=solver, use_pallas=use_pallas,
+                             point_budget=2048, cloud_rows_per_body=128, **kw)
+
+    def pack_inputs(self, st, depth):
+        """Kernel 2.5's inputs for state st and depth (T, H, W): the
+        dynamics pass's (the frame's cloud split by the cutting plane,
+        N=2048) and the first MultiStepSim cloud step's (the CNN frame's
+        cloud, its stride-4 subsample compacted to N=512, the
+        segmentation's camera as the ray origin)."""
+        torch = self.torch
+        from hand_tracking_samples_tpu_torch.model.hand import (
+            PHYSICS_WEAK_FORCE)
+        from hand_tracking_samples_tpu_torch.ops.cloud_rows import (
+            _kernel_inputs_ph)
+        from hand_tracking_samples_tpu_torch.tracker import runtime as rt
+        m, pose = self.model, st.body.pose
+        B, C = m.n_bodies, 128
+        cfg = self.cloud_cfg("mirror", plane=CUT_PLANE, cnn=True)
+        ph = rt.frame_cloud(depth, self.cam, cfg)
+        scale_b = torch.where(torch.arange(B, device=self.dev) <= 2,
+                              PHYSICS_WEAK_FORCE, 1.0).float()
+        dyn = (ph,) + _kernel_inputs_ph(pose, m, (0.0, 0.0, 0.0), scale_b,
+                                        0.0) + (C,)
+        seg, _, _, _, cph = rt._cnn_frame_inputs(self.cnn, depth, self.cam,
+                                                 cfg, ph)
+        mph, origin, scale = rt.multistep_cloud(cph, seg.cam.pose, cfg, B)
+        ms = (mph,) + _kernel_inputs_ph(pose, m, origin, scale, 0.0) + (C,)
+        return {2048: dyn, 512: ms}
+
+    def hold_pack(self, k, p):
+        """Kernel 2.5 equals its plain version: counts and every channel."""
+        torch = self.torch
+        (kp, kc), (pp, pc) = k, p
+        check(torch.equal(kc, pc), "cloud_rows_packed: counts differ")
+        err = (kp - pp).abs().max().item()
+        check(err == 0.0, f"cloud_rows_packed differs from its plain "
+              f"version: {err}")
+        slots = int((pp[:, 15] > 0.5).sum())
+        thinned = int((pc > pp.shape[2] // 24).sum())
+        return err, (f"packed {err:.3g} ({slots} slots, {thinned} bodies "
+                     f"thinned)")
+
+    def compare_pack(self):
+        """Phase 12: kernel 2.5 against its plain version at T=4 and at
+        T=512 (one cutting-plane frame in), N=2048 and N=512."""
+        from hand_tracking_samples_tpu_torch.ops.cloud_rows import (
+            cloud_rows_packed, cloud_rows_packed_plain)
+        lines = []
+        self.pack_err = {}
+        for T in (4, TRACKS):
+            st = self.init_state(T)
+            if T == TRACKS:
+                st, _ = self.run(st, 1, T,
+                                 cfg=self.cloud_cfg("mirror", plane=CUT_PLANE))
+            inp = self.pack_inputs(st, self.depth_frame(1, T))
+            for n, args in inp.items():
+                err, note = self.hold_pack(cloud_rows_packed(*args),
+                                           cloud_rows_packed_plain(*args))
+                self.pack_err[f"T{T}_N{n}"] = err
+                lines.append(f"T={T} N={n} {note}")
+        self.results["cloud_rows_packed"]["max_abs_err_t4"] = max(
+            self.pack_err["T4_N2048"], self.pack_err["T4_N512"])
+        return "; ".join(lines)
+
+    def seq_odd_gap(self, je, label):
+        """Hold the sequential frame's odd tracks (per-frame mean joint
+        error je in mm, from frame 0) to the JAX package's curve on the
+        same renders (SEQ_ODD_BAND_MM); returns the per-frame gap and the
+        JAX curve."""
+        np = self.np
+        curve = glob.glob(os.path.join(REPO, "tests", "fixtures", "cache",
+                                       "seqcurve_*.json"))
+        check(len(curve) == 1, "the JAX sequential curve is missing")
+        with open(curve[0]) as f:
+            jc = np.asarray(json.load(f)["joint_err_mm"])[:len(je)]
+        gap = np.abs(je - jc)
+        fmt = lambda v: " ".join(f"{x:.2f}" for x in v)
+        band = SEQ_ODD_BAND_MM
+        check(gap[:8].max() <= band["before"] and gap.max() <= band["any"]
+              and gap[-5:].max() <= band["last5"],
+              f"{label} off the JAX curve beyond {band}: port "
+              f"[{fmt(je)}] mm, JAX [{fmt(jc)}] mm")
+        return gap, jc
+
+    def voxel_curve(self):
+        curve = glob.glob(os.path.join(REPO, "tests", "fixtures", "cache",
+                                       "voxcurve_*.json"))
+        check(len(curve) == 1, "the JAX voxel curve is missing")
+        with open(curve[0]) as f:
+            return {k: self.np.asarray(v) for k, v in json.load(f).items()}
+
+    def track_errors(self, cfg, frames, T):
+        """Run `frames` frames of phase 4's renders under cfg; returns the
+        per-frame (dyn30 dev from the golden, max over even tracks), (even
+        tracks' joint error against the animbank, mean), (odd tracks',
+        mean); the poses of tracks 0-1 per frame; and the launch counts."""
+        torch = self.torch
+        from hand_tracking_samples_tpu_torch import kernels
+        even = torch.arange(0, T, 2, device=self.dev)
+        odd = torch.arange(1, T, 2, device=self.dev)
+        ref, bank = self.ref, torch.tensor(self.bank, device=self.dev)
+        box = []
+
+        def keep(st):
+            pose, f = st.body.pose, len(box)
+            box.append(0)
+            dev = (pose[even, :, :3] - ref[f][:, :3]).norm(dim=-1).mean(-1)
+            je0 = (pose[even, :, :3] - bank[f][:, :3]).norm(dim=-1).mean(-1)
+            je1 = (pose[odd, :, :3] - bank[30 + f][:, :3]).norm(
+                dim=-1).mean(-1)
+            return dev.max(), je0.mean(), je1.mean(), pose[:2].clone()
+        kernels.reset_counts()
+        st, hist = self.run(self.init_state(T), frames, T, keep=keep,
+                            cfg=cfg)
+        counts = kernels.counts()
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(st.body.pose).all()), "non-finite poses")
+        cols = [torch.stack([h[i] for h in hist]).cpu().numpy()
+                for i in range(3)]
+        return cols, [h[3] for h in hist], counts
+
+    def cloud_slice(self):
+        """Phase 13 (see the module docstring)."""
+        torch, np = self.torch, self.np
+        from hand_tracking_samples_tpu_torch import kernels
+        from hand_tracking_samples_tpu_torch.imaging.image_ops import (
+            point_cloud, voxel_buckets)
+        from hand_tracking_samples_tpu_torch.tracker.runtime import (
+            frame_cloud)
+        T, F = TRACKS, FRAMES
+        fmt = lambda v: " ".join(f"{x:.2f}" for x in v)
+        out, lines = {}, []
+        jc = self.voxel_curve()
+
+        def gate_launches(counts, n_pack, kernel2=0):
+            check(counts["cloud_rows_packed"] == n_pack
+                  and counts["cloud_rows_solve"] == kernel2,
+                  f"kernel 2.5 launched {counts['cloud_rows_packed']} times "
+                  f"(want {n_pack}), kernel 2 {counts['cloud_rows_solve']}")
+
+        def voxel_gap(je0, je1, curve, label):
+            n = len(je0)
+            gap = np.maximum(np.abs(je0 * 1e3 - curve[:n, 0]),
+                             np.abs(je1 * 1e3 - curve[:n, 1]))
+            band = VOXEL_BAND_MM
+            check(gap[:8].max() <= band["before"] and gap.max() <= band["any"],
+                  f"{label}: voxel tracks off the JAX curve beyond {band}: "
+                  f"gap [{fmt(gap)}] mm, port even [{fmt(je0 * 1e3)}] odd "
+                  f"[{fmt(je1 * 1e3)}] mm, JAX even [{fmt(curve[:n, 0])}] "
+                  f"odd [{fmt(curve[:n, 1])}] mm")
+            return gap
+
+        # the far plane on the kernel solver: phase 4's gates
+        cfg = self.cloud_cfg("mirror")
+        (dmax, _, je1), p2, counts = self.track_errors(cfg, F, T)
+        gate_launches(counts, F)
+        check(counts["cloud_from_depth"] == F, f"cloud kernel: {counts}")
+        self.results["cloud_rows_packed"]["launches"] = counts[
+            "cloud_rows_packed"]
+        je1 = je1 * 1e3
+        band = ODD_BAND_MM
+        check((dmax < 1.2e-3).all() and dmax.mean() <= 1.0e-3,
+              f"far mirror: dyn30 dev per frame max {dmax.max() * 1e3:.3f} "
+              f"mm, mean {dmax.mean() * 1e3:.3f} mm")
+        check(je1[:8].max() < band["before"] and je1.max() < band["peak"]
+              and je1[-5:].max() < band["last5"]
+              and je1.mean() <= band["mean"],
+              f"far mirror: odd tracks outside {band}: [{fmt(je1)}] mm")
+        cerr = self.cpu_reference(p2[:CLOUD_CPU_FRAMES], cfg)
+        out["far_mirror"] = dict(
+            dyn30_dev_mm_max=float(dmax.max() * 1e3),
+            dyn30_dev_mm_mean=float(dmax.mean() * 1e3),
+            odd_joint_err_mm_per_frame=je1.tolist(), cpu_reference_err_m=cerr,
+            launches=counts)
+        lines.append(f"far mirror: dyn30 dev max {dmax.max() * 1e3:.3f} mm "
+                     f"mean {dmax.mean() * 1e3:.3f} mm, odd [{fmt(je1)}] mm, "
+                     f"CPU {cerr:.2g} m, launches {counts}")
+
+        # the voxel cloud on the kernel solver: the JAX curve
+        cfg = self.cloud_cfg("voxel")
+        (dmax, je0, je1), p2, counts = self.track_errors(cfg, F, T)
+        gate_launches(counts, F)
+        check(counts["cloud_from_depth"] == 0, f"voxel frame: {counts}")
+        gap = voxel_gap(je0, je1, jc["kernel"], "kernel solver")
+        cerr = self.cpu_reference(p2[:CLOUD_CPU_FRAMES], cfg)
+        # the voxel cloud: the same bits on two runs; counts and mask equal
+        # to the CPU's, centroids within VOXEL_CPU_M of them
+        d = self.depth_frame(0, T)
+        a, b = frame_cloud(d, self.cam, cfg), frame_cloud(d, self.cam, cfg)
+        check(torch.equal(a, b), "the voxel cloud differs between two runs")
+        pts, mask = point_cloud(d[:2], self.cam, 0.1, cfg.drangey)
+        sk, ck = voxel_buckets(pts, mask, VOXEL_SIZE)
+        sp, cp = voxel_buckets(pts.cpu(), mask.cpu(), VOXEL_SIZE)
+        check(torch.equal(ck.cpu(), cp), "voxel counts differ from the CPU")
+        verr = (sk.cpu() - sp).abs().max().item()
+        check(verr <= 1e-6, f"voxel sums differ from the CPU: {verr}")
+        nvox = (a[:, 4] > 0.5).sum(1)
+        out["voxel"] = dict(
+            dyn30_dev_mm_max=float(dmax.max() * 1e3),
+            even_joint_err_mm_per_frame=(je0 * 1e3).tolist(),
+            odd_joint_err_mm_per_frame=(je1 * 1e3).tolist(),
+            jax_gap_mm_per_frame=gap.tolist(), cpu_reference_err_m=cerr,
+            voxel_sums_cpu_err=verr, voxels_min=int(nvox.min()),
+            voxels_max=int(nvox.max()), launches=counts)
+        lines.append(f"voxel: even [{fmt(je0 * 1e3)}] odd [{fmt(je1 * 1e3)}]"
+                     f" mm, JAX gap max {gap.max():.3f} mm, CPU {cerr:.2g} m,"
+                     f" cloud equal on two runs, {int(nvox.min())}-"
+                     f"{int(nvox.max())} voxels, sums vs CPU {verr:.2g}, "
+                     f"launches {counts}")
+
+        # the CNN frame with the far plane: phase 7's band
+        cfg = self.cloud_cfg("mirror", cnn=True)
+        grp = self.reset_group(CNN_TRACKS)
+        bank = torch.tensor(self.bank, device=self.dev)
+        box = []
+
+        def keep(st):
+            je = (st.body.pose[..., :3] - bank[30 + len(box)][:, :3]).norm(
+                dim=-1).mean(-1)
+            box.append(0)
+            return je[~grp].max(), je[grp].max(), st.body.pose[[0, 3]].clone()
+        kernels.reset_counts()
+        st, hist = self.cnn_run(self.cnn_state(CNN_TRACKS), CNN_FRAMES,
+                                CNN_TRACKS, keep=keep, cfg=cfg)
+        counts = kernels.counts()
+        gate_launches(counts, 5 * CNN_FRAMES)
+        check(bool(torch.isfinite(st.body.pose).all()), "non-finite poses")
+        gt_max, rs_max = (torch.stack([x[i] for x in hist]).cpu().numpy()
+                          * 1e3 for i in range(2))
+        band = CNN_BAND_MM
+        check(gt_max.max() < band["gt"] and rs_max[0] < band["reset_first"]
+              and rs_max[-1] < band["reset_last"],
+              f"far-mirror CNN frame outside {band}: on-hand "
+              f"[{fmt(gt_max)}] mm, reset [{fmt(rs_max)}] mm")
+        cerr = self.cnn_cpu_reference([x[2] for x in hist][:1], cfg)
+        out["cnn_far_mirror"] = dict(
+            gt_joint_err_mm_max_per_frame=gt_max.tolist(),
+            reset_joint_err_mm_max_per_frame=rs_max.tolist(),
+            cpu_reference_err_m=cerr, launches=counts)
+        lines.append(f"far-mirror CNN frame: on-hand [{fmt(gt_max)}] mm, "
+                     f"reset [{fmt(rs_max)}] mm, CPU {cerr:.2g} m, launches "
+                     f"{counts}")
+
+        # the sequential frame with each cloud
+        Fs = CLOUD_SEQ_FRAMES
+        cfg = self.cloud_cfg("voxel", "sequential")
+        (_, je0, je1), p2, counts = self.track_errors(cfg, Fs, T)
+        gate_launches(counts, 0)
+        check(counts["correspondence"] == Fs and counts["row_sweep"] == Fs,
+              f"sequential voxel frame: {counts}")
+        gap = voxel_gap(je0, je1, jc["sequential"], "sequential solver")
+        cerr = self.cpu_reference(p2[:CLOUD_CPU_FRAMES], cfg)
+        out["seq_voxel"] = dict(
+            even_joint_err_mm_per_frame=(je0 * 1e3).tolist(),
+            odd_joint_err_mm_per_frame=(je1 * 1e3).tolist(),
+            jax_gap_mm_per_frame=gap.tolist(), cpu_reference_err_m=cerr,
+            launches=counts)
+        lines.append(f"sequential voxel: JAX gap max {gap.max():.3f} mm, "
+                     f"CPU {cerr:.2g} m")
+        cfg = self.cloud_cfg("mirror", "sequential")
+        (dmax, _, je1), p2, counts = self.track_errors(cfg, Fs, T)
+        gate_launches(counts, 0)
+        check(counts["correspondence"] == Fs and counts["row_sweep"] == Fs,
+              f"sequential mirror frame: {counts}")
+        check((dmax < 1.5e-3).all() and dmax.mean() <= 1.0e-3,
+              f"sequential far mirror: dyn30 dev per frame max "
+              f"{dmax.max() * 1e3:.3f} mm, mean {dmax.mean() * 1e3:.3f} mm")
+        gap, _ = self.seq_odd_gap(je1 * 1e3,
+                                  "sequential far mirror odd tracks")
+        cerr = self.cpu_reference(p2[:CLOUD_CPU_FRAMES], cfg)
+        out["seq_far_mirror"] = dict(
+            dyn30_dev_mm_max_per_frame=(dmax * 1e3).tolist(),
+            odd_joint_err_mm_per_frame=(je1 * 1e3).tolist(),
+            jax_gap_mm_per_frame=gap.tolist(), cpu_reference_err_m=cerr,
+            launches=counts)
+        lines.append(f"sequential far mirror: dyn30 dev max "
+                     f"{dmax.max() * 1e3:.3f} mm, JAX gap max "
+                     f"{gap.max():.3f} mm, CPU {cerr:.2g} m")
+
+        # the cutting plane on 2 tracks against the CPU
+        cut = {}
+        for label, cfg in (("dynamics", self.cloud_cfg("mirror",
+                                                       plane=CUT_PLANE)),
+                           ("sequential", self.cloud_cfg(
+                               "voxel_mirror", "sequential",
+                               plane=CUT_PLANE)),
+                           ("colored", self.cloud_cfg(
+                               "voxel_mirror", "colored", plane=CUT_PLANE)),
+                           ("sequential_nopallas", self.cloud_cfg(
+                               "mirror", "sequential", plane=CUT_PLANE,
+                               use_pallas=False))):
+            _, h = self.run(self.init_state(2), CLOUD_CPU_FRAMES, 2,
+                            cfg=cfg, keep=lambda s: s.body.pose.clone())
+            cut[label] = self.cpu_reference(h, cfg)
+        cfg = self.cloud_cfg("mirror", plane=CUT_PLANE, cnn=True)
+        idx = torch.tensor([0, 3], device=self.dev)
+        full = self.cnn_state(4)
+        st2 = type(full)(type(full.body)(*[x[idx] for x in full.body]),
+                         full.prev_frame_error[idx], full.initializing[idx])
+        _, h = self.cnn_run(st2, 1, 4, idx=idx, cfg=cfg,     # the reset
+                            keep=lambda s: s.body.pose.clone())
+        cut["cnn"] = self.cnn_cpu_reference(h, cfg)
+        out["cutting_plane_cpu_err_m"] = cut
+        lines.append("cutting plane vs CPU " + ", ".join(
+            f"{k} {v:.2g} m" for k, v in cut.items()))
+        self.cloud_stats = out
+        return "; ".join(lines)
+
+    def cloud_timing(self):
+        """Phase 14: the new frames' time at T=512 with their device split
+        and launch counts, and kernel 2.5 at both N (CUDA events) beside
+        its plain version and its bound."""
+        torch = self.torch
+        from hand_tracking_samples_tpu_torch import kernels
+        from hand_tracking_samples_tpu_torch.ops.cloud_rows import (
+            cloud_rows_packed, cloud_rows_packed_plain)
+        T = TRACKS
+        self.cloud_speed = {}
+        parts = []
+        frames = (("dynamics far mirror", self.cloud_cfg("mirror"), "dyn"),
+                  ("dynamics voxel", self.cloud_cfg("voxel"), "dyn"),
+                  ("CNN far mirror", self.cloud_cfg("mirror", cnn=True),
+                   "cnn"),
+                  ("sequential voxel", self.cloud_cfg("voxel", "sequential"),
+                   "seq"),
+                  ("sequential far mirror",
+                   self.cloud_cfg("mirror", "sequential"), "seq"))
+        for label, cfg, kind in frames:
+            F = CLOUD_TIMED_FRAMES[kind]
+            if kind == "cnn":
+                run = lambda st, fr, t, cfg=cfg: self.cnn_run(st, fr, t,
+                                                              cfg=cfg)
+                start = lambda: self.cnn_state(T)
+            else:
+                run = lambda st, fr, t, cfg=cfg: self.run(st, fr, t, cfg=cfg)
+                start = lambda: self.init_state(T)
+            run(start(), 1, T)                                    # warm
+            torch.cuda.synchronize()
+            kernels.reset_counts()
+            t0 = time.perf_counter()
+            run(start(), F, T)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = {k: v for k, v in kernels.counts().items() if v}
+            prof = self.profile(T, 2, run=run, state=start())
+            self.cloud_speed[label] = dict(
+                tracks=T, frames=F, seconds=dt, ms_per_frame=dt / F * 1e3,
+                tracked_fps=T * F / dt, launches=counts, **prof)
+            busy = (f"device busy {prof['device_ms_per_frame']:.2f} ms "
+                    f"(port kernels {prof['port_kernels_ms_per_frame']:.2f}"
+                    f", {prof['torch_launches_per_frame']:.0f} PyTorch "
+                    f"launches {prof['torch_ops_ms_per_frame']:.2f})"
+                    if "device_ms_per_frame" in prof
+                    else f"profile not measured ({prof['profile_error']})")
+            parts.append(f"{label} {dt / F * 1e3:.1f} ms a frame, "
+                         f"{T * F / dt:.1f} tracked frames/s, {busy}")
+        st, _ = self.run(self.init_state(T), 1, T,
+                         cfg=self.cloud_cfg("mirror", plane=CUT_PLANE))
+        inp = self.pack_inputs(st, self.depth_frame(1, T))
+        r = self.results["cloud_rows_packed"]
+        for n, args in inp.items():
+            ms, k = self.event_ms(cloud_rows_packed, args, warm=2, reps=10)
+            plain_ms, p = self.event_ms(cloud_rows_packed_plain, args,
+                                        warm=0, reps=1)
+            err, note = self.hold_pack(k, p)
+            nbytes, ops = self.work("cloud_rows_packed", args)
+            tb, to = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_S * 1e3
+            res = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       bound_ms=max(tb, to),
+                       bound_by="bytes" if tb >= to else "operations",
+                       library_ms=None, bytes=nbytes, operations=ops)
+            if n == 2048:                   # the dynamics pass's: the row
+                r.update(res)
+            r[f"n{n}"] = res
+            parts.append(f"cloud_rows_packed N={n} {ms:.4f} ms (plain "
+                         f"{plain_ms:.2f} ms, bound {max(tb, to):.4f} ms "
+                         f"by {res['bound_by']}; {note})")
+        return f"T={T}: " + "; ".join(parts)
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1341,6 +1771,9 @@ def main(argv=None) -> int:
           s.compare_ref)
     phase(10, "sequential and colored frames", s.ref_slice)
     phase(11, "reference-solver timing", s.ref_timing)
+    phase(12, "kernel 2.5 vs plain (T=4, T=512)", s.compare_pack)
+    phase(13, "voxel and mirror frames", s.cloud_slice)
+    phase(14, "voxel and mirror timing", s.cloud_timing)
     s.results["row_sweep[colored]"]["launches"] = \
         s.ref_speed["colored"]["launches"]["row_sweep"]
     record["total_s"] = time.perf_counter() - t_all
@@ -1362,7 +1795,9 @@ def main(argv=None) -> int:
                            slice=s.slice_stats, speed=s.fps,
                            cnn_frame=s.cnn_stats, cnn_speed=s.cnn_speed,
                            reference=s.ref_stats,
-                           reference_speed=s.ref_speed),
+                           reference_speed=s.ref_speed,
+                           clouds=s.cloud_stats, cloud_speed=s.cloud_speed,
+                           pack_err=s.pack_err),
                       f, indent=1, default=str)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

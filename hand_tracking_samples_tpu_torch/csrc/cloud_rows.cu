@@ -1,41 +1,50 @@
-// Cloud correspondence, three variants of the Pallas kernel
+// Cloud correspondence, four variants of the Pallas kernel
 // hand_tracking_samples_tpu/ops/cloud_rows.py:34 (_make_kernel):
 //
-//   cloud_rows_solve_kernel   solve_ch=True (launched by _cloud_rows_call_b
-//                             at :387): rows + solve prep + slot pack
+//   cloud_rows_pack_kernel<12>  solve_ch=True (launched by
+//                             _cloud_rows_call_b at :387): rows + solve prep
+//                             + slot pack (kernel 2)
+//   cloud_rows_pack_kernel<16>  pack=True, solve_ch=False (_cloud_rows_call
+//                             :357, _cloud_rows_call_b :387): the same pack
+//                             with the 16 parity channels (kernel 2.5)
 //   cloud_rows_unpacked_kernel  pack=False (_cloud_rows_unpacked_call_b,
 //                             :430): per-point directed rows, UnibodyFit
 //   cloud_vals_kernel         vals_only=True (same call): winner body and
 //                             value per point, FitError
 //
 // Each is the same function as its plain version in ops/cloud_rows.py
-// (cloud_rows_solve_plain, cloud_rows_unpacked_plain, cloud_vals_plain).
-// The solve variant:
+// (cloud_rows_solve_plain, cloud_rows_packed_plain,
+// cloud_rows_unpacked_plain, cloud_vals_plain).  The pack variants:
 //   winner      strict-< scan over [17 sphere, 17 hull most-above] values
 //   normal      sphere: (p - pos)/|p - pos|; hull: mean of the winner
 //               body's maximal planes (blend on exact ties)
 //   ray clip    slab ConvexHitCheck of origin->p against the winner's hull
 //   row         attach point, normal, targetdist, lever r1
-//   solve prep  J1 = r1 x n, K1 = Iinv_w J1, dinv, tsm = td/dt
+//   solve prep  J1 = r1 x n, K1 = Iinv_w J1, dinv; then tsm = td/dt (12
+//               channels) or r1, td and active (16 channels)
 //   pack        stable per-body rank among active points (slot order =
 //               point order), uniform thinning to C slots, force scale
 //               compensated by count/C
 //
-// Design: one block of 1024 threads per track, points p = k*1024 + tid.
-// The track's world planes (5P x B floats) and body scalars sit in shared
-// memory; every thread reads the same plane at the same time (broadcast).
+// Design: one block of 1024 threads per track, points p = k*1024 + tid
+// (N <= 2048, a multiple of 32: 2048 in the dynamics pass, 512 in
+// MultiStepSim).  The track's world planes (5P x B floats) and body
+// scalars sit in shared memory; every thread reads the same plane at the
+// same time (broadcast).
 // Ranks: __match_any_sync groups a warp's points by winner body; the group
 // leader writes the group size into a (segment, body) table in shared
 // memory (a segment is 32 consecutive points); one thread per body turns
 // the table into exclusive prefix counts.  No atomics, so the slot order is
-// the point order.
+// the point order.  Each (body, slot) receives at most one point, so the
+// TPU kernel's scatter matmul (a 3-way bf16 split through a one-hot, exact
+// only because every output is a single term) is a direct store here.
 //
 // Bound on the H100: operations.  Per point 17 x 96 hull-plane
 // evaluations of 7 float32 operations, then ~23 operations on each of the
 // winner's 96 planes: about 14 kFLOP a point, 28 MFLOP a track at 2048
-// points; at 512 tracks ~15 GFLOP, 0.22 ms at 67 TFLOP/s.  Bytes:
-// 2048 x 8 x 4 in, 12 x 24 x 128 x 4 out a track (213 KB), 0.03 ms at 512
-// tracks.
+// points; at 512 tracks ~15 GFLOP, 0.22 ms at 67 TFLOP/s (a quarter at
+// 512 points).  Bytes: 2048 x 8 x 4 in, CH x 24 x 128 x 4 out a track
+// (213 KB at 12 channels, 262 KB at 16), 0.03-0.04 ms at 512 tracks.
 // The unpacked and vals variants: one thread a point, 256-point blocks
 // (grid tracks x point blocks), the track's planes staged in shared memory
 // by every block.  Vals: 17 x 96 plane evaluations a point and one value
@@ -55,7 +64,6 @@
 #define CR_MAXPB 8192
 #define CR_MAXSEG 64
 #define CR_BP 24
-#define CR_CH 12
 #define CU_THREADS 256
 
 // planes_t rows: channel k of plane q of body b at spl[(k*P + q)*B + b]
@@ -170,14 +178,18 @@ __device__ __forceinline__ CrRow cr_row(const float* spl, const float* sb,
   return r;
 }
 
+// CH = 12: [n(3), J1(3), K1(3), dinv, tsm, scale] (kernel 2);
+// CH = 16: [n(3), J1(3), K1(3), dinv, r1(3), td, scale, active] (2.5).
+template <int CH>
 __global__ void __launch_bounds__(CR_THREADS)
-cloud_rows_solve_kernel(const float* __restrict__ pts,
-                        const float* __restrict__ planes,
-                        const float* __restrict__ body,
-                        const float* __restrict__ misc,
-                        float* __restrict__ packed,
-                        float* __restrict__ counts, int N, int P, int B,
-                        int C) {
+cloud_rows_pack_kernel(const float* __restrict__ pts,
+                       const float* __restrict__ planes,
+                       const float* __restrict__ body,
+                       const float* __restrict__ misc,
+                       float* __restrict__ packed,
+                       float* __restrict__ counts, int N, int P, int B,
+                       int C) {
+  constexpr int SC = CH == 12 ? 11 : 14;   // the force-scale channel
   __shared__ float spl[CR_MAXPB];
   __shared__ float sb[16 * CR_BP];
   __shared__ int seg[CR_MAXSEG * CR_BP];
@@ -187,18 +199,18 @@ cloud_rows_solve_kernel(const float* __restrict__ pts,
   const int PB = 5 * P * B;
   const int nseg = N >> 5;
   const float* pt = pts + (size_t)t * 8 * N;
-  float* out = packed + (size_t)t * CR_CH * CR_BP * C;
+  float* out = packed + (size_t)t * CH * CR_BP * C;
   for (int i = tid; i < PB; i += CR_THREADS)
     spl[i] = planes[(size_t)t * PB + i];
   for (int i = tid; i < 16 * CR_BP; i += CR_THREADS)
     sb[i] = body[(size_t)t * 16 * CR_BP + i];
   for (int i = tid; i < nseg * CR_BP; i += CR_THREADS) seg[i] = 0;
-  for (int i = tid; i < CR_CH * CR_BP * C; i += CR_THREADS) out[i] = 0.0f;
+  for (int i = tid; i < CH * CR_BP * C; i += CR_THREADS) out[i] = 0.0f;
   __syncthreads();
   const float ox = misc[t * 8 + 0], oy = misc[t * 8 + 1];
   const float oz = misc[t * 8 + 2], dt = misc[t * 8 + 3];
 
-  float vals[2][CR_CH];
+  float vals[2][CH];
   int key[2], lrank[2];
   for (int k = 0; k < 2; ++k) {
     const int p = k * CR_THREADS + tid;
@@ -228,8 +240,14 @@ cloud_rows_solve_kernel(const float* __restrict__ pts,
     v[3] = Jx; v[4] = Jy; v[5] = Jz;
     v[6] = Kx; v[7] = Ky; v[8] = Kz;
     v[9] = dinv;
-    v[10] = r.td / dt;
-    v[11] = 0.0f;
+    if constexpr (CH == 12) {
+      v[10] = r.td / dt;
+    } else {
+      v[10] = r1x; v[11] = r1y; v[12] = r1z;
+      v[13] = r.td;
+      v[15] = active ? 1.0f : 0.0f;
+    }
+    v[SC] = 0.0f;
     key[k] = active ? wb : -1;
   }
   // ranks: group each warp's points by winner body
@@ -267,9 +285,10 @@ cloud_rows_solve_kernel(const float* __restrict__ pts,
     const bool keep = !thin || rankf == 0.0f || nr > prev;
     if (!keep || nr >= Cf) continue;
     const float comp = thin ? cntf * invC : 1.0f;
-    vals[k][11] = SB(4, b) * comp;
+    vals[k][SC] = SB(4, b) * comp;
     const int col = b * C + (int)nr;
-    for (int ch = 0; ch < CR_CH; ++ch) out[ch * CR_BP * C + col] = vals[k][ch];
+#pragma unroll
+    for (int ch = 0; ch < CH; ++ch) out[ch * CR_BP * C + col] = vals[k][ch];
   }
 }
 
@@ -323,6 +342,23 @@ cloud_rows_unpacked_kernel(const float* __restrict__ pts,
 }
 #undef PL
 #undef SB
+template <int CH>
+static int cloud_rows_pack_launch(const void* pts, const void* planes,
+                                  const void* body, const void* misc,
+                                  void* packed, void* counts, int T, int N,
+                                  int P, int B, int C, int bp,
+                                  void* stream) {
+  if (N % 32 != 0 || N > CR_THREADS * 2 || 5 * P * B > CR_MAXPB ||
+      bp != CR_BP || B > CR_BP)
+    return (int)cudaErrorInvalidValue;
+  if (T > 0) {
+    cloud_rows_pack_kernel<CH><<<T, CR_THREADS, 0, (cudaStream_t)stream>>>(
+        (const float*)pts, (const float*)planes, (const float*)body,
+        (const float*)misc, (float*)packed, (float*)counts, N, P, B, C);
+  }
+  return (int)cudaGetLastError();
+}
+
 // pts (T, 8, N); planes (T, 5P, B); body (T, 16, 24); misc (T, 8)
 // [origin, dt]; packed (T, 12, 24*C); counts (T, 24).  Requires N % 32 == 0,
 // N <= 2048, 5*P*B <= 8192, bp == 24.
@@ -331,15 +367,18 @@ HTS_EXPORT int hts_cloud_rows_solve(const void* pts, const void* planes,
                                     void* packed, void* counts, int T, int N,
                                     int P, int B, int C, int bp,
                                     void* stream) {
-  if (N % 32 != 0 || N > CR_THREADS * 2 || 5 * P * B > CR_MAXPB ||
-      bp != CR_BP || B > CR_BP)
-    return (int)cudaErrorInvalidValue;
-  if (T > 0) {
-    cloud_rows_solve_kernel<<<T, CR_THREADS, 0, (cudaStream_t)stream>>>(
-        (const float*)pts, (const float*)planes, (const float*)body,
-        (const float*)misc, (float*)packed, (float*)counts, N, P, B, C);
-  }
-  return (int)cudaGetLastError();
+  return cloud_rows_pack_launch<12>(pts, planes, body, misc, packed, counts,
+                                    T, N, P, B, C, bp, stream);
+}
+
+// The same arguments; packed (T, 16, 24*C), the parity channels.
+HTS_EXPORT int hts_cloud_rows_packed(const void* pts, const void* planes,
+                                     const void* body, const void* misc,
+                                     void* packed, void* counts, int T,
+                                     int N, int P, int B, int C, int bp,
+                                     void* stream) {
+  return cloud_rows_pack_launch<16>(pts, planes, body, misc, packed, counts,
+                                    T, N, P, B, C, bp, stream);
 }
 
 // pts (T, 8, N); planes (T, 5P, B); body (T, 16, 24); misc (T, 8);

@@ -244,7 +244,9 @@ def fit_error(pose, model, points_ph, depth, depth_cam,
     mask in row 4) by the vals kernel (ops.cloud_rows.cloud_vals_ph), the
     per-body maximum point error, and the bones seen in front of the depth
     image (depth (T, H, W) int16 holding u16 bits; depth_cam the camera).
-    pose (T, B, 7).  Returns (T,) float32."""
+    pose (T, B, 7).  An (N, 3) cloud (the voxel and mirror clouds) enters
+    as ops.cloud_rows.points_planes(points, mask), as the JAX package's
+    cloud_vals feeds it to the same kernel.  Returns (T,) float32."""
     from ..imaging.image_ops import depth_u16
     from ..ops.cloud_rows import cloud_vals_ph
     T, B = pose.shape[0], pose.shape[1]

@@ -13,7 +13,7 @@ from contracting a*b+c into one FMA: the kernels then round each operation
 as the plain PyTorch versions do, which is what lets the cloud kernel be
 bit-identical to its plain version and the others agree to the last bits.
 
-Each kernel wrapper (ops/cloud_kernel.py, ops/cloud_rows.py (three),
+Each kernel wrapper (ops/cloud_kernel.py, ops/cloud_rows.py (four),
 ops/correspondence.py, physics/contact_kernel.py, physics/pgs_kernel.py,
 physics/row_sweep.py) registers itself here with
 `wrapper(name)`; its `launches` attribute counts the launches it made.
@@ -115,6 +115,7 @@ def _declare(lib):
                                          F, F, F, F, F, P]
     lib.hts_cloud_rows_solve.argtypes = [P, P, P, P, P, P, I, I, I, I, I,
                                          I, P]
+    lib.hts_cloud_rows_packed.argtypes = lib.hts_cloud_rows_solve.argtypes
     lib.hts_contact_fields.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I,
                                        I, F, P]
     lib.hts_cloud_rows_unpacked.argtypes = [P, P, P, P, P, I, I, I, I, I,
@@ -123,7 +124,8 @@ def _declare(lib):
     lib.hts_correspondence.argtypes = [P] * 8 + [I, I, I, I, P]
     lib.hts_row_sweep.argtypes = [P, P]
     for fn in (lib.hts_cloud_from_depth, lib.hts_cloud_rows_solve,
-               lib.hts_cloud_rows_unpacked, lib.hts_contact_fields,
+               lib.hts_cloud_rows_packed, lib.hts_cloud_rows_unpacked,
+               lib.hts_contact_fields,
                lib.hts_pgs_solve, lib.hts_correspondence,
                lib.hts_row_sweep):
         fn.restype = ctypes.c_int

@@ -38,9 +38,9 @@ def _device(*xs):
 def fma(a, b, c):
     """float32(a*b + c) rounded once (see the module note)."""
     dev = _device(a, b, c)
-    if dev.type == "cuda":
+    if dev.type == "cuda":       # a Python float: a fill, not a copy
         a, b, c = (x if torch.is_tensor(x) else
-                   torch.tensor(x, dtype=torch.float32, device=dev)
+                   torch.full((), x, dtype=torch.float32, device=dev)
                    for x in (a, b, c))
         return torch.addcmul(c, a, b)
     p = _d(a) * _d(b)

@@ -156,24 +156,37 @@ def fit_point_cloud_kernel(state: BodyState, model, params: PhysicsParams,
                            microforce: float = 1.0,
                            origin=(0.0, 0.0, 0.0), iterations: int = 16,
                            iterations_post: int = 4, cloud_slots: int = 128,
-                           pgs_plan=None) -> BodyState:
+                           pgs_plan=None,
+                           planes_path: bool = True) -> BodyState:
     """FitPointCloud (physmodel.h:345-356) of the main-thread fit, all
-    tracks at once: the cloud (planes carrier points_ph (T, 8, N)) is packed
-    by the cloud-rows kernel behind the caller's single-body blocks, and the
+    tracks at once, on the kernel solver: the cloud's rows (planes carrier
+    points_ph (T, 8, N)) go behind the caller's single-body blocks, and the
     joint ranges are the only angular rows.  Cloud rows on the wrist, palm
-    and thumb base get the weak force (physmodel.h:347)."""
+    and thumb base get the weak force (physmodel.h:347).
+
+    planes_path: the cloud kernel's own cloud, packed by kernel 2 straight
+    into the solve's channels.  Otherwise (an (N, 3) cloud: the voxel and
+    mirror clouds; JAX model/hand.py:194-202) kernel 2.5 packs it into one
+    more single-body block, prepped with the caller's."""
     B = model.n_bodies
     dev = state.pose.device
     scale_b = torch.where(torch.arange(B, device=dev) <= 2,
                           torch.full((), PHYSICS_WEAK_FORCE, device=dev),
                           torch.ones((), device=dev)) * microforce
+    cloud_limits = (-microforce, microforce)       # +-scale, scale >= 0
+    if not planes_path:
+        from ..ops.cloud_rows import cloud_rows_packed_ph
+        blk, _ = cloud_rows_packed_ph(state.pose, model, points_ph, origin,
+                                      scale_b, cloud_slots)
+        return fit_fused(state, model, params, pgs_plan,
+                         (*single_blocks, blk),
+                         (*single_limits, cloud_limits),
+                         iterations=iterations,
+                         iterations_post=iterations_post)
     return fit_fused(state, model, params, pgs_plan, single_blocks,
-                     ((-PHYSICS_WEAK_FORCE * microforce,
-                       PHYSICS_WEAK_FORCE * microforce), *single_limits),
-                     cloud=(points_ph, origin, scale_b),
-                     cloud_limits=(-microforce, microforce),
-                     cloud_slots=cloud_slots, iterations=iterations,
-                     iterations_post=iterations_post)
+                     single_limits, cloud=(points_ph, origin, scale_b),
+                     cloud_limits=cloud_limits, cloud_slots=cloud_slots,
+                     iterations=iterations, iterations_post=iterations_post)
 
 
 def fix_positions(state: BodyState, model) -> BodyState:

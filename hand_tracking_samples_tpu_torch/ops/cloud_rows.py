@@ -1,9 +1,11 @@
-"""Cloud correspondence, row geometry and slot pack: three variants of one
+"""Cloud correspondence, row geometry and slot pack: four variants of one
 TPU kernel (hand_tracking_samples_tpu/ops/cloud_rows.py:34), each a CUDA
 kernel in csrc/cloud_rows.cu with its plain version here:
 
   cloud_rows_solve     the 12-channel solve-prep pack (kernel 2, the
-                       dynamics and MultiStepSim fits)
+                       dynamics and MultiStepSim fits on the planes carrier)
+  cloud_rows_packed    the 16-channel parity pack (kernel 2.5, the fits on
+                       an (N, 3) cloud: the voxel and mirror clouds)
   cloud_rows_unpacked  per-point directed rows without a pack (kernel 6,
                        UnibodyFit: cloud_rows_unibody)
   cloud_vals_k         the winner body and value per point (kernel 7,
@@ -23,10 +25,14 @@ kernel (which replaces the Pallas kernel with solve_ch=True, launched
 through _cloud_rows_call_b at :387), on CPU tensors it runs
 `cloud_rows_solve_plain`.  Output: packed (T, 12, BP*slots) channels
 [n(3), J1(3), K1(3), dinv, tsm, scale], body-major slot blocks, and the
-per-body active counts (T, BP).  The plane values, the world planes and
-inertia and the row and prep expressions are the JAX CPU build's
-contracted ones (maths/fma.py), so the output equals the JAX package's bit
-for bit on the CPU.
+per-body active counts (T, BP).  `cloud_rows_packed` is kernel 2.5's
+(pack=True, solve_ch=False; _cloud_rows_call :357 and _cloud_rows_call_b
+:387): the same pack with the 16 parity channels
+[n(3), J1(3), K1(3), dinv, r1(3), targetdist, scale, active], from which
+`cloud_rows_packed_ph` rebuilds the reference-shaped SingleBodyLinear.
+The plane values, the world planes and inertia and the row and prep
+expressions are the JAX CPU build's contracted ones (maths/fma.py), so the
+output equals the JAX package's bit for bit on the CPU.
 """
 from __future__ import annotations
 
@@ -36,7 +42,8 @@ from .. import kernels
 from ..maths.fma import dot3, fma, sqrt, sub_prod
 
 BP = 24          # body slots (17 padded)
-CH = 12
+CH = 12          # kernel 2's solve-prep channels
+PACK_CH = 16     # kernel 2.5's parity channels
 
 
 def _origin(origin, T, dev):
@@ -181,12 +188,14 @@ def _rows_plain(pts_h, planes_t, body_sc, misc):
     return dict(wb=wb, n=(nxf, nyf, nzf), w1=(w1x, w1y, w1z), td=td)
 
 
-def point_rows_plain(pts_h, planes_t, body_sc, misc, slots: int):
-    """The solve kernel's per-point half in plain PyTorch, the same float32
+def point_rows_plain(pts_h, planes_t, body_sc, misc, slots: int,
+                     parity: bool = False):
+    """The pack kernels' per-point half in plain PyTorch, the same float32
     operations in the same order.  pts_h (T, 8, N) [x, y, z, 1, mask, ...].
-    Returns vals (T, 12, N) (the packed channels of every point), col
-    (T, N) (the slot column a point is packed into, -1 where it is not) and
-    the per-body counts (T, BP) int32."""
+    Returns vals (T, CH, N) (the packed channels of every point: kernel 2's
+    12 solve-prep channels, or with parity kernel 2.5's 16), col (T, N)
+    (the slot column a point is packed into, -1 where it is not) and the
+    per-body counts (T, BP) int32."""
     B = planes_t.shape[2]
     C = slots
     dev = pts_h.device
@@ -233,9 +242,12 @@ def point_rows_plain(pts_h, planes_t, body_sc, misc, slots: int):
     keep = (~thin) | (rankf == 0) | (nr > prev)
     comp = torch.where(thin, cntf * (1.0 / C), one)
     wsc = pick_b(4) * comp
-    tsm = td / misc[:, 3:4]
-    vals = torch.stack([nxf, nyf, nzf, Jx, Jy, Jz, Kx, Ky, Kz, dinv, tsm,
-                        wsc], dim=1)                           # (T, 12, N)
+    if parity:
+        tail = [r1x, r1y, r1z, td, wsc, active.to(torch.float32)]
+    else:
+        tail = [td / misc[:, 3:4], wsc]
+    vals = torch.stack([nxf, nyf, nzf, Jx, Jy, Jz, Kx, Ky, Kz, dinv, *tail],
+                       dim=1)                                  # (T, CH, N)
 
     ok = active & keep & (nr < C)
     col = torch.where(ok, wb * C + nr.to(torch.int64),
@@ -243,22 +255,27 @@ def point_rows_plain(pts_h, planes_t, body_sc, misc, slots: int):
     return vals, col, counts
 
 
-def cloud_rows_solve_plain(pts_h, planes_t, body_sc, misc, slots: int):
-    """Plain PyTorch version of the kernel (see point_rows_plain)."""
+def _pack_plain(pts_h, planes_t, body_sc, misc, slots: int, parity: bool):
     vals, col, counts = point_rows_plain(pts_h, planes_t, body_sc, misc,
-                                         slots)
-    T = pts_h.shape[0]
-    packed = torch.zeros((T, CH, BP * slots), device=pts_h.device)
+                                         slots, parity)
+    T, ch = vals.shape[0], vals.shape[1]
+    packed = torch.zeros((T, ch, BP * slots), device=pts_h.device)
     tt, nn = torch.nonzero(col >= 0, as_tuple=True)
     packed[tt, :, col[tt, nn]] = vals[tt, :, nn]
     return packed, counts.to(torch.float32)
 
 
-@kernels.wrapper("cloud_rows_solve")
-def cloud_rows_solve(pts_h, planes_t, body_sc, misc, slots: int):
-    """Kernel wrapper: see the module docstring for the layouts."""
-    if pts_h.device.type == "cpu":
-        return cloud_rows_solve_plain(pts_h, planes_t, body_sc, misc, slots)
+def cloud_rows_solve_plain(pts_h, planes_t, body_sc, misc, slots: int):
+    """Plain PyTorch version of kernel 2 (see point_rows_plain)."""
+    return _pack_plain(pts_h, planes_t, body_sc, misc, slots, False)
+
+
+def cloud_rows_packed_plain(pts_h, planes_t, body_sc, misc, slots: int):
+    """Plain PyTorch version of kernel 2.5 (see point_rows_plain)."""
+    return _pack_plain(pts_h, planes_t, body_sc, misc, slots, True)
+
+
+def _pack_launch(pts_h, planes_t, body_sc, misc, slots: int, parity: bool):
     args = [x.contiguous() for x in (pts_h, planes_t, body_sc, misc)]
     dev = kernels.require_cuda(*args)
     T, _, N = pts_h.shape
@@ -266,14 +283,38 @@ def cloud_rows_solve(pts_h, planes_t, body_sc, misc, slots: int):
     if N % 32 or N > 2048 or 5 * P * B > 8192 or B > BP:
         raise ValueError(f"cloud_rows kernel takes N % 32 == 0, N <= 2048, "
                          f"5*P*B <= 8192: N={N} P={P} B={B}")
-    packed = torch.empty((T, CH, BP * slots), device=dev)
+    packed = torch.empty((T, PACK_CH if parity else CH, BP * slots),
+                         device=dev)
     counts = torch.empty((T, BP), device=dev)
-    err = kernels.library().hts_cloud_rows_solve(
-        *[a.data_ptr() for a in args], packed.data_ptr(), counts.data_ptr(),
-        T, N, P, B, slots, BP, kernels.stream_ptr(dev))
-    kernels.check(err, "cloud_rows_solve")
-    cloud_rows_solve.launches += 1
+    lib = kernels.library()
+    entry = lib.hts_cloud_rows_packed if parity else lib.hts_cloud_rows_solve
+    err = entry(*[a.data_ptr() for a in args], packed.data_ptr(),
+                counts.data_ptr(), T, N, P, B, slots, BP,
+                kernels.stream_ptr(dev))
+    kernels.check(err, "cloud_rows_packed" if parity else "cloud_rows_solve")
     return packed, counts
+
+
+@kernels.wrapper("cloud_rows_solve")
+def cloud_rows_solve(pts_h, planes_t, body_sc, misc, slots: int):
+    """Kernel 2's wrapper: see the module docstring for the layouts."""
+    if pts_h.device.type == "cpu":
+        return cloud_rows_solve_plain(pts_h, planes_t, body_sc, misc, slots)
+    out = _pack_launch(pts_h, planes_t, body_sc, misc, slots, False)
+    cloud_rows_solve.launches += 1
+    return out
+
+
+@kernels.wrapper("cloud_rows_packed")
+def cloud_rows_packed(pts_h, planes_t, body_sc, misc, slots: int):
+    """Kernel 2.5's wrapper (replaces hand_tracking_samples_tpu/ops/
+    cloud_rows.py:34 with pack=True, solve_ch=False): packed
+    (T, 16, BP*slots) parity channels and the counts (T, BP)."""
+    if pts_h.device.type == "cpu":
+        return cloud_rows_packed_plain(pts_h, planes_t, body_sc, misc, slots)
+    out = _pack_launch(pts_h, planes_t, body_sc, misc, slots, True)
+    cloud_rows_packed.launches += 1
+    return out
 
 
 def cloud_rows_solve_ph(pose, model, pts_h, origin, scale_per_body,
@@ -284,6 +325,51 @@ def cloud_rows_solve_ph(pose, model, pts_h, origin, scale_per_body,
                                                 scale_per_body, dt)
     return cloud_rows_solve(pts_h.contiguous(), planes_t, body_sc, misc,
                             slots)
+
+
+def points_planes(points, mask):
+    """(T, N, 3) points and (T, N) mask -> the planes carrier (T, 8, N)
+    [x, y, z, 1, mask, 0, 0, 0]."""
+    T, N, _ = points.shape
+    ph = torch.zeros((T, 8, N), device=points.device)
+    ph[:, 0:3] = points.transpose(1, 2)
+    ph[:, 3] = 1.0
+    ph[:, 4] = mask.to(torch.float32)
+    return ph
+
+
+def cloud_rows_packed_planes_ph(pose, model, pts_h, origin, scale_per_body,
+                                slots: int):
+    """Kernel 2.5's raw output (JAX ops/cloud_rows.py:628), batched over
+    the tracks of pose (T, B, 7) and pts_h (T, 8, N): packed
+    (T, 16, BP*slots) [n(3), J1(3), K1(3), dinv, r1(3), targetdist, scale,
+    active] in body-major slot blocks, and the counts (T, BP).
+    scale_per_body (B,) or (T, B)."""
+    planes_t, body_sc, misc = _kernel_inputs_ph(pose, model, origin,
+                                                scale_per_body, 0.0)
+    return cloud_rows_packed(pts_h.contiguous(), planes_t, body_sc, misc,
+                               slots)
+
+
+def cloud_rows_packed_ph(pose, model, pts_h, origin, scale_per_body,
+                         slots: int):
+    """CloudConstraints + per-body slot packing (JAX ops/cloud_rows.py:610):
+    (SingleBodyLinear with (T, slots, B, ...) fields, dropped (T, B)).
+    The block is the one pack_single_body_linear builds from the cloud
+    rows: normal from channels 0-2, r1 from 10-12, targetdist from 13,
+    force limits -+channel 14, active where channel 15 > 0.5; dropped
+    counts the rows a body lost to the slot cap."""
+    from ..physics.colored import SingleBodyLinear
+    packed, counts = cloud_rows_packed_planes_ph(pose, model, pts_h, origin,
+                                                 scale_per_body, slots)
+    T, B = pose.shape[0], pose.shape[1]
+    x = packed.reshape(T, PACK_CH, BP, slots).permute(0, 3, 2, 1)[:, :, :B]
+    scale = x[..., 14]
+    blk = SingleBodyLinear(
+        normal=x[..., 0:3], r1=x[..., 10:13], targetdist=x[..., 13],
+        targetspeednobias=torch.zeros_like(x[..., 13]), fmin=-scale,
+        fmax=scale, active=x[..., 15] > 0.5)
+    return blk, torch.clamp(counts[:, :B] - slots, min=0.0)
 
 
 # ---------------------------------------------------------------------------

@@ -20,8 +20,15 @@ On the sequential solver (the JAX package's default) and the colored one:
                    without) -> joints / contacts (contact kernel) / ranges
                    -> the row-sweep kernel -> poses
 
+Every one of these frames also runs on the voxel cloud (subsample_voxel:
+the full-image point_cloud averaged per voxel and compacted to the point
+budget) and through a mirror rig's plane (mirror_plane), alone or together.
+Those clouds leave the planes carrier: on the kernel solver the fits pack
+their rows with kernel 2.5 (the 16-channel cloud-rows pack) as a
+single-body block, in the dynamics pass and in each MultiStepSim step.
+
 Other settings of TrackerConfig (the CNN frame on the reference solvers,
-the voxel and mirror clouds, angles-only, jacobi contacts) raise
+angles-only, jacobi contacts, the kernel solver without use_pallas) raise
 NotImplementedError naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
@@ -35,13 +42,16 @@ from ..cnn.labels import CNNAnalysis, analyze_cnn_output
 from ..cnn.model import forward as cnn_forward
 from ..fitting.cloud import (cloud_chamber_rows, fit_error,
                              rows_to_single_block)
-from ..imaging.image_ops import compact_planes
+from ..imaging.image_ops import (compact_planes, compact_points,
+                                 mirror_plane_split, point_cloud,
+                                 voxel_subsample)
 from ..maths.pose import pose_inverse, pose_mul, pose_quat
 from ..maths.quat import qmul, quat_from_axis_angle, quat_from_to, qxdir, qydir
 from ..model.bake import FEATURE_BONES, FEATURE_OFFSETS
 from ..model.hand import (body_params, fit_fused, fit_point_cloud_kernel,
                           fix_positions, get_pose_user, initial_state)
 from ..ops.cloud_kernel import cloud_from_depth_planes, planes_points
+from ..ops.cloud_rows import points_planes
 from ..physics.solver import BodyState, PhysicsParams, sanity_check
 from ..segment.handsegment import cnn_input_from_segment, hand_segment_vr
 from .config import TrackerConfig
@@ -104,16 +114,12 @@ def _check_config(config: TrackerConfig, run_cnn=None):
                             "sequential and colored solvers (ROADMAP queue "
                             "1, item 1)"),
         "contacts_mode": (config.contacts_mode != "exact", "the jacobi "
-                          "contact schedule (ROADMAP queue 1, item 4)"),
+                          "contact schedule (ROADMAP queue 1, item 3)"),
         "use_pallas": (config.solver == "kernel" and not config.use_pallas,
                        "the kernel solver without the cloud kernels "
-                       "(ROADMAP queue 1, item 5)"),
-        "subsample_voxel": (bool(config.subsample_voxel), "the voxel cloud "
-                            "(ROADMAP queue 1, item 3)"),
-        "mirror_plane": (bool(config.mirror_plane), "the mirror split "
-                         "(ROADMAP queue 1, item 3)"),
+                       "(ROADMAP queue 1, item 4)"),
         "angles_only": (config.angles_only, "the angles-only frame "
-                        "(ROADMAP queue 1, item 5)"),
+                        "(ROADMAP queue 1, item 4)"),
     }
     for name, (bad, where) in later.items():
         if bad:
@@ -335,13 +341,19 @@ def multi_step_sim(body: BodyState, model, analysis: CNNAnalysis, ph,
     (steps >= steps_cloudstart), the ApplyAngles drive and cones
     (steps < steps_keyangles; palm drive torque while
     steps < steps_palmangle), the arm cone and the joint ranges, solved by
-    the PGS kernel's multistep plan.  ph (T, 8, N); camera_pose (T, 7)."""
+    the PGS kernel's multistep plan.  ph (T, 8, N); camera_pose (T, 7).
+    The cloud's rows are packed by kernel 2 straight into the solve, or for
+    the voxel and mirror clouds (JAX runtime.py:397-404) by kernel 2.5 into
+    one more single-body block each cloud step."""
+    from ..ops.cloud_rows import cloud_rows_packed_ph
     from ..physics.pgs_kernel import build_multistep_plan
     bp = body_params(model)
     body = sanity_check(body, bp)
     cloud_all = multistep_cloud(ph, camera_pose, config, model.n_bodies)
     camq = pose_quat(camera_pose)
     aa = (analysis.palmq, analysis.finger_clenched, camq)
+    C = config.cloud_rows_per_body
+    planes = _planes_path(config)
     for s in range(config.steps):
         has_angles = s < config.steps_keyangles
         blocks, limits = [], []
@@ -350,19 +362,22 @@ def multi_step_sim(body: BodyState, model, analysis: CNNAnalysis, ph,
                                           camera_pose, config))
             limits.append(((0.0, -100000.0), (100000.0, 0.0)))
         cloud = None
-        if config.steps_cloudstart <= s:
+        if config.steps_cloudstart <= s and planes:
             cloud = cloud_all
+        elif config.steps_cloudstart <= s:
+            blocks.append(cloud_rows_packed_ph(body.pose, model, *cloud_all,
+                                               C)[0])
+            limits.append((-1.0, 1.0))       # +-scale, scale >= 0
         cs = sum(int(b.targetdist.shape[1]) for b in blocks)
         if cloud is not None:
-            cs += config.cloud_rows_per_body
+            cs += C
         plan = build_multistep_plan(model.np, cs, has_angles,
                                     config.contacts_mode,
                                     bool(config.physics_use_collision))
         body = fit_fused(
             body, model, params, plan, blocks, limits, cloud=cloud,
             cloud_limits=(-1.0, 1.0),        # +-scale, scale >= 0
-            cloud_slots=(config.cloud_rows_per_body if cloud is not None
-                         else 0),
+            cloud_slots=C if cloud is not None else 0,
             mode="ms_angles" if has_angles else "ms_noangles", aa=aa,
             drive_force=10000.0 if s < config.steps_palmangle else 0.0,
             iterations=config.physics_iterations,
@@ -411,19 +426,59 @@ def reset_tracks(do_reset, body: BodyState, model, analysis, ph,
 # update_cnn_model (handtrack.h:693-746)
 # ---------------------------------------------------------------------------
 
+def _mirrored(ph, config: TrackerConfig, cam=None):
+    """MirrorPlaneSplit of the cloud ph when config.mirror_plane is set
+    (cam: the camera whose deprojection the points are, see
+    imaging.image_ops.mirror_points)."""
+    if not config.mirror_plane:
+        return ph
+    return points_planes(*mirror_plane_split(
+        *planes_points(ph), config.mirror_plane, cam=cam))
+
+
+def frame_cloud(depth, cam, config: TrackerConfig):
+    """The dynamics frame's cloud (JAX runtime.py:785-810) as a planes
+    carrier (T, 8, point_budget): the cloud kernel's (every
+    subsample_fraction-th valid pixel), or with subsample_voxel the
+    full-image point_cloud averaged per voxel of subsample_size (buckets
+    holding at least subsample_fraction points: the JAX package passes it
+    as min_voxel_num) and compacted; then the mirror split when a plane is
+    set."""
+    if not config.subsample_voxel:
+        return _mirrored(cloud_from_depth_planes(
+            depth, cam, 0.1, config.drangey, config.subsample_fraction,
+            config.point_budget), config, cam)
+    pts, mask = point_cloud(depth, cam, 0.1, config.drangey)
+    pts, mask = voxel_subsample(pts, mask, config.subsample_size,
+                                config.subsample_fraction)
+    return _mirrored(points_planes(*compact_points(pts, mask,
+                                                   config.point_budget)),
+                     config)
+
+
+def _planes_path(config: TrackerConfig) -> bool:
+    """The cloud rides the cloud kernel's planes carrier end to end (JAX
+    runtime.py:622-628); the voxel and mirror clouds leave it."""
+    return (config.solver == "kernel" and config.use_pallas
+            and not config.subsample_voxel and not config.mirror_plane)
+
+
 def _cnn_frame_inputs(cnn_params, depth, cam, config: TrackerConfig,
                       ph=None):
     """The CNN frame's prologue: segment, net forward, decode, cloud.
-    Returns (seg, analysis, cnn_input, cnn_output, ph)."""
+    ph: the frame's own cloud when the caller has it (already mirrored);
+    else the cloud kernel's, mirrored when a plane is set (JAX
+    runtime.py:589-620).  Returns (seg, analysis, cnn_input, cnn_output,
+    ph)."""
     drange = (0.1, config.drangey)
     seg = hand_segment_vr(depth, cam, 0xF, drange, config.segment_scale)
     cnn_input = cnn_input_from_segment(seg.depth, cam.depth_scale, drange)
     cnn_output = cnn_forward(cnn_params, cnn_input)
     analysis = analyze_cnn_output(cnn_output, seg.cam.sub(4))
     if ph is None:
-        ph = cloud_from_depth_planes(depth, cam, drange[0], drange[1],
-                                     config.subsample_fraction,
-                                     config.point_budget)
+        ph = _mirrored(cloud_from_depth_planes(
+            depth, cam, drange[0], drange[1], config.subsample_fraction,
+            config.point_budget), config, cam)
     return seg, analysis, cnn_input, cnn_output, ph
 
 
@@ -476,7 +531,7 @@ def kickstart(state: TrackerState, model, cnn_params, depth, cam, config,
 def kickstart_multi(*args, **kwargs):
     raise NotImplementedError(
         "kickstart_multi (multi-hypothesis re-acquisition) comes in a later "
-        "slice of the port (ROADMAP queue 1, item 13)")
+        "slice of the port (ROADMAP queue 1, item 4)")
 
 
 # ---------------------------------------------------------------------------
@@ -502,9 +557,7 @@ def update(state: TrackerState, model, depth, cam, config: TrackerConfig,
     plan = build_dynamics_plan(model.np, config.cloud_rows_per_body + nb,
                                config.contacts_mode,
                                bool(config.physics_use_collision))
-    ph = cloud_from_depth_planes(depth, cam, 0.1, config.drangey,
-                                 config.subsample_fraction,
-                                 config.point_budget)
+    ph = frame_cloud(depth, cam, config)
     points, mask = planes_points(ph)
     npts = mask.sum(-1)
     dbg = None
@@ -512,8 +565,10 @@ def update(state: TrackerState, model, depth, cam, config: TrackerConfig,
         if cnn_params is None:
             raise ValueError("the CNN frame needs cnn_params "
                              "(cnn.model.load_cnnb)")
-        state, dbg = update_cnn_model(state, model, cnn_params, depth, cam,
-                                      config, params, ph)
+        # the frame's own cloud, unless the voxel subsampler replaced it
+        state, dbg = update_cnn_model(
+            state, model, cnn_params, depth, cam, config, params,
+            None if config.subsample_voxel else ph)
     body = state.body
     B = model.n_bodies
     for _ in range(config.mainthreadpasses):
@@ -531,7 +586,8 @@ def update(state: TrackerState, model, depth, cam, config: TrackerConfig,
             single_limits=limits, microforce=config.microforce,
             iterations=config.physics_iterations,
             iterations_post=config.physics_iterations_post,
-            cloud_slots=config.cloud_rows_per_body, pgs_plan=plan)
+            cloud_slots=config.cloud_rows_per_body, pgs_plan=plan,
+            planes_path=_planes_path(config))
     initializing = torch.where(npts < config.min_point_num,
                                torch.full_like(state.initializing, 50),
                                state.initializing)
@@ -574,8 +630,9 @@ def reference_frame_rows(body: BodyState, model, params, points, mask,
 def _update_reference(state: TrackerState, model, depth, cam,
                       config: TrackerConfig, params: PhysicsParams):
     """update's sequential and colored branches (the dynamics frame,
-    handtrack.h:748-785): the cloud kernel's cloud, then per main-thread
-    pass reference_frame_rows and the solve (the row-sweep kernel)."""
+    handtrack.h:748-785): the frame's cloud (frame_cloud), then per
+    main-thread pass reference_frame_rows and the solve (the row-sweep
+    kernel)."""
     from ..physics.colored import physics_update_colored
     from ..physics.schedule import build_hand_schedule
     from ..physics.solver import physics_update
@@ -583,10 +640,7 @@ def _update_reference(state: TrackerState, model, depth, cam,
     schedule = (build_hand_schedule(model.np, config.contacts_mode)
                 if colored else None)
     solve = physics_update_colored if colored else physics_update
-    ph = cloud_from_depth_planes(depth, cam, 0.1, config.drangey,
-                                 config.subsample_fraction,
-                                 config.point_budget)
-    points, mask = planes_points(ph)
+    points, mask = planes_points(frame_cloud(depth, cam, config))
     npts = mask.sum(-1)
     body = state.body
     bp = body_params(model)

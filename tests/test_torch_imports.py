@@ -44,7 +44,7 @@ def test_port_imports_no_jax():
 
 
 def test_wrappers_registered_and_plain_on_cpu():
-    """The eight kernel wrappers register their launch counts; on CPU
+    """The nine kernel wrappers register their launch counts; on CPU
     tensors they run the plain version and count no launch."""
     from hand_tracking_samples_tpu_torch import kernels
     from hand_tracking_samples_tpu_torch.imaging.camera import DCamera
@@ -55,6 +55,7 @@ def test_wrappers_registered_and_plain_on_cpu():
     import hand_tracking_samples_tpu_torch.ops.correspondence  # noqa: F401
     import hand_tracking_samples_tpu_torch.physics.row_sweep  # noqa: F401
     assert set(kernels.counts()) == {"cloud_from_depth", "cloud_rows_solve",
+                                     "cloud_rows_packed",
                                      "cloud_rows_unpacked", "cloud_vals",
                                      "contact_fields", "pgs_solve",
                                      "correspondence", "row_sweep"}
@@ -78,24 +79,33 @@ def test_config_matches_jax_package():
 def test_entry_points_refuse_later_slices():
     from hand_tracking_samples_tpu_torch.tracker.config import TrackerConfig
     from hand_tracking_samples_tpu_torch.tracker import runtime
-    for cnn in (False, True):                  # the ported frames
-        runtime._check_config(TrackerConfig(cnn_every_frame=cnn,
-                                            solver="kernel",
-                                            use_pallas=True))
+    clouds = (dict(), dict(subsample_voxel=1, subsample_size=0.005),
+              dict(mirror_plane=(0.0, 0.0, -1.0, 0.6)),
+              dict(subsample_voxel=1, subsample_size=0.005,
+                   mirror_plane=(0.0, 0.0, -1.0, 0.6)))
+    for cloud in clouds:                       # the ported frames
+        for cnn in (False, True):
+            runtime._check_config(TrackerConfig(cnn_every_frame=cnn,
+                                                solver="kernel",
+                                                use_pallas=True, **cloud))
+        for solver in ("sequential", "colored"):
+            for pallas in (False, True):
+                runtime._check_config(TrackerConfig(
+                    cnn_every_frame=False, solver=solver, use_pallas=pallas,
+                    **cloud))
     for solver in ("sequential", "colored"):
-        for pallas in (False, True):
-            runtime._check_config(TrackerConfig(cnn_every_frame=False,
-                                                solver=solver,
-                                                use_pallas=pallas))
         with pytest.raises(NotImplementedError, match="item 1"):
             runtime._check_config(TrackerConfig(cnn_every_frame=True,
                                                 solver=solver))
         with pytest.raises(NotImplementedError, match="item 1"):
             runtime._check_config(TrackerConfig(cnn_every_frame=False,
                                                 solver=solver), run_cnn=True)
+        with pytest.raises(NotImplementedError, match="item 1"):
+            runtime._check_config(TrackerConfig(
+                cnn_every_frame=True, solver=solver, subsample_voxel=1,
+                subsample_size=0.005))
     for kw in (dict(angles_only=True), dict(use_pallas=False),
-               dict(subsample_voxel=1), dict(contacts_mode="jacobi"),
-               dict(mirror_plane=(0.0, 0.0, 1.0, 0.0))):
+               dict(contacts_mode="jacobi")):
         for solver in ("kernel", "sequential"):
             if solver == "sequential" and "use_pallas" in kw:
                 continue                       # ported
@@ -104,7 +114,7 @@ def test_entry_points_refuse_later_slices():
             cfg.update(kw)
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 runtime._check_config(TrackerConfig(**cfg))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 4"):
         runtime.kickstart_multi()
 
 
