@@ -5,7 +5,9 @@ one NVIDIA GPU.  Run from the repository root:
     python3 chip_smoke.py
 
 Phases, each printing one line with its elapsed seconds:
-  1. build (or reuse) the CUDA kernel library: one nvcc call into build/
+  1. build (or reuse) the CUDA kernel library: one nvcc call into build/;
+     ptxas's registers, stack, spills and static shared memory of the row
+     sweep and PGS kernels
   2. the card's name and power limit, as nvidia-smi reports them
   3. each of the four kernels against its plain PyTorch version at T=4
      tracks, one frame, full width (the cloud kernel bit-identical)
@@ -19,7 +21,9 @@ Phases, each printing one line with its elapsed seconds:
   5. timing: 30 frames at T=512, and each kernel's time (CUDA events) at the
      last frame's shapes beside its plain version's time and its bound; the
      timed kernel and plain outputs are held to each other under phase 3's
-     tolerances, so every kernel is also checked at the main path's shapes
+     tolerances, so every kernel is also checked at the main path's shapes;
+     one more PGS launch reads its clock64 counters (cycles a step) and the
+     tracks an SM holds
   6. the CNN frame's kernels against their plain versions at T=4: the
      unpacked-rows and vals variants of the cloud-rows kernel, and the PGS
      kernel on a multistep plan and on the unibody plan; and the card forms
@@ -35,12 +39,18 @@ Phases, each printing one line with its elapsed seconds:
      PGS plans must have launched
   8. the CNN frame's timing, its device-time split, and the new kernels
      and plans timed at its T=512 shapes, each held to its plain version
-     again under phase 6's tolerances
+     again under phase 6's tolerances (the PGS plans' cycles as in phase 5)
   9. the reference solvers' kernels against their plain versions, bit for
      bit, at T=4 and at T=512 (the T=512 ones timed): the correspondence
      kernel and the row sweep on a sequential and on a colored solve's
-     rows; and the reference-layout contact rows at T=512 on poses with
-     active contacts (the golden's contact pose and animbank poses)
+     rows, with the T=512 rows' wavefront (wave_schedule: level steps a
+     sweep, mean and largest), the design's streamed floor and the
+     kernel's clock64 cycles a level step; the reference-layout contact
+     rows at T=512 on poses with active contacts (the golden's contact pose
+     and animbank poses); and the row sweep bit for bit on rows with active
+     friction rows: a sequential and a colored frame's rows at those poses
+     (T=512) and seeded synthetic rows with masters after their readers and
+     inactive masters (T=4)
  10. the sequential frame (use_pallas=True) at T=512 for 30 frames on
      phase 4's renders: even tracks held to golden.json's dyntrack poses
      (per frame < 1.5 mm, mean <= 1.0 mm, tests/test_tracker_e2e.py:39),
@@ -84,7 +94,9 @@ for the correspondence kernel and the row sweep, the colored frame's
 frame's (phase 13) for kernel 2.5); the last line is
 {"ok": true, "device": {...}}.  Exits non-zero, printing no result, when a
 phase fails, when there is no CUDA device, or when run outside the
-repository.  --json PATH writes every measured number to PATH.
+repository.  --json PATH writes every measured number to PATH.  The
+PGS kernel and the row sweep are held to their plain versions bit for bit
+(max_abs_err 0) at T=4 and T=512.
 """
 from __future__ import annotations
 
@@ -408,9 +420,11 @@ class Smoke:
             check(perr < 1e-5 and qerr < 1e-5,
                   f"unibody pgs differs: {perr} {qerr}")
             err = (k - p).abs().max().item()
+            check(err == 0.0, f"unibody pgs momenta differ: {err}")
             return err, (f"unibody pgs momenta {err:.3g}, pos {perr:.3g} m, "
                          f"quat {qerr:.3g}")
-        # PGS on identical planes: positions < 1e-5 m, quats < 1e-5
+        # PGS on identical planes: positions < 1e-5 m, quats < 1e-5, and
+        # the momenta bit for bit
         from hand_tracking_samples_tpu_torch.physics.fused_fit import integrate
         sk = integrate(k, P, self.model.np, self.params.deltaT)
         sp = integrate(p, P, self.model.np, self.params.deltaT)
@@ -418,6 +432,7 @@ class Smoke:
         qerr = quat_err(sk.pose[..., 3:], sp.pose[..., 3:])
         check(perr < 1e-5 and qerr < 1e-5, f"pgs differs: {perr} {qerr}")
         err = (k - p).abs().max().item()
+        check(err == 0.0, f"pgs momenta differ: {err}")
         return err, (f"pgs momenta {err:.3g}, pos {perr:.3g} m, quat "
                      f"{qerr:.3g}")
 
@@ -597,10 +612,50 @@ class Smoke:
                 bound_ms=max(tb, to),
                 bound_by="bytes" if tb >= to else "operations",
                 library_ms=None, bytes=nbytes, operations=ops)
+            if name == "pgs_solve":
+                note += "; " + self.cycles(name, args)
             parts.append(f"{name} {ms:.4f} ms (plain {plain_ms:.2f}; "
                          f"{note})")
         return (f"T={T}: {fps:.1f} tracked frames/s{busy}; "
                 + "; ".join(parts))
+
+    def cycles(self, name, args):
+        """One more launch of a redesigned solve kernel with its clock64
+        counters (per track: prologue, sweeps, steps a sweep, rows or
+        slots) and the tracks an SM holds; records them and returns the
+        cycles a step."""
+        torch = self.torch
+        from hand_tracking_samples_tpu_torch.physics import pgs_kernel as pk
+        from hand_tracking_samples_tpu_torch.physics import row_sweep as rs
+        pgs = name.startswith("pgs_solve")
+        T = (args[3] if pgs else args[0]).shape[0]
+        it, ip = (args[1], args[2]) if pgs else (args[3], args[4])
+        c = torch.zeros((T, 4), dtype=torch.int64, device=self.dev)
+        (pk.pgs_solve if pgs else rs.row_sweep)(*args, cycles=c)
+        torch.cuda.synchronize()
+        c = c.double()
+        steps = c[:, 2] * (it + ip)
+        res = dict(prologue_cycles_mean=c[:, 0].mean().item(),
+                   sweep_cycles_mean=c[:, 1].mean().item(),
+                   sweep_cycles_max=c[:, 1].max().item(),
+                   steps_per_sweep_mean=c[:, 2].mean().item(),
+                   steps_per_sweep_max=c[:, 2].max().item(),
+                   cycles_per_step=(c[:, 1].sum() / steps.sum().clamp(min=1))
+                   .item(), blocks_per_sm=(
+                       pk.occupancy(args[0], args[3].shape[2]) if pgs
+                       else rs.occupancy(args[2], args[0].shape[1])))
+        self.results[name]["cycles"] = res
+        floor = ""
+        if pgs:   # the design's floor: every step's block every sweep
+            ms = self.pgs_row_bytes(args) * (it + ip) / PEAK_BYTES_S * 1e3
+            self.results[name]["stream_floor_ms"] = ms
+            floor = f"; streamed floor {ms:.4f} ms"
+        return (f"{res['cycles_per_step']:.0f} cycles a "
+                f"{'step' if pgs else 'level step'} "
+                f"({res['steps_per_sweep_mean']:.1f} steps a sweep, at most "
+                f"{res['steps_per_sweep_max']:.0f}; prologue "
+                f"{res['prologue_cycles_mean']:.0f} cycles; "
+                f"{res['blocks_per_sm']} tracks an SM{floor})")
 
     def profile(self, T, frames, run=None, state=None):
         """Device time and kernel launches per frame, from torch.profiler
@@ -709,31 +764,49 @@ class Smoke:
         plan, it, ip, mom0, mi, singles, lin_rows, ang_rows = args
         T, _, bp = mom0.shape
         B = len(plan.massinv)                 # the real bodies
-        act = singles[:, :, 9].abs().sum(-1) > 0              # (T, CS)
-        idx = torch.arange(1, act.shape[1] + 1, device=act.device)
-        nact = int((act * idx).amax(-1).sum())
-        nbytes = nact * 14 * bp * 4 + mom0.numel() * 4 * 3
+        nact, g_acts = self.pgs_active(args)
+        nbytes = self.pgs_row_bytes(args) + mom0.numel() * 4 * 3
         sweeps = it + ip
         ops = nact * B * 32 * sweeps
-        for cls, rows in zip(plan.lin_classes, lin_rows):
+        for cls, rows, g_act in zip(plan.lin_classes, lin_rows, g_acts):
             if cls.friction:
-                g_act = rows[:, :, 15].abs().sum(-1).reshape(
-                    T, cls.n_groups, cls.U).sum(-1) > 0        # (T, G)
                 real = torch.tensor((cls.unit_b0 >= 0).sum(-1),
                                     device=rows.device)
                 units = int((g_act * real).sum())
-                nbytes += int(g_act.sum()) * cls.U * 23 * cls.W * 4 \
-                    + T * cls.n_phases * cls.W * 4
+                nbytes += T * cls.n_phases * cls.W * 4
                 ops += units * cls.U * 60 * sweeps
             else:
                 units = int((cls.unit_b0 >= 0).sum())
-                nbytes += rows.numel() * 4
                 ops += T * units * cls.U * 60 * sweeps
         for cls, rows in zip(plan.ang_classes, ang_rows):
             units = int((cls.unit_b0 >= 0).sum())
-            nbytes += rows.numel() * 4
             ops += T * units * cls.U * 30 * sweeps
         return nbytes, ops
+
+    def pgs_active(self, args):
+        """The PGS inputs' active slots (summed over the tracks, each
+        track's last active slot) and each linear class's active groups
+        ((T, G) bool for a friction class, else None)."""
+        torch = self.torch
+        plan, singles, lin_rows = args[0], args[5], args[6]
+        act = singles[:, :, 9].abs().sum(-1) > 0              # (T, CS)
+        idx = torch.arange(1, act.shape[1] + 1, device=act.device)
+        g_acts = [rows[:, :, 15].abs().sum(-1).reshape(
+                      rows.shape[0], cls.n_groups, cls.U).sum(-1) > 0
+                  if cls.friction else None
+                  for cls, rows in zip(plan.lin_classes, lin_rows)]
+        return int((act * idx).amax(-1).sum()), g_acts
+
+    def pgs_row_bytes(self, args):
+        """The bytes of the row blocks one PGS sweep reads: the active
+        slots, the active contact groups, every other class's rows."""
+        plan, mom0, lin_rows, ang_rows = args[0], args[3], args[6], args[7]
+        nact, g_acts = self.pgs_active(args)
+        n = nact * 14 * mom0.shape[2] * 4
+        for cls, rows, g_act in zip(plan.lin_classes, lin_rows, g_acts):
+            n += (int(g_act.sum()) * cls.U * 23 * cls.W * 4 if cls.friction
+                  else rows.numel() * 4)
+        return n + sum(rows.numel() * 4 for rows in ang_rows)
 
 
     # ---- the CNN frame: phases 6-8 -----------------------------------------
@@ -986,6 +1059,8 @@ class Smoke:
                 bound_ms=max(tb, to),
                 bound_by="bytes" if tb >= to else "operations",
                 library_ms=None, bytes=nbytes, operations=ops)
+            if name in PLANS:
+                note += "; " + self.cycles(name, args)
             parts.append(f"{name} {ms:.4f} ms (plain {plain_ms:.2f}; "
                          f"{note})")
         return (f"T={T}: {dt / F * 1e3:.1f} ms a CNN frame, "
@@ -999,8 +1074,8 @@ class Smoke:
         return TrackerConfig(cnn_every_frame=False, solver=solver,
                              use_pallas=use_pallas, point_budget=2048, **kw)
 
-    def ref_inputs(self, st, depth):
-        """The new kernels' inputs for one reference frame of state st:
+    def ref_inputs(self, body, depth):
+        """The new kernels' inputs for one reference frame of bodies body:
         the correspondence kernel's, and the row sweep's for one sequential
         and one colored solve (the frame's rows: chamber, cloud, joints,
         contacts, ranges)."""
@@ -1016,7 +1091,7 @@ class Smoke:
             sweep_inputs)
         from hand_tracking_samples_tpu_torch.tracker.runtime import (
             reference_frame_rows)
-        cfg, m, body = self.ref_cfg("sequential"), self.model, st.body
+        cfg, m = self.ref_cfg("sequential"), self.model
         ph = cloud_from_depth_planes(depth, self.cam, 0.1, cfg.drangey,
                                      cfg.subsample_fraction,
                                      cfg.point_budget)
@@ -1096,7 +1171,7 @@ class Smoke:
             st = self.init_state(T)
             if T == TRACKS:                  # one frame in: momenta non-zero
                 st, _ = self.run(st, 1, T, cfg=self.ref_cfg("sequential"))
-            inp = self.ref_inputs(st, self.depth_frame(1, T))
+            inp = self.ref_inputs(st.body, self.depth_frame(1, T))
             for name, (kfn, pfn) in fns.items():
                 args = inp[name]
                 if T == 4:
@@ -1114,6 +1189,9 @@ class Smoke:
                     bound_ms=max(tb, to),
                     bound_by="bytes" if tb >= to else "operations",
                     library_ms=None, bytes=nbytes, operations=ops)
+                if name != "correspondence":
+                    note += "; " + self.waves(name, args) + "; " \
+                        + self.cycles(name, args)
                 if name == "correspondence":
                     pts_h, planes, _ = args
                     dots_ms, _ = self.event_ms(
@@ -1126,19 +1204,33 @@ class Smoke:
                              f"{plain_ms:.1f} ms, bound {max(tb, to):.4f} "
                              f"ms; {note})")
         lines.append(self.contacts_active_t512())
+        lines.append(self.sweep_friction_rows())
         return "; ".join(lines)
 
-    def contacts_active_t512(self):
-        """The reference-layout contact rows (contacts.contact_rows_from_
-        fields) at T=512 on the golden's contact pose and a spread of
-        animbank poses, tiled, with small random momenta: the kernel's
-        fields and rows against the plain version's."""
+    def waves(self, name, args):
+        """The wavefront of the row sweep's rows (wave_schedule): level
+        steps a sweep (linear + angular levels) over the tracks, and the
+        design's streamed floor (every active row's 96-byte record read
+        every sweep) at the card's memory rate."""
+        from hand_tracking_samples_tpu_torch.physics.row_sweep import (
+            REC, wave_schedule)
+        mom0, _, rows, it, ip = args
+        ws = wave_schedule(rows.lm, rows.am)
+        lev = (ws.lin_level.amax(1) + ws.ang_level.amax(1)).double()
+        nrows = int((ws.lin_level > 0).sum() + (ws.ang_level > 0).sum())
+        floor = nrows * REC * 4 * (it + ip) / PEAK_BYTES_S * 1e3
+        self.results[name].update(
+            levels_mean=lev.mean().item(), levels_max=lev.max().item(),
+            active_rows_mean=nrows / mom0.shape[0], stream_floor_ms=floor)
+        return (f"levels a sweep mean {lev.mean().item():.1f}, max "
+                f"{lev.max().item():.0f} ({nrows / mom0.shape[0]:.1f} "
+                f"active rows a track); streamed floor {floor:.4f} ms")
+
+    def contact_poses(self):
+        """(frames, BodyState) at T=512: the golden's contact pose and a
+        spread of 63 animbank poses, tiled, with small random momenta."""
         torch, np = self.torch, self.np
-        from hand_tracking_samples_tpu_torch.physics.contact_kernel import (
-            contact_fields_plain, contact_fields_raw, contact_inputs,
-            fields_of)
-        from hand_tracking_samples_tpu_torch.physics.contacts import (
-            contact_rows_from_fields)
+        from hand_tracking_samples_tpu_torch.physics.solver import BodyState
         with open(os.path.join(REPO, "tests", "fixtures", "golden.json")) as f:
             cf = int(json.load(f)["contact_frame"][0])
         frames = [cf] + list(range(0, len(self.bank),
@@ -1146,10 +1238,22 @@ class Smoke:
         frames = (frames * (TRACKS // len(frames) + 1))[:TRACKS]
         rng = np.random.RandomState(5)
         f32 = lambda a: torch.tensor(a.astype(np.float32), device=self.dev)
-        cin = contact_inputs(f32(self.bank[frames]),
-                             f32(rng.randn(TRACKS, 17, 3) * 1e-3),
-                             f32(rng.randn(TRACKS, 17, 3) * 1e-4),
-                             self.model)
+        return frames, BodyState(f32(self.bank[frames]),
+                                 f32(rng.randn(TRACKS, 17, 3) * 1e-3),
+                                 f32(rng.randn(TRACKS, 17, 3) * 1e-4))
+
+    def contacts_active_t512(self):
+        """The reference-layout contact rows (contacts.contact_rows_from_
+        fields) at T=512 on the contact poses: the kernel's fields and rows
+        against the plain version's."""
+        torch = self.torch
+        from hand_tracking_samples_tpu_torch.physics.contact_kernel import (
+            contact_fields_plain, contact_fields_raw, contact_inputs,
+            fields_of)
+        from hand_tracking_samples_tpu_torch.physics.contacts import (
+            contact_rows_from_fields)
+        _, body = self.contact_poses()
+        cin = contact_inputs(*body, self.model)
         pairs = torch.as_tensor(self.model.np["collide_pairs"],
                                 device=self.dev)
         args = cin + (pairs, 4, 3, self.params.driftmax)
@@ -1170,6 +1274,49 @@ class Smoke:
         self.results["contact_fields"]["t512_active_rows_err"] = rerr
         return (f"T={TRACKS} contact poses: {note}; reference rows "
                 f"{nact} active compared, max err {rerr:.3g}")
+
+    def sweep_friction_rows(self):
+        """The row sweep held to its plain version bit for bit on rows with
+        active friction rows: the sequential and colored rows of one frame
+        at the contact poses (T=512, the cloud the poses' own fake_depth
+        renders) and seeded synthetic rows (T=4, row_sweep.synthetic_rows:
+        masters after their readers, inactive masters)."""
+        torch = self.torch
+        from hand_tracking_samples_tpu_torch.data.synth import fake_depth
+        from hand_tracking_samples_tpu_torch.physics.row_sweep import (
+            row_sweep, row_sweep_plain, synthetic_rows)
+        frames, body = self.contact_poses()
+        uniq = sorted(set(frames))
+        depth = fake_depth(torch.tensor(self.bank[uniq], device=self.dev),
+                           self.model, self.cam, chunk=8)
+        depth = depth[torch.tensor([uniq.index(f) for f in frames],
+                                   device=self.dev)]
+        inp = self.ref_inputs(body, depth)
+        cases = [(f"T={TRACKS} contact poses {n}", inp[n])
+                 for n in ("row_sweep", "row_sweep[colored]")]
+        cases += [(f"T=4 synthetic seed {k}",
+                   synthetic_rows(4, 260, 40, 17, k, self.dev) + (3, 1))
+                  for k in (0, 1)]
+        parts = []
+        for label, args in cases:
+            lm = args[2].lm.long()
+            r = torch.arange(lm.shape[1], device=self.dev)
+            fr = ((lm >> 16) & 1 == 1) & ((lm >> 17) > 0)
+            mp = (lm >> 17) - 1
+            late = int((fr & (mp > r)).sum())
+            m_act = torch.gather((lm >> 16) & 1, 1, mp.clamp(min=0)) == 1
+            idle = int((fr & ~m_act).sum())
+            nfr = int(fr.sum())
+            check(nfr > 0, f"row sweep, {label}: no active friction row")
+            err, _ = self.hold_ref("row_sweep", row_sweep(*args),
+                                   row_sweep_plain(*args))
+            parts.append(f"{label}: {nfr} active friction rows ({late} "
+                         f"masters later, {idle} inactive) momenta {err:.3g}")
+            self.results["row_sweep"].setdefault("friction_checks", []) \
+                .append(dict(case=label, friction_rows=nfr,
+                             late_masters=late, inactive_masters=idle,
+                             max_abs_err=err))
+        return "row sweep on friction rows: " + "; ".join(parts)
 
     def ref_slice(self):
         """Phase 10: the sequential frame (use_pallas=True) at T=512 x 30
@@ -1733,9 +1880,14 @@ def main(argv=None) -> int:
         kernels.library()
         info = kernels.BUILD_INFO
         record["build"] = {k: v for k, v in info.items() if k != "log"}
+        ptx = {k: v for k, v in kernels.ptxas_summary(
+            info.get("log", "")).items()
+            if "row_sweep_kernel" in k or "pgs_kernel" in k}
+        record["ptxas"] = ptx
         return (f"{'built' if info['built'] else 'reused'} "
                 f"{os.path.relpath(info['path'], REPO)} in "
-                f"{info['seconds']:.1f} s")
+                f"{info['seconds']:.1f} s; ptxas -v: " + "; ".join(
+                    f"{k} {v}" for k, v in ptx.items()))
     phase(1, "build", build)
 
     smi = {}

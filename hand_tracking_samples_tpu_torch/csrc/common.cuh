@@ -56,3 +56,59 @@ __device__ __forceinline__ float hts_subp(float a, float b, float c,
                                           float d) {
   return hts_fma(a, b, -(c * d));
 }
+
+// ---- 1-D bulk copies (TMA) completing on mbarriers (sm_90) -----------------
+// One thread asks for `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) to be copied from device memory into shared memory; the copy
+// completes on an mbarrier in shared memory, which the consumers wait on
+// with the phase parity of its use (0, 1, 0, ... for a barrier's uses in
+// order).  Every barrier is initialised with an arrival count of 1: the
+// asking thread's arrive.expect_tx is that arrival.
+__device__ __forceinline__ unsigned hts_smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void hts_mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                   hts_smem_addr(bar))
+               : "memory");
+}
+// after the inits, before the first copy: the barriers visible to the
+// async proxy
+__device__ __forceinline__ void hts_fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// orders this thread's earlier generic-proxy accesses (device or shared
+// memory) before later bulk copies that read or overwrite the same bytes
+__device__ __forceinline__ void hts_fence_proxy_async() {
+  asm volatile("fence.proxy.async;\n" ::: "memory");
+}
+// the asking thread's arrival on bar (which then waits for `bytes` to
+// land), and the copy
+__device__ __forceinline__ void hts_bulk_load(void* dst, const void* src,
+                                              unsigned bytes,
+                                              uint64_t* bar) {
+  const unsigned b = hts_smem_addr(bar);
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(b),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(hts_smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(b)
+      : "memory");
+}
+__device__ __forceinline__ void hts_mbar_wait(uint64_t* bar,
+                                              unsigned parity) {
+  const unsigned b = hts_smem_addr(bar);
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(b), "r"(parity)
+        : "memory");
+  } while (!done);
+}

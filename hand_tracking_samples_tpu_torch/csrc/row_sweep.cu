@@ -19,50 +19,96 @@
 // written (the pose integration reads them), then `iters_post` sweeps with
 // the bias-free targets.
 //
-// Design: one thread a track, one warp a block (grid ceil(T / 32)).  The
-// track's momenta sit in shared memory, one column per lane
-// ([body * 6 + c][lane], conflict-free); the rows are laid out tracks-last
-// (row, field, track), so a warp's loads of one row coalesce into 128-byte
-// lines; the accumulated impulses live in global memory (row, track).  The
-// loop over rows is sequential by nature (each row reads the momenta the
-// previous one wrote); the parallelism is across tracks only, so at T=512
-// the solve runs on 16 warps and is latency-bound.  A row's data does not
-// depend on the momenta, so it is staged ahead: chunks of RS_K rows (the
-// fields, the meta word and the row's accumulated impulse) are copied into
-// shared memory with cp.async, RS_NST - 1 chunks ahead of the rows being
-// solved, and a row then costs its chain of shared-memory reads, ~20 float
-// operations and the writes, not a trip to device memory (the meta word
-// also carries the row's master position).  Every lane stages and reads
-// only its own column, so no barrier is needed.  Only a friction row's
-// master impulse (written earlier in the same sweep) is read from device
-// memory at the row.
+// Design: one warp a track (a block of 32 threads).  A row reads and
+// writes only its own two bodies' momenta and its own accumulated impulse
+// (a friction row also reads its master's), so rows on disjoint bodies
+// commute exactly.  The prologue levels the track's active rows: a row's
+// level is 1 + the largest level of the earlier rows on its bodies (and of
+// its master; a master placed after its reader goes one level above it),
+// the linear rows and the angular rows each on their own.  A sweep then
+// runs the levels in order, the rows of one level on the lanes at once:
+// each body sees the same updates in the same order, with each row's
+// operations in the kernel's fixed order, so the result is the row order's
+// bit for bit.  On the dyn30 sequential rows a track's ~1,930 active rows
+// fall into ~626 levels (the palm's ~530 cloud rows are one chain); the
+// colored order's groups are body-disjoint, so its levels are its groups.
 //
-// Bound on the H100: bytes.  Each sweep reads every active row once
-// (22 x 4 B linear, 15 x 4 B angular, per track) and reads and writes its
-// accumulated impulse.
+// Two kinds of level.  A single-body level (every row on one body, the
+// world its other side, no master: the cloud and chamber rows) runs its
+// rows on their bodies' lanes, in body order, each lane's body's momenta
+// held in registers from one such level to the next, with no barrier.  A
+// mixed level runs row i on lane i against the momenta in shared memory
+// (idle lanes and world sides read a zero body and write to a spare one,
+// so the step has no branch on the row's shape), then __syncwarp().
+//
+// The prologue (all lanes: the levels walk every row in order, a shuffle
+// a body; the counting and placement in parallel) writes the track's
+// active rows once, in level order, as 24-float records into a scratch
+// stream in device memory, the friction masters remapped to their new
+// positions (an inactive master to a slot whose impulse stays 0), and the
+// steps (at most 32 rows of one level) into a second scratch array.  Every
+// sweep streams the records through a ring of RS_NST stages of RS_SR
+// records in shared memory: lane 0 fills a stage with one bulk copy (TMA)
+// completing on that stage's mbarrier, RS_NST - 1 stages ahead, across the
+// phase and sweep boundaries; a step's entry says how many stages to wait
+// for before it and how many it frees.  The accumulated impulses (isum,
+// torq) live in shared memory, so a friction master and an accumulator
+// write never leave the SM.
+//
+// Bound on the H100: bytes.  Each byte of the rows is needed once (PERF.md
+// counts that bound); this design streams every active row's 96-byte record
+// every sweep (its own floor, ~0.57 ms at T=512 x 20 sweeps), and the time
+// goes to the chain of ~626 level steps a sweep, a few hundred cycles each
+// (PERF.md).
 #include <float.h>
 
 #include "common.cuh"
 
 #define RS_MAXB 32
-#define RS_NLF 21
-#define RS_NAF 14
-#define RS_K 8           // rows a staged chunk
-#define RS_NST 4         // chunks in flight (stages of the ring)
-#define RS_MAXR 32766    // linear rows: a master position fits 15 bits
+#define RS_NLF 21         // linear fields; the meta word follows
+#define RS_NAF 14         // angular fields; the meta word follows
+#define RS_LW 24          // a linear input row: fields, meta, 2 pad
+#define RS_AW 16          // an angular input row: fields, meta, 1 pad
+#define RS_REC 24         // floats a staged record (96 bytes)
+#define RS_SR 64          // records a stage
+#define RS_NST 4          // stages in the ring (RS_SR x RS_NST = 256)
+#define RS_MAXR 13000     // rows of one solve, linear and angular together
+#define RS_MIXED 0x80000000u   // a level's body mask: not single-body
 
 struct RowSweepArgs {
   const float* mom0;     // (T, B, 6)
   const float* massinv;  // (B,)
-  const float* lf;       // (Rl, 21, T)
-  const int* lm;         // (Rl, T), the master position in bits 17-31
-  const float* af;       // (Ra, 14, T)
-  const int* am;         // (Ra, T)
-  float* isum;           // (Rl, T), zeroed
-  float* torq;           // (Ra, T), zeroed
+  const float* lf;       // (T, Rl, 24)
+  const float* af;       // (T, Ra, 16)
+  float* stream;         // (T, Rl + Ra, 24) scratch: rows in level order
+  int2* steps;           // (T, Rl + Ra) scratch: a sweep's steps
   float* out;            // (T, 2, B, 6)
+  long long* cycles;     // (T, 4) clock64 counters, or null
   int T, B, n_lin, n_ang, iters, iters_post;
 };
+
+// Shared memory, in bytes, in this order (16-byte aligned pieces):
+//   bars   RS_NST mbarriers (64)
+//   ring   RS_NST x RS_SR records; in the prologue the meta words (int; the
+//          levels' ends once they are levelled), each row's level and
+//          position (short) and each linear level's body mask (int), 12
+//          bytes a row
+//   mom    (RS_MAXB + 2) x 6 floats, mi RS_MAXB + 2 floats (1024 with a
+//          pad): body B is the world (zeros), body B + 1 takes the writes
+//          of the lanes and sides that write nothing
+//   acc    Rl + Ra + 2 floats: isum by position, a zero slot, torq, and a
+//          slot for the writes of the idle lanes
+__host__ __device__ __forceinline__ size_t rs_al16(size_t n) {
+  return (n + 15) & ~(size_t)15;
+}
+__host__ __device__ __forceinline__ size_t rs_ring_bytes(int R) {
+  const size_t ring = (size_t)RS_NST * RS_SR * RS_REC * 4;
+  const size_t pro = (size_t)R * 12;
+  return rs_al16(ring > pro ? ring : pro);
+}
+__host__ __device__ __forceinline__ size_t rs_smem_bytes(int R) {
+  return 64 + rs_ring_bytes(R) + 1024 + rs_al16((size_t)(R + 2) * 4);
+}
 
 // torch.minimum / torch.maximum: NaN propagates from either side
 __device__ __forceinline__ float rs_min(float a, float b) {
@@ -72,219 +118,490 @@ __device__ __forceinline__ float rs_max(float a, float b) {
   return (a > b || a != a) ? a : b;
 }
 
-// Asynchronous 4-byte copies global -> shared (cp.async, Ampere and
-// later): each lane stages its own track's column, so the wait is per
-// thread and no barrier is needed.
-__device__ __forceinline__ void rs_cp4(void* smem, const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-__device__ __forceinline__ void rs_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// wait until at most RS_NST - 1 staged chunks are still in flight
-__device__ __forceinline__ void rs_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(RS_NST - 1) : "memory");
+// All lanes, the same walk: the level of each of n rows (0: inactive) from
+// their meta words; returns the number of levels.  Lane b holds the level
+// of the last row on body b.  lvl is zero on entry and holds the floor an
+// earlier reader sets on a later master; a row's meta word and floor are
+// read one row ahead.  Every lane writes the same values (the warp
+// converges at each row's shuffles), so no barrier is needed.
+__device__ int rs_levels(const int* meta, short* lvl, int n, bool friction,
+                         int lane) {
+  if (n == 0) return 0;
+  int last = 0, nlev = 0, prev = 0;     // prev: the level of row r - 1
+  int mine = lane < n ? meta[lane] : 0;
+  int m = __shfl_sync(0xffffffffu, mine, 0), fl = lvl[0];
+  for (int r = 0; r < n; ++r) {
+    const int r1 = r + 1;
+    if (!(r1 & 31)) mine = r1 + lane < n ? meta[r1 + lane] : 0;
+    const int mn = __shfl_sync(0xffffffffu, mine, r1 & 31);
+    int fln = r1 < n ? lvl[r1] : 0;
+    const int b0 = (m & 0xFF) - 1, b1 = ((m >> 8) & 0xFF) - 1;
+    const int v0 = __shfl_sync(0xffffffffu, last, b0 & 31);
+    const int v1 = __shfl_sync(0xffffffffu, last, b1 & 31);
+    int l = 0;
+    if ((m >> 16) & 1) {
+      l = fl;
+      if (b0 >= 0) l = max(l, v0);
+      if (b1 >= 0) l = max(l, v1);
+      const int mp = friction ? (m >> 17) - 1 : -1;
+      if (mp >= 0 && mp < r) l = max(l, mp == r - 1 ? prev : (int)lvl[mp]);
+      ++l;
+      if (mp > r) {
+        lvl[mp] = (short)max((int)lvl[mp], l);
+        if (mp == r1) fln = max(fln, l);
+      }
+      if (lane == b0 || lane == b1) last = l;
+      nlev = max(nlev, l);
+    }
+    lvl[r] = (short)l;
+    prev = l;
+    m = mn;
+    fl = fln;
+  }
+  return nlev;
 }
 
-// Stage rows [r0, r0 + RS_K) of a row list: nf fields, then the meta word
-// and the accumulated impulse (its value from the previous sweep: a row's
-// accumulator is written only when the row is processed, after this copy
-// lands).  st: [k][field][lane].
-__device__ __forceinline__ void rs_stage(float* st, const float* f,
-                                         const int* meta, const float* acc,
-                                         int nf, int r0, int n, int T,
-                                         int t, int lane) {
-  for (int k = 0; k < RS_K && r0 + k < n; ++k) {
-    const int r = r0 + k;
-    float* d = st + k * (nf + 2) * 32 + lane;
-    for (int q = 0; q < nf; ++q)
-      rs_cp4(d + q * 32, f + ((size_t)r * nf + q) * T + t);
-    rs_cp4(d + nf * 32, meta + (size_t)r * T + t);
-    rs_cp4(d + (nf + 1) * 32, acc + (size_t)r * T + t);
+// All lanes: each active row's position in level order (rows of a level
+// keep their row order); ends[l] becomes the end position of level l + 1.
+// Returns the number of active rows.
+__device__ int rs_place(const short* lvl, short* pos, int* ends, int n,
+                        int nlev, int lane) {
+  for (int l = lane; l < nlev; l += 32) ends[l] = 0;
+  __syncwarp();
+  for (int r = lane; r < n; r += 32)
+    if (lvl[r] > 0) atomicAdd(&ends[lvl[r] - 1], 1);
+  __syncwarp();
+  int carry = 0;                       // exclusive scan: level starts
+  for (int l0 = 0; l0 < nlev; l0 += 32) {
+    const int l = l0 + lane;
+    const int v = l < nlev ? ends[l] : 0;
+    const int inc = hts_warp_incl_scan(v);
+    if (l < nlev) ends[l] = carry + inc - v;
+    carry += __shfl_sync(0xffffffffu, inc, 31);
   }
-  rs_commit();
+  __syncwarp();
+  for (int r0 = 0; r0 < n; r0 += 32) {
+    const int r = r0 + lane;
+    const int L = r < n ? lvl[r] : 0;
+    const unsigned peers = __match_any_sync(0xffffffffu, L);
+    const int rank = __popc(peers & ((1u << lane) - 1u));
+    const int p = L > 0 ? ends[L - 1] + rank : -1;
+    __syncwarp();
+    if (L > 0 && rank == __popc(peers) - 1) ends[L - 1] = p + 1;
+    __syncwarp();
+    if (r < n) pos[r] = (short)p;
+  }
+  __syncwarp();
+  return carry;
+}
+
+// All lanes: the steps of nlev levels (ends as rs_place leaves them; mask
+// the linear levels' body masks, or null), positions offset by `off`,
+// written from steps[0]: (start | rows << 16 | stages to wait for before
+// it << 22 | stages done after it << 24, the body mask of a single-body
+// level, else 0).  A sweep's ntot records sit in RS_SR-record stages;
+// returns the number of steps.
+__device__ int rs_steps(const int* ends, const unsigned* mask, int2* steps,
+                        int nlev, int off, int ntot, int lane) {
+  const int spp = (ntot + RS_SR - 1) / RS_SR;
+  int base = 0;
+  for (int l0 = 0; l0 < nlev; l0 += 32) {
+    const int l = l0 + lane;
+    const int st = l < nlev && l > 0 ? ends[l - 1] : 0;
+    const int en = l < nlev ? ends[l] : 0;
+    const unsigned mk = mask && l < nlev ? mask[l] : RS_MIXED;
+    const int c = (en - st + 31) / 32;
+    const int inc = hts_warp_incl_scan(c);
+    for (int i = 0; i < c; ++i) {
+      const int s0 = off + st + 32 * i, n = min(32, en - st - 32 * i);
+      const int nwait = ((s0 + n - 1) >> 6) - ((s0 - 1) >> 6);
+      const int nfree =
+          (s0 + n == ntot ? spp : (s0 + n) / RS_SR) - s0 / RS_SR;
+      steps[base + inc - c + i] = make_int2(
+          s0 | (n << 16) | (nwait << 22) | (nfree << 24),
+          mk & RS_MIXED ? 0 : mk);
+    }
+    base += __shfl_sync(0xffffffffu, inc, 31);
+  }
+  return base;
 }
 
 __global__ void __launch_bounds__(32) row_sweep_kernel(RowSweepArgs a) {
-  extern __shared__ float sh[];
-  __shared__ float mi[RS_MAXB];
-  float* mom = sh;                                 // [body * 6 + c][lane]
-  float* stage = sh + RS_MAXB * 6 * 32;    // RS_NST x [k][field][lane]
-  const int lane = threadIdx.x;
-  const int t = blockIdx.x * 32 + lane;
-  const int T = a.T, B = a.B;
-  for (int b = lane; b < B; b += 32) mi[b] = a.massinv[b];
-  __syncwarp();
-  if (t >= T) return;
-  for (int i = 0; i < B * 6; ++i)
-    mom[i * 32 + lane] = a.mom0[(size_t)t * B * 6 + i];
-#define MOM(b, c) mom[((b) * 6 + (c)) * 32 + lane]
-  const int LS = (RS_NLF + 2) * 32, AS = (RS_NAF + 2) * 32;
-  const int total = a.iters + a.iters_post;
-  for (int s = 0; s <= total; ++s) {
-    if (s == a.iters)
-      for (int i = 0; i < B * 6; ++i)
-        a.out[((size_t)t * 2 + 0) * B * 6 + i] = mom[i * 32 + lane];
-    if (s == total) break;
-    const int post = s >= a.iters;
-    // ---- linear rows, staged RS_K at a time, RS_NST - 1 chunks ahead ----
-    const int nlc = (a.n_lin + RS_K - 1) / RS_K;
-    for (int c = 0; c < RS_NST - 1; ++c) {
-      if (c < nlc)
-        rs_stage(stage + c * RS_K * LS, a.lf, a.lm, a.isum, RS_NLF,
-                 c * RS_K, a.n_lin, T, t, lane);
-      else
-        rs_commit();
-    }
-    for (int c = 0; c < nlc; ++c) {
-      float* cur = stage + (c % RS_NST) * RS_K * LS;
-      const int nx_c = c + RS_NST - 1;
-      if (nx_c < nlc)
-        rs_stage(stage + (nx_c % RS_NST) * RS_K * LS, a.lf, a.lm, a.isum,
-                 RS_NLF, nx_c * RS_K, a.n_lin, T, t, lane);
-      else
-        rs_commit();
-      rs_wait();
-      for (int k = 0; k < RS_K && c * RS_K + k < a.n_lin; ++k) {
-        const int r = c * RS_K + k;
-        const float* f = cur + k * LS + lane;      // field q at f[q * 32]
-        const int meta = __float_as_int(f[RS_NLF * 32]);
-        if (!((meta >> 16) & 1)) continue;
-        const int b0 = (meta & 0xFF) - 1, b1 = ((meta >> 8) & 0xFF) - 1;
-        const float nx = f[0], ny = f[32], nz = f[64];
-        float l0x = 0.f, l0y = 0.f, l0z = 0.f, a0x = 0.f, a0y = 0.f,
-              a0z = 0.f, mi0 = 0.f;
-        float l1x = 0.f, l1y = 0.f, l1z = 0.f, a1x = 0.f, a1y = 0.f,
-              a1z = 0.f, mi1 = 0.f;
-        if (b0 >= 0) {
-          l0x = MOM(b0, 0); l0y = MOM(b0, 1); l0z = MOM(b0, 2);
-          a0x = MOM(b0, 3); a0y = MOM(b0, 4); a0z = MOM(b0, 5);
-          mi0 = mi[b0];
-        }
-        if (b1 >= 0) {
-          l1x = MOM(b1, 0); l1y = MOM(b1, 1); l1z = MOM(b1, 2);
-          a1x = MOM(b1, 3); a1y = MOM(b1, 4); a1z = MOM(b1, 5);
-          mi1 = mi[b1];
-        }
-        const float d1 = (l1x * nx + l1y * ny) + l1z * nz;
-        const float e1 = (a1x * f[12 * 32] + a1y * f[13 * 32])
-                         + a1z * f[14 * 32];
-        const float d0 = (l0x * nx + l0y * ny) + l0z * nz;
-        const float e0 = (a0x * f[9 * 32] + a0y * f[10 * 32])
-                         + a0z * f[11 * 32];
-        const float vn = ((d1 * mi1 + e1) - d0 * mi0) - e0;
-        const float ts = post ? f[17 * 32] : f[16 * 32];
-        float imp = (-ts - vn) * f[15 * 32];
-        const float own = f[(RS_NLF + 1) * 32];
-        const int mp = (meta >> 17) - 1;          // master row, -1 none
-        float lo, hi;
-        if (mp >= 0) {
-          hi = f[20 * 32] * a.isum[(size_t)mp * T + t];
-          lo = -hi;
-        } else {
-          lo = f[18 * 32];
-          hi = f[19 * 32];
-        }
-        imp = rs_min(imp, hi - own);
-        imp = rs_max(imp, lo - own);
-        if (b1 >= 0) {
-          MOM(b1, 0) = l1x + imp * nx;
-          MOM(b1, 1) = l1y + imp * ny;
-          MOM(b1, 2) = l1z + imp * nz;
-          MOM(b1, 3) = a1x + imp * f[6 * 32];
-          MOM(b1, 4) = a1y + imp * f[7 * 32];
-          MOM(b1, 5) = a1z + imp * f[8 * 32];
-        }
-        if (b0 >= 0) {
-          MOM(b0, 0) = l0x + imp * -nx;
-          MOM(b0, 1) = l0y + imp * -ny;
-          MOM(b0, 2) = l0z + imp * -nz;
-          MOM(b0, 3) = a0x + imp * -f[3 * 32];
-          MOM(b0, 4) = a0y + imp * -f[4 * 32];
-          MOM(b0, 5) = a0z + imp * -f[5 * 32];
-        }
-        a.isum[(size_t)r * T + t] = own + imp;
-      }
-    }
-    // ---- angular rows, staged the same way ----
-    const int nac = (a.n_ang + RS_K - 1) / RS_K;
-    for (int c = 0; c < RS_NST - 1; ++c) {
-      if (c < nac)
-        rs_stage(stage + c * RS_K * AS, a.af, a.am, a.torq, RS_NAF,
-                 c * RS_K, a.n_ang, T, t, lane);
-      else
-        rs_commit();
-    }
-    for (int c = 0; c < nac; ++c) {
-      float* cur = stage + (c % RS_NST) * RS_K * AS;
-      const int nx_c = c + RS_NST - 1;
-      if (nx_c < nac)
-        rs_stage(stage + (nx_c % RS_NST) * RS_K * AS, a.af, a.am, a.torq,
-                 RS_NAF, nx_c * RS_K, a.n_ang, T, t, lane);
-      else
-        rs_commit();
-      rs_wait();
-      for (int k = 0; k < RS_K && c * RS_K + k < a.n_ang; ++k) {
-        const int r = c * RS_K + k;
-        const float* f = cur + k * AS + lane;
-        const int meta = __float_as_int(f[RS_NAF * 32]);
-        if (!((meta >> 16) & 1)) continue;
-        const float ts = post ? f[11 * 32] : f[10 * 32];
-        if (ts == -FLT_MAX) continue;
-        const int b0 = (meta & 0xFF) - 1, b1 = ((meta >> 8) & 0xFF) - 1;
-        float a0x = 0.f, a0y = 0.f, a0z = 0.f, a1x = 0.f, a1y = 0.f,
-              a1z = 0.f;
-        if (b0 >= 0) {
-          a0x = MOM(b0, 3); a0y = MOM(b0, 4); a0z = MOM(b0, 5);
-        }
-        if (b1 >= 0) {
-          a1x = MOM(b1, 3); a1y = MOM(b1, 4); a1z = MOM(b1, 5);
-        }
-        const float e1 = (a1x * f[6 * 32] + a1y * f[7 * 32])
-                         + a1z * f[8 * 32];
-        const float e0 = (a0x * f[3 * 32] + a0y * f[4 * 32])
-                         + a0z * f[5 * 32];
-        const float cur_spin = e1 - e0;
-        float dtq = (ts - cur_spin) * f[9 * 32];
-        const float own = f[(RS_NAF + 1) * 32];
-        dtq = rs_min(dtq, f[13 * 32] - own);
-        dtq = rs_max(dtq, f[12 * 32] - own);
-        const float ax = f[0], ay = f[32], az = f[64];
-        if (b1 >= 0) {
-          MOM(b1, 3) = a1x + dtq * ax;
-          MOM(b1, 4) = a1y + dtq * ay;
-          MOM(b1, 5) = a1z + dtq * az;
-        }
-        if (b0 >= 0) {
-          MOM(b0, 3) = a0x + dtq * -ax;
-          MOM(b0, 4) = a0y + dtq * -ay;
-          MOM(b0, 5) = a0z + dtq * -az;
-        }
-        a.torq[(size_t)r * T + t] = own + dtq;
-      }
-    }
+  extern __shared__ __align__(16) unsigned char sm[];
+  const int lane = threadIdx.x, t = blockIdx.x;
+  const unsigned lt = (1u << lane) - 1u;
+  const int B = a.B, nl = a.n_lin, na = a.n_ang, R = nl + na;
+  uint64_t* bars = (uint64_t*)sm;
+  float* ring = (float*)(sm + 64);
+  float* mom = (float*)(sm + 64 + rs_ring_bytes(R));   // [body * 6 + c]
+  float* mi = mom + (RS_MAXB + 2) * 6 + 4;
+  float* acc = mom + 256;
+  int* meta = (int*)ring;                   // the prologue's
+  int* ends = meta;                         //   (after the levelling)
+  short* lvl = (short*)(meta + R);
+  short* pos = lvl + R;
+  unsigned* lmask = (unsigned*)(pos + R);
+  const long long c0 = clock64();
+
+  // ---- prologue: level, place and stream out the track's rows ----------
+  const float* L = a.lf + (size_t)t * nl * RS_LW;
+  const float* A = a.af + (size_t)t * na * RS_AW;
+#pragma unroll 8
+  for (int r = lane; r < R; r += 32) {
+    meta[r] = __float_as_int(r < nl ? L[(size_t)r * RS_LW + RS_NLF]
+                                    : A[(size_t)(r - nl) * RS_AW + RS_NAF]);
+    lvl[r] = 0;
   }
-  for (int i = 0; i < B * 6; ++i)
-    a.out[((size_t)t * 2 + 1) * B * 6 + i] = mom[i * 32 + lane];
+  for (int i = lane; i < (B + 2) * 6; i += 32)
+    mom[i] = i < B * 6 ? a.mom0[(size_t)t * B * 6 + i] : 0.0f;
+  for (int b = lane; b < B + 2; b += 32) mi[b] = b < B ? a.massinv[b] : 0.0f;
+  __syncwarp();
+  const int nlev_l = rs_levels(meta, lvl, nl, true, lane);
+  const int nlev_a = rs_levels(meta + nl, lvl + nl, na, false, lane);
+  // a linear level is single-body when each of its rows is on one body
+  // (b0 the world, b1 < 31) with no master: its rows then run on their
+  // bodies' lanes, the momenta in registers
+  for (int l = lane; l < nlev_l; l += 32) lmask[l] = 0;
+  __syncwarp();
+  for (int r = lane; r < nl; r += 32) {
+    const int m = meta[r];
+    if (lvl[r] == 0) continue;
+    const int b0 = (m & 0xFF) - 1, b1 = ((m >> 8) & 0xFF) - 1;
+    const bool single = b0 < 0 && b1 >= 0 && b1 < 31 && (m >> 17) == 0;
+    atomicOr(&lmask[lvl[r] - 1], single ? 1u << b1 : RS_MIXED);
+  }
+  __syncwarp();
+  const int nla = rs_place(lvl, pos, ends, nl, nlev_l, lane);
+  const int naa = rs_place(lvl + nl, pos + nl, ends + nl, na, nlev_a, lane);
+  const int ntot = nla + naa;
+  // the rows of a single-body level in body order
+  for (int r = lane; r < nl; r += 32) {
+    const int l = lvl[r];
+    if (l == 0 || (lmask[l - 1] & RS_MIXED)) continue;
+    const int b1 =
+        ((__float_as_int(L[(size_t)r * RS_LW + RS_NLF]) >> 8) & 0xFF) - 1;
+    pos[r] = (short)((l > 1 ? ends[l - 2] : 0)
+                     + __popc(lmask[l - 1] & ((1u << b1) - 1u)));
+  }
+  int2* SP = a.steps + (size_t)t * R;
+  const int nsl = rs_steps(ends, lmask, SP, nlev_l, 0, ntot, lane);
+  const int nsteps =
+      nsl + rs_steps(ends + nl, nullptr, SP + nsl, nlev_a, nla, ntot, lane);
+  __syncwarp();
+  float* S = a.stream + (size_t)t * R * RS_REC;
+#pragma unroll 2
+  for (int r = lane; r < nl; r += 32) {
+    const int p = pos[r];
+    if (p < 0) continue;
+    const float4* src = (const float4*)(L + (size_t)r * RS_LW);
+    float4 v[6];
+#pragma unroll
+    for (int i = 0; i < 6; ++i) v[i] = src[i];
+    int m = __float_as_int(v[5].y);    // field 21: the master's position
+    const int mp = (m >> 17) - 1;
+    if (mp >= 0) {
+      const int q = pos[mp] >= 0 ? pos[mp] : nla;    // nla: always 0
+      m = (m & 0x1FFFF) | ((q + 1) << 17);
+      v[5].y = __int_as_float(m);
+    }
+    float4* dst = (float4*)(S + (size_t)p * RS_REC);
+#pragma unroll
+    for (int i = 0; i < 6; ++i) dst[i] = v[i];
+  }
+#pragma unroll 2
+  for (int r = lane; r < na; r += 32) {
+    const int p = pos[nl + r];
+    if (p < 0) continue;
+    const float4* src = (const float4*)(A + (size_t)r * RS_AW);
+    float4* dst = (float4*)(S + (size_t)(nla + p) * RS_REC);
+    float4 v[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = src[i];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dst[i] = v[i];
+  }
+  for (int i = lane; i < ntot + 2; i += 32) acc[i] = 0.0f;
+  float* isum = acc;                    // by linear position; [nla] = 0
+  float* torq = acc + nla + 1;          // by angular position
+  const int idle = ntot + 1;            // acc's slot for idle writes
+  const int world = B, idle_b = B + 1;  // the world's body, the idle one
+  // the stream's and the prologue's generic accesses before the copies
+  hts_fence_proxy_async();
+  __syncwarp();
+
+  // ---- the sweeps ---------------------------------------------------------
+  // Every sweep streams the same ntot records through the ring: stage g
+  // (global: sweep x spp + the sweep's stage) holds the sweep's records
+  // [l RS_SR, (l + 1) RS_SR), l = g mod spp, in ring slot g mod RS_NST.  A
+  // step's entry says how many stages to wait for before it and how many
+  // it frees; each freed stage's slot takes the stage RS_NST ahead.
+  const int total = a.iters + a.iters_post;
+  const int spp = (ntot + RS_SR - 1) / RS_SR;         // stages a sweep
+  const int total_st = total * spp;
+  auto fill = [&](int g) {              // lane 0
+    const int r0 = (g % spp) * RS_SR, n = min(RS_SR, ntot - r0);
+    const int slot = g % RS_NST;
+    hts_bulk_load(ring + (size_t)slot * RS_SR * RS_REC,
+                  S + (size_t)r0 * RS_REC, (unsigned)n * RS_REC * 4,
+                  &bars[slot]);
+  };
+  if (lane == 0) {
+    for (int i = 0; i < RS_NST; ++i) hts_mbar_init(&bars[i]);
+    hts_fence_mbar_init();
+    for (int g = 0; g < RS_NST && g < total_st; ++g) fill(g);
+  }
+  __syncwarp();
+  const long long c1 = clock64();
+  auto write_out = [&](int which) {
+    __syncwarp();
+    for (int i = lane; i < B * 6; i += 32)
+      a.out[((size_t)t * 2 + which) * B * 6 + i] = mom[i];
+  };
+#define MOM(b, c) mom[(b) * 6 + (c)]
+  // a lane's own body's momenta in the single-body steps
+  const int own_b = lane < B ? lane : world;
+  const float mym = mi[own_b];
+  bool regs = false;
+  float rlx = 0.f, rly = 0.f, rlz = 0.f, rax = 0.f, ray = 0.f, raz = 0.f;
+  auto to_regs = [&]() {
+    rlx = MOM(own_b, 0); rly = MOM(own_b, 1); rlz = MOM(own_b, 2);
+    rax = MOM(own_b, 3); ray = MOM(own_b, 4); raz = MOM(own_b, 5);
+    regs = true;
+  };
+  auto from_regs = [&]() {
+    if (lane < B) {
+      MOM(lane, 0) = rlx; MOM(lane, 1) = rly; MOM(lane, 2) = rlz;
+      MOM(lane, 3) = rax; MOM(lane, 4) = ray; MOM(lane, 5) = raz;
+    }
+    regs = false;
+    __syncwarp();
+  };
+  // the steps' entries, 32 a chunk, one a lane; the first two chunks kept
+  const int2 ck0 = nsteps ? SP[lane % nsteps] : make_int2(0, 0);
+  const int2 ck1 = nsteps ? SP[(32 + lane) % nsteps] : make_int2(0, 0);
+  int rdy = 0, fr = 0;                  // stages waited for, freed
+  for (int s = 0; s < total && nsteps > 0; ++s) {
+    if (s == a.iters) {
+      if (regs) from_regs();
+      write_out(0);
+    }
+    const bool post = s >= a.iters;
+    const int gst = s * spp, gbase = gst * RS_SR;
+    int2 ch = ck0, chn = ck1;
+    int2 en = make_int2(__shfl_sync(0xffffffffu, ch.x, 0),
+                        __shfl_sync(0xffffffffu, ch.y, 0));
+    int k = 0;                          // the step
+    // step k's entry out of the chunks (the next chunk read at the end of
+    // this one)
+    auto entry_after = [&]() {
+      const int k1 = (k + 1) & 31;
+      en = make_int2(__shfl_sync(0xffffffffu, k1 ? ch.x : chn.x, k1),
+                     __shfl_sync(0xffffffffu, k1 ? ch.y : chn.y, k1));
+    };
+    auto next_chunk = [&]() {
+      if ((k & 31) == 31) {
+        ch = chn;
+        chn = SP[(k + 33 + lane) % nsteps];
+      }
+    };
+    auto wait_for = [&](int x) {        // the stages step x reads first
+      for (int nw = (x >> 22) & 3; nw > 0; --nw, ++rdy)
+        hts_mbar_wait(&bars[rdy % RS_NST], (rdy / RS_NST) & 1);
+    };
+    auto free_after = [&](int x) {      // the stages step x finished: their
+      if (const int nf = (x >> 24) & 3) {  // slots take the stages RS_NST on
+        __syncwarp();
+        if (lane == 0)
+          for (int i = 0; i < nf; ++i)
+            if (fr + i + RS_NST < total_st) fill(fr + i + RS_NST);
+        fr += nf;
+      }
+    };
+    // record q's place in the ring (stage gst + q / RS_SR, slot that mod
+    // RS_NST)
+#define RING(q) (ring + (size_t)((gbase + (q)) & (RS_SR * RS_NST - 1)) * RS_REC)
+    for (; k < nsteps; ++k) {
+      int2 e = en;                       // and the next step's, a step ahead
+      entry_after();
+      if (e.y) {
+        // ---- a run of single-body levels: lane b solves body b's rows,
+        // level by level, on the momenta in its registers ----
+        if (!regs) to_regs();
+        for (;;) {
+          wait_for(e.x);
+          const unsigned msk = e.y;
+          const bool on = (msk >> lane) & 1;
+          const int q = (e.x & 0xFFFF) + (on ? __popc(msk & lt) : 0);
+          const float4* r4 = (const float4*)RING(q);
+          const float4 v0 = r4[0], v1 = r4[1], v2 = r4[2], v3 = r4[3],
+                       v4 = r4[4];
+          const int qs = on ? q : idle;
+          const float own = isum[qs];
+          // [n(3) J0(3) J1(3) K0(3) K1(3) dinv ts tspost lo hi ...]
+          const float nx = v0.x, ny = v0.y, nz = v0.z;
+          const float z = 0.0f;                    // the world side
+          const float d1 = (rlx * nx + rly * ny) + rlz * nz;
+          const float e1 = (rax * v3.x + ray * v3.y) + raz * v3.z;
+          const float d0 = (z * nx + z * ny) + z * nz;
+          const float e0 = (z * v2.y + z * v2.z) + z * v2.w;
+          const float vn = ((d1 * mym + e1) - d0 * z) - e0;
+          const float ts = post ? v4.y : v4.x;
+          float imp = (-ts - vn) * v3.w;
+          imp = rs_min(imp, v4.w - own);
+          imp = rs_max(imp, v4.z - own);
+          isum[qs] = own + imp;
+          if (on) {
+            rlx = rlx + imp * nx;
+            rly = rly + imp * ny;
+            rlz = rlz + imp * nz;
+            rax = rax + imp * v1.z;
+            ray = ray + imp * v1.w;
+            raz = raz + imp * v2.x;
+          }
+          free_after(e.x);
+          next_chunk();
+          if (k + 1 == nsteps || !en.y) break;
+          ++k;
+          e = en;
+          entry_after();
+        }
+        continue;
+      }
+      wait_for(e.x);
+      const int q0 = e.x & 0xFFFF, cnt = (e.x >> 16) & 63;
+      {
+        if (regs) from_regs();
+        // ---- a mixed level: lane i takes row q0 + i; idle lanes and world
+        // sides read the world's zeros and write to the idle slots ----
+        const bool on = lane < cnt;
+        const int q = q0 + (on ? lane : 0);
+        float f[RS_REC];
+        {
+          const float4* r4 = (const float4*)RING(q);
+#pragma unroll
+          for (int i = 0; i < RS_REC / 4; ++i) {
+            const float4 v = r4[i];
+            f[4 * i] = v.x; f[4 * i + 1] = v.y;
+            f[4 * i + 2] = v.z; f[4 * i + 3] = v.w;
+          }
+        }
+        if (q0 < nla) {
+          // ---- linear rows ----
+          const int m = on ? __float_as_int(f[RS_NLF]) : 0;
+          const int b0 = (m & 0xFF) - 1, b1 = ((m >> 8) & 0xFF) - 1;
+          const int r0 = b0 >= 0 ? b0 : world, r1 = b1 >= 0 ? b1 : world;
+          const int w0 = b0 >= 0 ? b0 : idle_b, w1 = b1 >= 0 ? b1 : idle_b;
+          const float nx = f[0], ny = f[1], nz = f[2];
+          const float l0x = MOM(r0, 0), l0y = MOM(r0, 1), l0z = MOM(r0, 2);
+          const float a0x = MOM(r0, 3), a0y = MOM(r0, 4), a0z = MOM(r0, 5);
+          const float l1x = MOM(r1, 0), l1y = MOM(r1, 1), l1z = MOM(r1, 2);
+          const float a1x = MOM(r1, 3), a1y = MOM(r1, 4), a1z = MOM(r1, 5);
+          const float mi0 = mi[r0], mi1 = mi[r1];
+          const int mp = (m >> 17) - 1;            // master, -1 none
+          const float own = isum[on ? q : idle];
+          const float mst = isum[mp >= 0 ? mp : idle];
+          const float d1 = (l1x * nx + l1y * ny) + l1z * nz;
+          const float e1 = (a1x * f[12] + a1y * f[13]) + a1z * f[14];
+          const float d0 = (l0x * nx + l0y * ny) + l0z * nz;
+          const float e0 = (a0x * f[9] + a0y * f[10]) + a0z * f[11];
+          const float vn = ((d1 * mi1 + e1) - d0 * mi0) - e0;
+          const float ts = post ? f[17] : f[16];
+          float imp = (-ts - vn) * f[15];
+          const float hm = f[20] * mst;
+          const float hi = mp >= 0 ? hm : f[19];
+          const float lo = mp >= 0 ? -hm : f[18];
+          imp = rs_min(imp, hi - own);
+          imp = rs_max(imp, lo - own);
+          MOM(w1, 0) = l1x + imp * nx;
+          MOM(w1, 1) = l1y + imp * ny;
+          MOM(w1, 2) = l1z + imp * nz;
+          MOM(w1, 3) = a1x + imp * f[6];
+          MOM(w1, 4) = a1y + imp * f[7];
+          MOM(w1, 5) = a1z + imp * f[8];
+          MOM(w0, 0) = l0x + imp * -nx;
+          MOM(w0, 1) = l0y + imp * -ny;
+          MOM(w0, 2) = l0z + imp * -nz;
+          MOM(w0, 3) = a0x + imp * -f[3];
+          MOM(w0, 4) = a0y + imp * -f[4];
+          MOM(w0, 5) = a0z + imp * -f[5];
+          isum[on ? q : idle] = own + imp;
+        } else {
+          // ---- angular rows (a -FLT_MAX target: no torque) ----
+          const float ts = post ? f[11] : f[10];
+          const bool act = on && ts != -FLT_MAX;
+          const int m = act ? __float_as_int(f[RS_NAF]) : 0;
+          const int b0 = (m & 0xFF) - 1, b1 = ((m >> 8) & 0xFF) - 1;
+          const int r0 = b0 >= 0 ? b0 : world, r1 = b1 >= 0 ? b1 : world;
+          const int w0 = b0 >= 0 ? b0 : idle_b, w1 = b1 >= 0 ? b1 : idle_b;
+          const float a0x = MOM(r0, 3), a0y = MOM(r0, 4), a0z = MOM(r0, 5);
+          const float a1x = MOM(r1, 3), a1y = MOM(r1, 4), a1z = MOM(r1, 5);
+          const int qa = act ? q - nla : idle - nla - 1;
+          const float own = torq[qa];
+          const float e1 = (a1x * f[6] + a1y * f[7]) + a1z * f[8];
+          const float e0 = (a0x * f[3] + a0y * f[4]) + a0z * f[5];
+          const float cur_spin = e1 - e0;
+          float dtq = (ts - cur_spin) * f[9];
+          dtq = rs_min(dtq, f[13] - own);
+          dtq = rs_max(dtq, f[12] - own);
+          const float ax = f[0], ay = f[1], az = f[2];
+          MOM(w1, 3) = a1x + dtq * ax;
+          MOM(w1, 4) = a1y + dtq * ay;
+          MOM(w1, 5) = a1z + dtq * az;
+          MOM(w0, 3) = a0x + dtq * -ax;
+          MOM(w0, 4) = a0y + dtq * -ay;
+          MOM(w0, 5) = a0z + dtq * -az;
+          torq[qa] = own + dtq;
+        }
+        __syncwarp();
+      }
+      free_after(e.x);
+      next_chunk();
+    }
+#undef RING
+  }
+  if (regs) from_regs();
+  if (a.iters == total || nsteps == 0) write_out(0);
+  write_out(1);
 #undef MOM
+  if (a.cycles && lane == 0) {
+    long long* c = a.cycles + (size_t)t * 4;
+    c[0] = c1 - c0;                     // prologue
+    c[1] = clock64() - c1;              // the sweeps
+    c[2] = nsteps;                      // steps a sweep
+    c[3] = ntot;                        // active rows
+  }
+}
+
+// Shared memory for these rows, the attributes set; 0 if it cannot hold
+// them.
+static size_t rs_prepare(const RowSweepArgs& a) {
+  if (a.B > RS_MAXB || a.n_lin + a.n_ang > RS_MAXR) return 0;
+  const size_t smem = rs_smem_bytes(a.n_lin + a.n_ang);
+  if (cudaFuncSetAttribute(row_sweep_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem) != cudaSuccess
+      || cudaFuncSetAttribute(row_sweep_kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              100) != cudaSuccess)
+    return 0;
+  return smem;
+}
+
+// Tracks (blocks) an SM holds at once for these rows; 0 if none.
+HTS_EXPORT int hts_row_sweep_occupancy(const void* args) {
+  const size_t smem = rs_prepare(*(const RowSweepArgs*)args);
+  int n = 0;
+  if (smem)
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, row_sweep_kernel, 32,
+                                                  smem);
+  return n;
 }
 
 HTS_EXPORT int hts_row_sweep(const void* args, void* stream) {
   const RowSweepArgs a = *(const RowSweepArgs*)args;
-  if (a.B > RS_MAXB || a.n_lin > RS_MAXR) return (int)cudaErrorInvalidValue;
-  const int nf = RS_NLF > RS_NAF ? RS_NLF : RS_NAF;
-  const size_t smem =
-      ((size_t)RS_MAXB * 6 * 32 + (size_t)RS_NST * RS_K * (nf + 2) * 32) *
-      sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      row_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
+  const size_t smem = rs_prepare(a);
+  if (!smem) return (int)cudaErrorInvalidValue;
   if (a.T > 0)
-    row_sweep_kernel<<<(a.T + 31) / 32, 32, smem, (cudaStream_t)stream>>>(
-        a);
+    row_sweep_kernel<<<a.T, 32, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

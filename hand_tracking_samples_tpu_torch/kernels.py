@@ -5,13 +5,16 @@ library with a plain C interface, loaded with ctypes (no PyTorch headers, so
 the build takes seconds):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
-         -shared -Xcompiler -fPIC -o build/libhts_kernels_<hash>.so csrc/*.cu
+         -shared -Xcompiler -fPIC -Xptxas -v
+         -o build/libhts_kernels_<hash>.so csrc/*.cu
 
 The library lands in build/ at the repository root, named by a hash of the
 sources and flags, so an edited source rebuilds it.  -fmad=false keeps nvcc
 from contracting a*b+c into one FMA: the kernels then round each operation
 as the plain PyTorch versions do, which is what lets the cloud kernel be
 bit-identical to its plain version and the others agree to the last bits.
+-Xptxas -v puts each kernel's registers, stack, spills and static shared
+memory into the build log (`BUILD_INFO["log"]`, `ptxas_summary`).
 
 Each kernel wrapper (ops/cloud_kernel.py, ops/cloud_rows.py (four),
 ops/correspondence.py, physics/contact_kernel.py, physics/pgs_kernel.py,
@@ -25,6 +28,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -33,7 +37,8 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _LIB = None
 WRAPPERS: dict = {}
@@ -109,6 +114,31 @@ def build() -> str:
     return path
 
 
+def ptxas_summary(log: str) -> dict:
+    """{kernel entry name: {registers, stack, spill_stores, spill_loads,
+    static_smem}} (bytes but the registers) from an -Xptxas -v log."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[name].update(stack=int(m.group(1)), spill_stores=int(
+                m.group(2)), spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            out[name]["static_smem"] = int(m.group(1)) if m else 0
+    return out
+
+
 def _declare(lib):
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.hts_cloud_from_depth.argtypes = [P, P, P, I, I, I, I, I, I, F, F, F,
@@ -123,11 +153,14 @@ def _declare(lib):
     lib.hts_pgs_solve.argtypes = [P, P]
     lib.hts_correspondence.argtypes = [P] * 8 + [I, I, I, I, P]
     lib.hts_row_sweep.argtypes = [P, P]
+    lib.hts_row_sweep_occupancy.argtypes = [P]
+    lib.hts_pgs_occupancy.argtypes = [P]
     for fn in (lib.hts_cloud_from_depth, lib.hts_cloud_rows_solve,
                lib.hts_cloud_rows_packed, lib.hts_cloud_rows_unpacked,
                lib.hts_contact_fields,
                lib.hts_pgs_solve, lib.hts_correspondence,
-               lib.hts_row_sweep):
+               lib.hts_row_sweep, lib.hts_row_sweep_occupancy,
+               lib.hts_pgs_occupancy):
         fn.restype = ctypes.c_int
 
 

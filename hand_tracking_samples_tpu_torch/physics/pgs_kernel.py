@@ -451,11 +451,10 @@ class _Class(ctypes.Structure):
 class _Args(ctypes.Structure):
     _fields_ = [("mom0", ctypes.c_void_p), ("mi", ctypes.c_void_p),
                 ("singles", ctypes.c_void_p), ("out", ctypes.c_void_p),
-                ("scratch", ctypes.c_void_p), ("T", ctypes.c_int),
+                ("cycles", ctypes.c_void_p), ("T", ctypes.c_int),
                 ("CS", ctypes.c_int), ("BP", ctypes.c_int),
                 ("iters", ctypes.c_int), ("iters_post", ctypes.c_int),
                 ("n_lin", ctypes.c_int), ("n_ang", ctypes.c_int),
-                ("scratch_per_track", ctypes.c_int),
                 ("lin", _Class * MAX_CLASSES), ("ang", _Class * MAX_CLASSES)]
 
 
@@ -473,41 +472,50 @@ def _unit_ids(plan, device):
     return _UNIT_IDS[key]
 
 
+def _aligned(x):
+    """x, or a copy of it whose data starts on 16 bytes (the bulk copies'
+    alignment)."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 @kernels.wrapper("pgs_solve")
 def pgs_solve(plan: SolvePlan, iterations: int, iterations_post: int, mom0,
-              mi, singles, lin_rows, ang_rows):
-    """Kernel wrapper: see the module docstring for the layouts."""
+              mi, singles, lin_rows, ang_rows, cycles=None):
+    """Kernel wrapper: see the module docstring for the layouts.  cycles:
+    an optional (T, 4) int64 CUDA tensor that receives each track's
+    clock64 counts [prologue, sweeps, steps a sweep, active slots]."""
     if mom0.device.type == "cpu":
         return pgs_solve_plain(plan, iterations, iterations_post, mom0, mi,
                                singles, lin_rows, ang_rows)
     T, _, bp = mom0.shape
-    if bp > 32 or len(plan.lin_classes) > MAX_CLASSES \
+    if bp > 32 or bp % 2 or len(plan.lin_classes) > MAX_CLASSES \
             or len(plan.ang_classes) > MAX_CLASSES:
-        raise ValueError("pgs kernel: at most 32 body slots and 4 classes "
-                         "of each kind")
+        raise ValueError("pgs kernel: at most 32 body slots (an even "
+                         "count) and 4 classes of each kind")
     for c in plan.lin_classes + plan.ang_classes:
-        if c.W > 32 or c.n_groups > MAX_GROUPS:
-            raise ValueError(f"pgs kernel: class W={c.W} > 32 or "
-                             f"{c.n_groups} groups > {MAX_GROUPS}")
+        if c.W > 32 or c.W % 4 or c.n_groups > MAX_GROUPS:
+            raise ValueError(f"pgs kernel: class W={c.W} > 32 or not a "
+                             f"multiple of 4, or {c.n_groups} groups > "
+                             f"{MAX_GROUPS}")
     mom0, mi = mom0.contiguous(), mi.contiguous()
-    lin_rows = [r.contiguous() for r in lin_rows]
-    ang_rows = [r.contiguous() for r in ang_rows]
-    singles = singles.contiguous() if plan.CS else None
+    lin_rows = [_aligned(r.contiguous()) for r in lin_rows]
+    ang_rows = [_aligned(r.contiguous()) for r in ang_rows]
+    singles = _aligned(singles.contiguous()) if plan.CS else None
     dev = kernels.require_cuda(mom0, mi, *lin_rows, *ang_rows,
                                *([singles] if plan.CS else []))
-    spt = plan.CS * bp + sum(c.n_phases * c.W for c in plan.lin_classes
-                             + plan.ang_classes)
     out = torch.empty((T, 2, 6, bp), device=dev)
-    scratch = torch.empty((T, max(spt, 1)), device=dev)
     ids = _unit_ids(plan, dev)
     a = _Args()
-    a.mom0, a.mi, a.out, a.scratch = (mom0.data_ptr(), mi.data_ptr(),
-                                      out.data_ptr(), scratch.data_ptr())
+    a.mom0, a.mi, a.out = mom0.data_ptr(), mi.data_ptr(), out.data_ptr()
     a.singles = singles.data_ptr() if plan.CS else None
+    if cycles is not None:
+        kernels.require_cuda(cycles)
+        if cycles.shape != (T, 4) or cycles.dtype != torch.int64:
+            raise ValueError("cycles: a (T, 4) int64 tensor")
+        a.cycles = cycles.data_ptr()
     a.T, a.CS, a.BP = T, plan.CS, bp
     a.iters, a.iters_post = iterations, iterations_post
     a.n_lin, a.n_ang = len(plan.lin_classes), len(plan.ang_classes)
-    a.scratch_per_track = spt
     nl = len(plan.lin_classes)
     for k, (c, r) in enumerate(zip(plan.lin_classes, lin_rows)):
         a.lin[k] = _Class(r.data_ptr(), ids[k][0].data_ptr(),
@@ -523,3 +531,16 @@ def pgs_solve(plan: SolvePlan, iterations: int, iterations_post: int, mom0,
     kind = plan.key.split(":")[0]              # dyn, ms or uni
     pgs_solve.kinds[kind] = pgs_solve.kinds.get(kind, 0) + 1
     return out
+
+
+def occupancy(plan: SolvePlan, bp: int) -> int:
+    """Tracks (blocks) an SM holds at once for this plan's layout with bp
+    body slots (a measurement; 0 if the kernel cannot hold it)."""
+    a = _Args(CS=plan.CS, BP=bp, n_lin=len(plan.lin_classes),
+              n_ang=len(plan.ang_classes))
+    for k, c in enumerate(plan.lin_classes):
+        a.lin[k] = _Class(None, None, None, c.U, c.W, c.n_groups,
+                          int(c.friction))
+    for k, c in enumerate(plan.ang_classes):
+        a.ang[k] = _Class(None, None, None, c.U, c.W, c.n_groups, 0)
+    return kernels.library().hts_pgs_occupancy(ctypes.byref(a))

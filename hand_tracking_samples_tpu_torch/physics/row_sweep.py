@@ -1,5 +1,6 @@
-"""The row sweep: every Gauss-Seidel sweep of one solve, rows strictly in
-order, in one kernel launch (csrc/row_sweep.cu) for all tracks.
+"""The row sweep: every Gauss-Seidel sweep of one solve in one kernel
+launch (csrc/row_sweep.cu) for all tracks, the result of the rows strictly
+in order.
 
 The JAX package runs its reference-shaped solves as device loops: the
 sequential solve is a `lax.scan` over rows inside a `fori_loop` over sweeps
@@ -17,26 +18,31 @@ A sweep runs the linear rows in order, then the angular rows in order
 (solver.py:232-284 lin_step / ang_step): world rows (b = -1) read zero
 momenta and take no impulse; a friction row's bounds are coef x the
 accumulated impulse of its master row (whose position the meta word
-carries); an
-angular row whose target spin is -FLT_MAX takes no torque; the accumulated
-impulses (isum, torq) carry over from the main sweeps into the post sweeps.
-`iterations` sweeps with the main targets, then `iterations_post` with the
-bias-free ones.  Inactive rows take no impulse: `sweep_rows` drops the
-rows inactive on every track, and the sweeps skip a track's inactive
-rows.
+carries); an angular row whose target spin is -FLT_MAX takes no torque; the
+accumulated impulses (isum, torq) carry over from the main sweeps into the
+post sweeps.  `iterations` sweeps with the main targets, then
+`iterations_post` with the bias-free ones.  Inactive rows take no impulse:
+`sweep_rows` drops the rows inactive on every track, and the sweeps skip a
+track's inactive rows.
+
+The kernel runs each track's rows as a wavefront (`wave_schedule` states
+its schedule): rows on disjoint bodies commute exactly, so a row runs as
+soon as the last earlier row on its bodies (and its friction master) has,
+and each body sees the same updates in the same order.
 
 `row_sweep` is the wrapper: CUDA tensors launch the kernel, CPU tensors
-run `row_sweep_plain`, the same operations in the same order (the kernel
-is built with -fmad=false, so the two agree bit for bit).  Layouts:
+run `row_sweep_plain`, the same operations in row order (the kernel is
+built with -fmad=false, so the two agree bit for bit).  Layouts, tracks
+leading, a row's fields and its meta word (int32 bits) contiguous:
   mom0   (T, B, 6)      momenta after rbinitvelocity [lin xyz, ang xyz]
   massinv (B,)
-  lf     (Rl, 21, T)    linear rows [n(3) J0(3) J1(3) K0(3) K1(3) dinv
-                        ts tspost lo hi fcoef]; lo/hi the force bounds x dt
-  lm     (Rl, T) int32  (b0 + 1) | (b1 + 1) << 8 | active << 16
+  lf     (T, Rl, 24)    linear rows [n(3) J0(3) J1(3) K0(3) K1(3) dinv ts
+                        tspost lo hi fcoef meta 0 0]; lo/hi the force
+                        bounds x dt
+  meta   int32          (b0 + 1) | (b1 + 1) << 8 | active << 16
                         | (master row position + 1) << 17 (0: none)
-  af     (Ra, 14, T)    angular rows [axis(3) K0(3) K1(3) stt ts tspost
-                        lo hi]
-  am     (Ra, T) int32  as lm
+  af     (T, Ra, 16)    angular rows [axis(3) K0(3) K1(3) stt ts tspost lo
+                        hi meta 0]
   out    (T, 2, B, 6)   momenta after the main and after the post sweeps
 """
 from __future__ import annotations
@@ -49,17 +55,26 @@ import torch
 
 from .. import kernels
 
-NLF, NAF = 21, 14
+NLF, NAF = 21, 14        # fields of a linear / angular row; the meta follows
+LW, AW = 24, 16          # a row's floats: fields, meta, zero padding
 MAX_B = 32
-MAX_LIN = 32766          # a master position fits bits 17-31 of the meta
+MAX_LIN = 16382          # a master position + 1 fits bits 17-30 of the meta
+MAX_ROWS = 13000         # rows (linear + angular) the kernel holds a track
 FLT_MAX = float(np.float32(3.4028235e38))
 
 
 class SweepRows(NamedTuple):
-    lf: torch.Tensor
-    lm: torch.Tensor
-    af: torch.Tensor
-    am: torch.Tensor
+    lf: torch.Tensor      # (T, Rl, LW)
+    af: torch.Tensor      # (T, Ra, AW)
+
+    @property
+    def lm(self):
+        """(T, Rl) int32 meta words of the linear rows (a view)."""
+        return self.lf[..., NLF].view(torch.int32)
+
+    @property
+    def am(self):
+        return self.af[..., NAF].view(torch.int32)
 
 
 def _meta(b0, b1, active, T, R, dev):
@@ -74,36 +89,42 @@ def _meta(b0, b1, active, T, R, dev):
 
 
 def _fields(parts, T, R):
-    """List of (T, R) / (T, R, 3) tensors -> (R, F, T)."""
+    """List of (T, R) / (T, R, 3) tensors -> (T, R, F)."""
     cols = []
     for x in parts:
         x = x.expand((T, R) + tuple(x.shape[2:]))
         cols.append(x if x.dim() == 3 else x[..., None])
-    return torch.cat(cols, dim=-1).permute(1, 2, 0).contiguous()
+    return torch.cat(cols, dim=-1)
 
 
 def linear_block(b0, b1, n, J0, J1, K0, K1, dinv, ts, tspost, lo, hi,
                  fcoef, active, mpos):
     """One block of linear rows in sweep order: fields (T, R[, 3]),
     b0/b1 (R,) or (T, R), mpos (R,) master positions within the block
-    (-1 none).  Returns (lf, lm, mpos) pieces for `sweep_rows`."""
+    (-1 none).  Returns (fields, meta, mpos) pieces for `sweep_rows`."""
     T, R = dinv.shape
-    dev = dinv.device
     lf = _fields([n, J0, J1, K0, K1, dinv, ts, tspost, lo, hi, fcoef], T, R)
-    return lf, _meta(b0, b1, active, T, R, dev).T.contiguous(), \
+    return lf, _meta(b0, b1, active, T, R, dinv.device), \
         np.asarray(mpos, np.int64)
 
 
 def angular_block(b0, b1, axis, K0, K1, stt, ts, tspost, lo, hi, active):
     T, R = stt.shape
-    dev = stt.device
     af = _fields([axis, K0, K1, stt, ts, tspost, lo, hi], T, R)
-    return af, _meta(b0, b1, active, T, R, dev).T.contiguous()
+    return af, _meta(b0, b1, active, T, R, stt.device)
 
 
 def _live(meta):
-    """Host mask of rows active on some track (one device read)."""
-    return (((meta >> 16) & 1).amax(dim=1) > 0).cpu().numpy()
+    """Host mask of rows (T, R) active on some track (one device read)."""
+    return (((meta >> 16) & 1).amax(dim=0) > 0).cpu().numpy()
+
+
+def _with_meta(fields, meta, width):
+    """(T, R, F) fields and (T, R) int32 meta -> (T, R, width) rows: the
+    fields, the meta word's bits, zero padding (16-byte rows)."""
+    pad = fields.new_zeros(fields.shape[:2] + (width - fields.shape[2] - 1,))
+    return torch.cat([fields, meta.view(torch.float32)[..., None], pad],
+                     dim=-1).contiguous()
 
 
 def sweep_rows(lin_blocks, ang_blocks, T, device) -> SweepRows:
@@ -116,29 +137,172 @@ def sweep_rows(lin_blocks, ang_blocks, T, device) -> SweepRows:
         lfs.append(lf)
         lms.append(lm)
         pos.append(np.where(mp >= 0, mp + off, -1))
-        off += lf.shape[0]
-    lf = torch.cat(lfs) if lfs else torch.zeros((0, NLF, T), device=device)
-    lm = torch.cat(lms) if lms else torch.zeros((0, T), dtype=torch.int32,
-                                                device=device)
+        off += lf.shape[1]
+    lf = torch.cat(lfs, dim=1) if lfs else \
+        torch.zeros((T, 0, NLF), device=device)
+    lm = torch.cat(lms, dim=1) if lms else \
+        torch.zeros((T, 0), dtype=torch.int32, device=device)
     mp = np.concatenate(pos) if pos else np.zeros(0, np.int64)
     keep = _live(lm)
     keep[mp[keep & (mp >= 0)]] = True
     new = np.cumsum(keep) - 1                  # old position -> new one
     mp = np.where(mp >= 0, new[np.maximum(mp, 0)], -1)[keep]
     idx = torch.as_tensor(np.nonzero(keep)[0], device=device)
-    lf, lm = lf[idx], lm[idx]
-    if lf.shape[0] > MAX_LIN:
+    lf, lm = lf[:, idx], lm[:, idx]
+    if lf.shape[1] > MAX_LIN:
         raise ValueError(f"row sweep: at most {MAX_LIN} linear rows")
-    lm = lm | (torch.as_tensor(mp, dtype=torch.int32,
-                               device=device)[:, None] + 1) << 17
-    af = torch.cat([a for a, _ in ang_blocks]) if ang_blocks else \
-        torch.zeros((0, NAF, T), device=device)
-    am = torch.cat([m for _, m in ang_blocks]) if ang_blocks else \
-        torch.zeros((0, T), dtype=torch.int32, device=device)
+    lm = lm | (torch.as_tensor(mp, dtype=torch.int32, device=device)
+               + 1) << 17
+    af = torch.cat([a for a, _ in ang_blocks], dim=1) if ang_blocks else \
+        torch.zeros((T, 0, NAF), device=device)
+    am = torch.cat([m for _, m in ang_blocks], dim=1) if ang_blocks else \
+        torch.zeros((T, 0), dtype=torch.int32, device=device)
     aidx = torch.as_tensor(np.nonzero(_live(am))[0], device=device)
-    return SweepRows(lf.contiguous(), lm.contiguous(),
-                     af[aidx].contiguous(), am[aidx].contiguous())
+    return SweepRows(_with_meta(lf, lm, LW),
+                     _with_meta(af[:, aidx], am[:, aidx], AW))
 
+
+# ---------------------------------------------------------------------------
+# the kernel's schedule, stated in PyTorch, and rows that test it (the
+# tests and chip_smoke.py)
+# ---------------------------------------------------------------------------
+
+class WaveSchedule(NamedTuple):
+    lin_level: torch.Tensor   # (T, Rl) int64 level of each row, 0 inactive
+    ang_level: torch.Tensor   # (T, Ra)
+    lin_perm: torch.Tensor    # (T, Rl) rows in level order, then the
+    ang_perm: torch.Tensor    #   inactive rows in row order
+    lm: torch.Tensor          # (T, Rl) int32 lm[t, lin_perm[t]], master
+                              #   positions remapped to that order
+
+
+def _levels(meta, friction):
+    """(T, R) levels of the rows of meta (T, R), as the kernel's prologue
+    computes them: 1 + the largest level of the earlier active rows on the
+    row's bodies and of its master; a master after its reader is placed
+    above the reader."""
+    T, R = meta.shape
+    dev = meta.device
+    meta = meta.to(torch.int64)
+    act = ((meta >> 16) & 1) == 1
+    b0 = (meta & 0xFF) - 1
+    b1 = ((meta >> 8) & 0xFF) - 1
+    mp = (meta >> 17) - 1 if friction else torch.full_like(meta, -1)
+    c0 = torch.where(b0 >= 0, b0, MAX_B)      # column MAX_B: the world
+    c1 = torch.where(b1 >= 0, b1, MAX_B)
+    last = torch.zeros((T, MAX_B + 1), dtype=torch.int64, device=dev)
+    lvl = torch.zeros((T, R), dtype=torch.int64, device=dev)
+    tt = torch.arange(T, device=dev)
+    for r in range(R):
+        a, m = act[:, r], mp[:, r]
+        l = torch.maximum(lvl[:, r], torch.maximum(last[tt, c0[:, r]],
+                                                   last[tt, c1[:, r]]))
+        mc = m.clamp(0, max(R - 1, 0))
+        l = torch.where((m >= 0) & (m < r),
+                        torch.maximum(l, lvl[tt, mc]), l) + 1
+        cur = lvl[tt, mc]
+        lvl[tt, mc] = torch.where(a & (m > r), torch.maximum(cur, l), cur)
+        l = torch.where(a, l, 0)
+        last[tt, c0[:, r]] = torch.where(a, l, last[tt, c0[:, r]])
+        last[tt, c1[:, r]] = torch.where(a, l, last[tt, c1[:, r]])
+        last[:, MAX_B] = 0
+        lvl[:, r] = l
+    return lvl
+
+
+def _single_levels(meta, lvl):
+    """(T, R) bool: the row's level is single-body (every row of it has the
+    world as b0, a body b1 < 31 and no master): the kernel runs such a
+    level's rows on their bodies' lanes, in body order."""
+    meta = meta.to(torch.int64)
+    T, R = lvl.shape
+    b0 = (meta & 0xFF) - 1
+    b1 = ((meta >> 8) & 0xFF) - 1
+    single = (b0 < 0) & (b1 >= 0) & (b1 < 31) & ((meta >> 17) == 0)
+    ok = torch.ones((T, R + 1), dtype=torch.int64, device=lvl.device)
+    ok.scatter_reduce_(1, lvl, single.to(torch.int64), "amin")
+    return (torch.gather(ok, 1, lvl) == 1) & (lvl > 0)
+
+
+def _level_order(lvl, single=None, b1=None):
+    """(T, R) permutation: active rows by level, then by body in a
+    single-body level and by row in any other; inactive rows last."""
+    T, R = lvl.shape
+    r = torch.arange(R, device=lvl.device).expand(T, R)
+    big = R + 1
+    within = r if single is None else torch.where(single, b1, r)
+    key = torch.where(lvl > 0, lvl, big) * max(R, 1) + within
+    return torch.argsort(key, dim=1)
+
+
+def wave_schedule(lm, am) -> WaveSchedule:
+    """The row sweep kernel's schedule of each track's rows: the linear and
+    the angular rows levelled separately (`_levels`), the level-order
+    permutation (`_level_order`) and the linear meta words in that order
+    with their master positions remapped.  Vectorised over tracks, a loop
+    over rows."""
+    lvl_l, lvl_a = _levels(lm, True), _levels(am, False)
+    b1 = ((lm.to(torch.int64) >> 8) & 0xFF) - 1
+    perm_l = _level_order(lvl_l, _single_levels(lm, lvl_l), b1)
+    perm_a = _level_order(lvl_a)
+    T, R = lm.shape
+    inv = torch.empty_like(perm_l)
+    inv.scatter_(1, perm_l, torch.arange(R, device=lm.device).expand(T, R))
+    meta = torch.gather(lm, 1, perm_l)
+    m = (meta >> 17).to(torch.int64) - 1
+    nm = torch.where(m >= 0, torch.gather(inv, 1, m.clamp(min=0)), -1)
+    meta = (meta & 0x1FFFF) | ((nm + 1) << 17).to(torch.int32)
+    return WaveSchedule(lvl_l, lvl_a, perm_l, perm_a, meta)
+
+
+def synthetic_rows(T: int, Rl: int, Ra: int, B: int, seed: int,
+                   device="cpu"):
+    """(mom0, massinv, rows): seeded rows with the schedule's hard cases.
+    B bodies with ~27% of the rows on body 1 (as a hand's palm has), half
+    the rows on one body, 3% on no body; friction rows whose master is one
+    or two rows before them, 15% of those a later row; 15% of the rows
+    inactive on each track; 10% of the angular targets -FLT_MAX."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s: torch.tensor(rng.standard_normal(s).astype(np.float32))
+    u = lambda lo, hi, *s: torch.tensor(rng.uniform(lo, hi, s)
+                                        .astype(np.float32))
+
+    def bodies(R):
+        b1 = np.where(rng.random(R) < 0.27, 1, rng.integers(0, B, R))
+        b0 = np.where(rng.random(R) < 0.5, -1, rng.integers(0, B, R))
+        b0 = np.where(b0 == b1, -1, b0)
+        world = rng.random(R) < 0.03                    # on no body
+        b0[world], b1[world] = -1, -1
+        return b0, b1
+    b0, b1 = bodies(Rl)
+    mpos = np.full(Rl, -1)
+    fr = np.nonzero(rng.random(Rl) < 0.2)[0]
+    mpos[fr] = np.maximum(fr - rng.integers(1, 3, len(fr)), 0)
+    late = fr[rng.random(len(fr)) < 0.15]
+    mpos[late] = np.minimum(late + rng.integers(1, 9, len(late)), Rl - 1)
+    lo, hi = -u(0.1, 1.0, T, Rl), u(0.1, 1.0, T, Rl)
+    lin = linear_block(
+        b0, b1, f(T, Rl, 3), f(T, Rl, 3) * 0.1, f(T, Rl, 3) * 0.1,
+        f(T, Rl, 3) * 0.1, f(T, Rl, 3) * 0.1, u(0.2, 1.0, T, Rl),
+        f(T, Rl), f(T, Rl), lo, hi, u(0.1, 1.0, T, Rl),
+        torch.tensor(rng.random((T, Rl)) < 0.85), mpos)
+    ab0, ab1 = bodies(Ra)
+    ts = f(T, Ra)
+    ts[torch.tensor(rng.random((T, Ra)) < 0.1)] = -FLT_MAX
+    tsp = torch.where(torch.tensor(rng.random((T, Ra)) < 0.1),
+                      torch.full_like(ts, -FLT_MAX), f(T, Ra))
+    ang = angular_block(ab0, ab1, f(T, Ra, 3), f(T, Ra, 3) * 0.1,
+                        f(T, Ra, 3) * 0.1, u(0.2, 1.0, T, Ra), ts, tsp,
+                        -u(0.1, 1.0, T, Ra), u(0.1, 1.0, T, Ra),
+                        torch.tensor(rng.random((T, Ra)) < 0.85))
+    rows = sweep_rows([lin], [ang], T, "cpu")
+    return ((f(T, B, 6) * 0.1).to(device), u(0.5, 2.0, B).to(device),
+            SweepRows(*(x.to(device) for x in rows)))
+
+
+# ---------------------------------------------------------------------------
+# the sweeps: plain PyTorch version
+# ---------------------------------------------------------------------------
 
 def _unpack(meta, B):
     b0 = (meta & 0xFF) - 1
@@ -160,7 +324,7 @@ def _row_tables(meta, B, T, base, mi, C, D):
     every track (2T,), the dot coefficients C and the impulse directions D
     (T, 12) with the world's half zeroed, the inverse masses [mi1, 1, mi0,
     1] (T, 4), the active mask and whether every track is active.  Rows
-    active on no track are None."""
+    active on no track are None.  meta (R, T)."""
     i0, i1, act = _unpack(meta, B)                           # (R, T)
     idx = torch.stack([i1.T + base, i0.T + base], dim=1)      # (T, 2, R)
     idx = idx.permute(2, 0, 1).reshape(meta.shape[0], 2 * T)
@@ -178,7 +342,7 @@ def _row_tables(meta, B, T, base, mi, C, D):
 @torch.inference_mode()
 def row_sweep_plain(mom0, massinv, rows: SweepRows, iterations: int,
                     iterations_post: int):
-    """Plain PyTorch version of the kernel (same operations, same order).
+    """Plain PyTorch version of the kernel (same operations, row order).
     Momenta live in a (T * (B + 1), 6) table whose slot B of each track is
     the world (always zero); a world row's impulse on it is zeroed."""
     T, B = mom0.shape[0], mom0.shape[1]
@@ -191,20 +355,22 @@ def row_sweep_plain(mom0, massinv, rows: SweepRows, iterations: int,
     base = (torch.arange(T, device=dev) * (B + 1))[:, None]
     zero = torch.zeros((), device=dev)
     lf, af = rows.lf, rows.af
-    n, J0, J1 = lf[:, 0:3], lf[:, 3:6], lf[:, 6:9]
-    K0, K1 = lf[:, 9:12], lf[:, 12:15]
-    tl = lambda *xs: torch.cat(xs, dim=1).permute(0, 2, 1)  # (R, T, 12)
-    lin = _row_tables(rows.lm, B, T, base, mi, tl(n, K1, n, K0),
+    lm, am = rows.lm.T, rows.am.T                            # (R, T)
+    n, J0, J1 = lf[..., 0:3], lf[..., 3:6], lf[..., 6:9]      # (T, R, 3)
+    K0, K1 = lf[..., 9:12], lf[..., 12:15]
+    tl = lambda *xs: torch.cat(xs, dim=-1).transpose(0, 1)  # (R, T, 12)
+    lin = _row_tables(lm, B, T, base, mi, tl(n, K1, n, K0),
                       tl(n, J1, -n, -J0))
-    z3 = torch.zeros_like(af[:, 0:3])
-    ax, aK0, aK1 = af[:, 0:3], af[:, 3:6], af[:, 6:9]
-    ang = _row_tables(rows.am, B, T, base, mi, tl(z3, aK1, z3, aK0),
+    z3 = torch.zeros_like(af[..., 0:3])
+    ax, aK0, aK1 = af[..., 0:3], af[..., 3:6], af[..., 6:9]
+    ang = _row_tables(am, B, T, base, mi, tl(z3, aK1, z3, aK0),
                       tl(z3, ax, z3, -ax))
-    lmpos = ((rows.lm[:, 0] >> 17) - 1).tolist() if T else []
-    lfr = [lf[r] for r in range(lf.shape[0])]
-    afr = [af[r] for r in range(af.shape[0])]
-    isum = [torch.zeros(T, device=dev) for _ in range(lf.shape[0])]
-    torq = [torch.zeros(T, device=dev) for _ in range(af.shape[0])]
+    lmpos = ((lm[:, 0] >> 17) - 1).tolist() if T else []
+    lft, aft = lf.permute(1, 2, 0), af.permute(1, 2, 0)      # (R, F, T)
+    lfr = [lft[r] for r in range(lft.shape[0])]
+    afr = [aft[r] for r in range(aft.shape[0])]
+    isum = [torch.zeros(T, device=dev) for _ in range(len(lfr))]
+    torq = [torch.zeros(T, device=dev) for _ in range(len(afr))]
     # an angular row whose target is -FLT_MAX takes no torque
     amask = [[None if a is None else a[4] & (afr[r][k] != -FLT_MAX)
               for r, a in enumerate(ang)] for k in (10, 11)]
@@ -256,39 +422,67 @@ def row_sweep_plain(mom0, massinv, rows: SweepRows, iterations: int,
     return out
 
 
+# ---------------------------------------------------------------------------
+# the sweeps: kernel wrapper
+# ---------------------------------------------------------------------------
+
 class _Args(ctypes.Structure):
     _fields_ = [("mom0", ctypes.c_void_p), ("massinv", ctypes.c_void_p),
-                ("lf", ctypes.c_void_p), ("lm", ctypes.c_void_p),
-                ("af", ctypes.c_void_p),
-                ("am", ctypes.c_void_p), ("isum", ctypes.c_void_p),
-                ("torq", ctypes.c_void_p), ("out", ctypes.c_void_p),
+                ("lf", ctypes.c_void_p), ("af", ctypes.c_void_p),
+                ("stream", ctypes.c_void_p), ("steps", ctypes.c_void_p),
+                ("out", ctypes.c_void_p),
+                ("cycles", ctypes.c_void_p),
                 ("T", ctypes.c_int), ("B", ctypes.c_int),
                 ("n_lin", ctypes.c_int), ("n_ang", ctypes.c_int),
                 ("iters", ctypes.c_int), ("iters_post", ctypes.c_int)]
 
 
+REC = 24                 # floats of a row's record in the kernel's stream
+
+
 @kernels.wrapper("row_sweep")
 def row_sweep(mom0, massinv, rows: SweepRows, iterations: int,
-              iterations_post: int):
-    """Kernel wrapper: see the module docstring for the layouts."""
+              iterations_post: int, cycles=None):
+    """Kernel wrapper: see the module docstring for the layouts.  cycles:
+    an optional (T, 4) int64 CUDA tensor that receives each track's
+    clock64 counts [prologue, sweeps, level steps a sweep, active rows]."""
     if mom0.device.type == "cpu":
         return row_sweep_plain(mom0, massinv, rows, iterations,
                                iterations_post)
     T, B = mom0.shape[0], mom0.shape[1]
+    Rl, Ra = rows.lf.shape[1], rows.af.shape[1]
     if B > MAX_B:
         raise ValueError(f"row sweep: at most {MAX_B} bodies, got {B}")
-    args = [x.contiguous() for x in (mom0, massinv, *rows)]
+    if Rl + Ra > MAX_ROWS:
+        raise ValueError(f"row sweep kernel: at most {MAX_ROWS} rows "
+                         f"(linear and angular), got {Rl + Ra}")
+    args = [x.contiguous() for x in (mom0, massinv)] + [
+        r if r.data_ptr() % 16 == 0 else r.clone()     # 16-byte rows
+        for r in (x.contiguous() for x in rows)]
     dev = kernels.require_cuda(*args)
-    mom0, massinv, lf, lm, af, am = args
-    isum = torch.zeros((lf.shape[0], T), device=dev)
-    torq = torch.zeros((af.shape[0], T), device=dev)
+    mom0, massinv, lf, af = args
+    stream = torch.empty((T, Rl + Ra, REC), device=dev)
+    steps = torch.empty((T, Rl + Ra, 2), dtype=torch.int32, device=dev)
     out = torch.empty((T, 2, B, 6), device=dev)
+    cyc = 0
+    if cycles is not None:
+        kernels.require_cuda(cycles)
+        if cycles.shape != (T, 4) or cycles.dtype != torch.int64:
+            raise ValueError("cycles: a (T, 4) int64 tensor")
+        cyc = cycles.data_ptr()
     a = _Args(mom0.data_ptr(), massinv.data_ptr(), lf.data_ptr(),
-              lm.data_ptr(), af.data_ptr(), am.data_ptr(),
-              isum.data_ptr(), torq.data_ptr(), out.data_ptr(), T, B,
-              lf.shape[0], af.shape[0], iterations, iterations_post)
+              af.data_ptr(), stream.data_ptr(), steps.data_ptr(),
+              out.data_ptr(), cyc, T, B,
+              Rl, Ra, iterations, iterations_post)
     err = kernels.library().hts_row_sweep(ctypes.byref(a),
                                           kernels.stream_ptr(dev))
     kernels.check(err, "row_sweep")
     row_sweep.launches += 1
     return out
+
+
+def occupancy(rows: SweepRows, B: int) -> int:
+    """Tracks (blocks) an SM holds at once for these rows (a measurement;
+    0 if the kernel cannot hold them)."""
+    a = _Args(B=B, n_lin=rows.lf.shape[1], n_ang=rows.af.shape[1])
+    return kernels.library().hts_row_sweep_occupancy(ctypes.byref(a))
