@@ -7,10 +7,11 @@ one NVIDIA GPU.  Run from the repository root:
 Phases, each printing one line with its elapsed seconds:
   1. build (or reuse) the CUDA kernel library: one nvcc call into build/;
      ptxas's registers, stack, spills and static shared memory of the row
-     sweep and PGS kernels
+     sweep, PGS and cloud-rows pack kernels
   2. the card's name and power limit, as nvidia-smi reports them
   3. each of the four kernels against its plain PyTorch version at T=4
-     tracks, one frame, full width (the cloud kernel bit-identical)
+     tracks, one frame, full width (the cloud kernel and kernel 2
+     bit-identical)
   4. the dynamics-only tracking slice at T=512 tracks for 30 frames: even
      tracks see the cached dyn30 renders and are held to golden.json's
      dyntrack poses; odd tracks see the port's own fake_depth renders of
@@ -63,10 +64,13 @@ Phases, each printing one line with its elapsed seconds:
      kernels launched every frame
  11. both reference solvers' frame time at T=512, their device-time split
      and the launch counts of the timed frames
- 12. kernel 2.5 (the 16-channel cloud-rows pack) against its plain version
-     at T=4 and at T=512, on the dynamics pass's cloud (N=2048, the mirror
-     split by the cutting plane) and on MultiStepSim's (N=512): every
-     channel equal and the counts equal
+ 12. kernels 2 and 2.5 (the 12- and 16-channel cloud-rows packs) against
+     their plain versions at T=4 and at T=512, on the dynamics pass's cloud
+     (N=2048, the mirror split by the cutting plane) and on MultiStepSim's
+     (N=512), kernel 2 with its dt, and at T=4 on two seeded synthetic
+     clouds (ops.cloud_rows.synthetic_cloud: N=2048 with a thinned body, a
+     quarter of the points inactive and inner-sphere winners; N=32): every
+     channel of every slot equal and the counts equal
  13. the voxel and mirror clouds at T=512 on the kernel solver: the far
      mirror plane (a no-op on these renders) for 30 frames on phase 4's
      renders, held to phase 4's gates (dyn30 golden, ODD_BAND_MM); the
@@ -81,9 +85,9 @@ Phases, each printing one line with its elapsed seconds:
      (< 1e-4 m); the voxel cloud the same bits on two runs, and its counts
      and mask equal to the CPU's; kernel 2.5 launched once a dynamics pass
      and five times a CNN frame, kernel 2 not at all
- 14. those frames' time at T=512, their device-time split, and kernel 2.5
-     timed at both N beside its plain version and its bound, held to the
-     plain version again at the timed shapes
+ 14. those frames' time at T=512, their device-time split, and kernels 2
+     and 2.5 timed at both N beside their plain versions and their bounds,
+     held to the plain versions again at the timed shapes
 
 Each phase drives its path with the launch counts set to 0 just before it
 and reads them just after.  The line before the last is the kernels' JSON
@@ -95,8 +99,8 @@ frame's (phase 13) for kernel 2.5); the last line is
 {"ok": true, "device": {...}}.  Exits non-zero, printing no result, when a
 phase fails, when there is no CUDA device, or when run outside the
 repository.  --json PATH writes every measured number to PATH.  The
-PGS kernel and the row sweep are held to their plain versions bit for bit
-(max_abs_err 0) at T=4 and T=512.
+PGS kernel, the row sweep and kernels 2 and 2.5 are held to their plain
+versions bit for bit (max_abs_err 0) at T=4 and T=512.
 """
 from __future__ import annotations
 
@@ -369,18 +373,8 @@ class Smoke:
             err = (k - p).abs().max().item()
             check(torch.equal(k, p), f"cloud kernel not bit-identical ({err})")
             return err, f"cloud {err:.3g} (bit-identical)"
-        if name == "cloud_rows_solve":
-            # same winners/slots and counts, channels < 1e-6 (relative to
-            # the channel's scale: K1 runs to ~1e3)
-            (kp, kc), (pp, pc) = k, p
-            check(torch.equal(kc, pc), "cloud rows: per-body counts differ")
-            check(torch.equal(kp[:, 9] != 0, pp[:, 9] != 0),
-                  "cloud rows: slot occupancy differs")
-            scale = pp.abs().amax(dim=(0, 2)).clamp(min=1.0)
-            rel = ((kp - pp).abs().amax(dim=(0, 2)) / scale).max().item()
-            err = (kp - pp).abs().max().item()
-            check(rel < 1e-6, f"cloud rows channels differ: {rel}")
-            return err, f"rows {err:.3g} ({int(pc.sum())} slots)"
+        if name == "cloud_rows_solve":       # bit-identical, as 2.5
+            return self.hold_pack(k, p, name)
         if name == "contact_fields":
             # active masks equal, values <= 2e-5 where active; the error
             # reported is over every row, inactive ones too
@@ -1463,12 +1457,14 @@ class Smoke:
                              solver=solver, use_pallas=use_pallas,
                              point_budget=2048, cloud_rows_per_body=128, **kw)
 
-    def pack_inputs(self, st, depth):
-        """Kernel 2.5's inputs for state st and depth (T, H, W): the
+    def pack_inputs(self, st, depth, dt=0.0):
+        """The pack kernels' inputs for state st and depth (T, H, W): the
         dynamics pass's (the frame's cloud split by the cutting plane,
         N=2048) and the first MultiStepSim cloud step's (the CNN frame's
         cloud, its stride-4 subsample compacted to N=512, the
-        segmentation's camera as the ray origin)."""
+        segmentation's camera as the ray origin).  dt: 0 as kernel 2.5's
+        callers pass it; kernel 2's callers pass params.deltaT (its tsm
+        channel is td / dt)."""
         torch = self.torch
         from hand_tracking_samples_tpu_torch.model.hand import (
             PHYSICS_WEAK_FORCE)
@@ -1482,31 +1478,82 @@ class Smoke:
         scale_b = torch.where(torch.arange(B, device=self.dev) <= 2,
                               PHYSICS_WEAK_FORCE, 1.0).float()
         dyn = (ph,) + _kernel_inputs_ph(pose, m, (0.0, 0.0, 0.0), scale_b,
-                                        0.0) + (C,)
+                                        dt) + (C,)
         seg, _, _, _, cph = rt._cnn_frame_inputs(self.cnn, depth, self.cam,
                                                  cfg, ph)
         mph, origin, scale = rt.multistep_cloud(cph, seg.cam.pose, cfg, B)
-        ms = (mph,) + _kernel_inputs_ph(pose, m, origin, scale, 0.0) + (C,)
+        ms = (mph.contiguous(),) + _kernel_inputs_ph(pose, m, origin, scale,
+                                                     dt) + (C,)
         return {2048: dyn, 512: ms}
 
-    def hold_pack(self, k, p):
-        """Kernel 2.5 equals its plain version: counts and every channel."""
+    def scan_issue_ms(self, args):
+        """The least time the pack kernels' exact winner scan takes on
+        this card: 5 float32 instructions a hull-plane evaluation (FMUL,
+        FFMA, FFMA, FADD, FMNMX; the bound's 7 operations fold into them),
+        every point against every body's planes, one warp instruction a
+        clock on each of the SMs' 4 schedulers at the card's largest SM
+        clock (nvidia-smi clocks.max.sm)."""
+        torch = self.torch
+        if not hasattr(self, "max_sm_hz"):
+            out = subprocess.run(
+                ["nvidia-smi", "--query-gpu=clocks.max.sm",
+                 "--format=csv,noheader,nounits"], capture_output=True,
+                text=True, timeout=60)
+            self.max_sm_hz = float(out.stdout.split()[0]) * 1e6
+        pts, planes = args[0], args[1]
+        T, _, N = pts.shape
+        evals = T * N * planes.shape[1] // 5 * planes.shape[2]
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        return evals * 5 / 32 / (4 * sms * self.max_sm_hz) * 1e3
+
+    def pack_pairs(self):
+        """{kernel name: (wrapper, plain version, dt)} of kernels 2, 2.5."""
+        from hand_tracking_samples_tpu_torch.ops.cloud_rows import (
+            cloud_rows_packed, cloud_rows_packed_plain, cloud_rows_solve,
+            cloud_rows_solve_plain)
+        return {"cloud_rows_solve": (cloud_rows_solve, cloud_rows_solve_plain,
+                                     self.params.deltaT),
+                "cloud_rows_packed": (cloud_rows_packed,
+                                      cloud_rows_packed_plain, 0.0)}
+
+    def synthetic_pack_inputs(self, dt):
+        """Seeded T=4 inputs (ops.cloud_rows.synthetic_cloud around
+        phase 3's poses): N=2048 with a crowded body that wins more than
+        128 active points (its slots thinned), a quarter of the points
+        inactive and points on body centres (inner-sphere winners); and
+        N=32, the smallest N the kernels take."""
+        torch = self.torch
+        from hand_tracking_samples_tpu_torch.model.hand import (
+            PHYSICS_WEAK_FORCE)
+        from hand_tracking_samples_tpu_torch.ops.cloud_rows import (
+            _kernel_inputs_ph, synthetic_cloud)
+        pose = self.init_state(4).body.pose
+        B = pose.shape[1]
+        scale_b = torch.where(torch.arange(B, device=self.dev) <= 2,
+                              PHYSICS_WEAK_FORCE, 1.0).float()
+        rest = _kernel_inputs_ph(pose, self.model, (0.01, -0.02, 0.3),
+                                 scale_b, dt) + (128,)
+        return {f"synthetic N={n}": (synthetic_cloud(pose, n, seed=n),)
+                + rest for n in (2048, 32)}
+
+    def hold_pack(self, k, p, name):
+        """Kernel 2 or 2.5 equals its plain version: the counts and every
+        channel of every slot, bit for bit."""
         torch = self.torch
         (kp, kc), (pp, pc) = k, p
-        check(torch.equal(kc, pc), "cloud_rows_packed: counts differ")
+        check(torch.equal(kc, pc), f"{name}: counts differ")
         err = (kp - pp).abs().max().item()
-        check(err == 0.0, f"cloud_rows_packed differs from its plain "
-              f"version: {err}")
-        slots = int((pp[:, 15] > 0.5).sum())
+        check(torch.equal(kp, pp), f"{name} differs from its plain version: "
+              f"{err}")
+        slots = int((pp[:, 0:3] != 0).any(1).sum())
         thinned = int((pc > pp.shape[2] // 24).sum())
         return err, (f"packed {err:.3g} ({slots} slots, {thinned} bodies "
                      f"thinned)")
 
     def compare_pack(self):
-        """Phase 12: kernel 2.5 against its plain version at T=4 and at
-        T=512 (one cutting-plane frame in), N=2048 and N=512."""
-        from hand_tracking_samples_tpu_torch.ops.cloud_rows import (
-            cloud_rows_packed, cloud_rows_packed_plain)
+        """Phase 12: kernels 2 and 2.5 against their plain versions, bit
+        for bit, at T=4 and at T=512 (one cutting-plane frame in), N=2048
+        and N=512, and on the seeded synthetic inputs at T=4."""
         lines = []
         self.pack_err = {}
         for T in (4, TRACKS):
@@ -1514,14 +1561,18 @@ class Smoke:
             if T == TRACKS:
                 st, _ = self.run(st, 1, T,
                                  cfg=self.cloud_cfg("mirror", plane=CUT_PLANE))
-            inp = self.pack_inputs(st, self.depth_frame(1, T))
-            for n, args in inp.items():
-                err, note = self.hold_pack(cloud_rows_packed(*args),
-                                           cloud_rows_packed_plain(*args))
-                self.pack_err[f"T{T}_N{n}"] = err
-                lines.append(f"T={T} N={n} {note}")
-        self.results["cloud_rows_packed"]["max_abs_err_t4"] = max(
-            self.pack_err["T4_N2048"], self.pack_err["T4_N512"])
+            for name, (kfn, pfn, dt) in self.pack_pairs().items():
+                inp = {f"N={n}": a for n, a in self.pack_inputs(
+                    st, self.depth_frame(1, T), dt).items()}
+                if T == 4:
+                    inp.update(self.synthetic_pack_inputs(dt))
+                for label, args in inp.items():
+                    err, note = self.hold_pack(kfn(*args), pfn(*args), name)
+                    self.pack_err[f"{name} T={T} {label}"] = err
+                    lines.append(f"{name} T={T} {label} {note}")
+        for name in self.pack_pairs():
+            self.results[name]["max_abs_err_pack"] = max(
+                v for k, v in self.pack_err.items() if k.startswith(name))
         return "; ".join(lines)
 
     def seq_odd_gap(self, je, label):
@@ -1770,12 +1821,10 @@ class Smoke:
 
     def cloud_timing(self):
         """Phase 14: the new frames' time at T=512 with their device split
-        and launch counts, and kernel 2.5 at both N (CUDA events) beside
-        its plain version and its bound."""
+        and launch counts, and kernels 2 and 2.5 at both N (CUDA events)
+        beside their plain versions and their bounds."""
         torch = self.torch
         from hand_tracking_samples_tpu_torch import kernels
-        from hand_tracking_samples_tpu_torch.ops.cloud_rows import (
-            cloud_rows_packed, cloud_rows_packed_plain)
         T = TRACKS
         self.cloud_speed = {}
         parts = []
@@ -1818,25 +1867,29 @@ class Smoke:
                          f"{T * F / dt:.1f} tracked frames/s, {busy}")
         st, _ = self.run(self.init_state(T), 1, T,
                          cfg=self.cloud_cfg("mirror", plane=CUT_PLANE))
-        inp = self.pack_inputs(st, self.depth_frame(1, T))
-        r = self.results["cloud_rows_packed"]
-        for n, args in inp.items():
-            ms, k = self.event_ms(cloud_rows_packed, args, warm=2, reps=10)
-            plain_ms, p = self.event_ms(cloud_rows_packed_plain, args,
-                                        warm=0, reps=1)
-            err, note = self.hold_pack(k, p)
-            nbytes, ops = self.work("cloud_rows_packed", args)
-            tb, to = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_S * 1e3
-            res = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       bound_ms=max(tb, to),
-                       bound_by="bytes" if tb >= to else "operations",
-                       library_ms=None, bytes=nbytes, operations=ops)
-            if n == 2048:                   # the dynamics pass's: the row
-                r.update(res)
-            r[f"n{n}"] = res
-            parts.append(f"cloud_rows_packed N={n} {ms:.4f} ms (plain "
-                         f"{plain_ms:.2f} ms, bound {max(tb, to):.4f} ms "
-                         f"by {res['bound_by']}; {note})")
+        for name, (kfn, pfn, dt) in self.pack_pairs().items():
+            r = self.results[name]
+            for n, args in self.pack_inputs(st, self.depth_frame(1, T),
+                                            dt).items():
+                ms, k = self.event_ms(kfn, args, warm=2, reps=10)
+                plain_ms, p = self.event_ms(pfn, args, warm=0, reps=1)
+                err, note = self.hold_pack(k, p, name)
+                nbytes, ops = self.work(name, args)
+                tb, to = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_S * 1e3
+                res = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                           bound_ms=max(tb, to),
+                           bound_by="bytes" if tb >= to else "operations",
+                           library_ms=None, bytes=nbytes, operations=ops,
+                           scan_issue_ms=self.scan_issue_ms(args))
+                # kernel 2.5's row: the far-mirror dynamics pass's N=2048
+                # (kernel 2's is phase 5's, on the plain cloud)
+                if n == 2048 and name == "cloud_rows_packed":
+                    r.update(res)
+                r[f"n{n}"] = res
+                parts.append(f"{name} N={n} {ms:.4f} ms (plain "
+                             f"{plain_ms:.2f} ms, bound {max(tb, to):.4f} ms"
+                             f" by {res['bound_by']}, winner scan's issue "
+                             f"{res['scan_issue_ms']:.4f} ms; {note})")
         return f"T={T}: " + "; ".join(parts)
 
 
@@ -1882,7 +1935,8 @@ def main(argv=None) -> int:
         record["build"] = {k: v for k, v in info.items() if k != "log"}
         ptx = {k: v for k, v in kernels.ptxas_summary(
             info.get("log", "")).items()
-            if "row_sweep_kernel" in k or "pgs_kernel" in k}
+            if "row_sweep_kernel" in k or "pgs_kernel" in k
+            or "cloud_rows_pack_kernel" in k}
         record["ptxas"] = ptx
         return (f"{'built' if info['built'] else 'reused'} "
                 f"{os.path.relpath(info['path'], REPO)} in "
@@ -1923,7 +1977,7 @@ def main(argv=None) -> int:
           s.compare_ref)
     phase(10, "sequential and colored frames", s.ref_slice)
     phase(11, "reference-solver timing", s.ref_timing)
-    phase(12, "kernel 2.5 vs plain (T=4, T=512)", s.compare_pack)
+    phase(12, "kernels 2 and 2.5 vs plain (T=4, T=512)", s.compare_pack)
     phase(13, "voxel and mirror frames", s.cloud_slice)
     phase(14, "voxel and mirror timing", s.cloud_timing)
     s.results["row_sweep[colored]"]["launches"] = \

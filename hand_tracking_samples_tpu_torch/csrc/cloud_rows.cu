@@ -1,12 +1,13 @@
 // Cloud correspondence, four variants of the Pallas kernel
 // hand_tracking_samples_tpu/ops/cloud_rows.py:34 (_make_kernel):
 //
-//   cloud_rows_pack_kernel<12>  solve_ch=True (launched by
+//   cloud_rows_pack_kernel<12, K>  solve_ch=True (launched by
 //                             _cloud_rows_call_b at :387): rows + solve prep
 //                             + slot pack (kernel 2)
-//   cloud_rows_pack_kernel<16>  pack=True, solve_ch=False (_cloud_rows_call
-//                             :357, _cloud_rows_call_b :387): the same pack
-//                             with the 16 parity channels (kernel 2.5)
+//   cloud_rows_pack_kernel<16, K>  pack=True, solve_ch=False
+//                             (_cloud_rows_call :357, _cloud_rows_call_b
+//                             :387): the same pack with the 16 parity
+//                             channels (kernel 2.5)
 //   cloud_rows_unpacked_kernel  pack=False (_cloud_rows_unpacked_call_b,
 //                             :430): per-point directed rows, UnibodyFit
 //   cloud_vals_kernel         vals_only=True (same call): winner body and
@@ -26,25 +27,47 @@
 //               point order), uniform thinning to C slots, force scale
 //               compensated by count/C
 //
-// Design: one block of 1024 threads per track, points p = k*1024 + tid
-// (N <= 2048, a multiple of 32: 2048 in the dynamics pass, 512 in
-// MultiStepSim).  The track's world planes (5P x B floats) and body
-// scalars sit in shared memory; every thread reads the same plane at the
-// same time (broadcast).
-// Ranks: __match_any_sync groups a warp's points by winner body; the group
-// leader writes the group size into a (segment, body) table in shared
-// memory (a segment is 32 consecutive points); one thread per body turns
-// the table into exclusive prefix counts.  No atomics, so the slot order is
-// the point order.  Each (body, slot) receives at most one point, so the
-// TPU kernel's scatter matmul (a 3-way bf16 split through a one-hot, exact
-// only because every output is a single term) is a direct store here.
-//
 // Bound on the H100: operations.  Per point 17 x 96 hull-plane
 // evaluations of 7 float32 operations, then ~23 operations on each of the
 // winner's 96 planes: about 14 kFLOP a point, 28 MFLOP a track at 2048
 // points; at 512 tracks ~15 GFLOP, 0.22 ms at 67 TFLOP/s (a quarter at
 // 512 points).  Bytes: 2048 x 8 x 4 in, CH x 24 x 128 x 4 out a track
 // (213 KB at 12 channels, 262 KB at 16), 0.03-0.04 ms at 512 tracks.
+// An exact kernel issues more than that count: a plane evaluation is 5
+// float32 instructions (FMUL, FFMA, FFMA, FADD, FMNMX), so the winner scan
+// alone needs ~0.3 ms of the card's float32 issue at 512 x 2048 points.
+//
+// The pack's design (one block per track, its planes in shared memory):
+//   staging   the track's world planes as one float4 (n.x, n.y, n.z, d)
+//             per (body, plane), bodies P + 1 records apart (a body's
+//             planes on other banks than the next body's), the slab
+//             clip's d-at-origin in an array of its own, the body scalars
+//   phase A   the winner scan, register-blocked: each thread holds K
+//             points (p = j * threads + tid, so each warp's 32 points of a
+//             j are one 32-point segment) and updates their K running
+//             maxima from one broadcast 16-byte load a plane; the block
+//             has N / K threads (at least a warp)
+//   ranks     __match_any_sync groups a segment's points by winner body;
+//             the group leader writes the group size into a (segment,
+//             body) table; one thread per body turns it into exclusive
+//             prefix counts.  No atomics: slot order = point order
+//   slot map  each kept point (active, kept by the thinning, rank < C)
+//             writes (point << 1 | hull won) into its body's slot; a body
+//             fills its first min(count, C) slots
+//   phase B   the threads walk the filled slots in order (balanced however
+//             the points split among the bodies; a warp's plane reads are
+//             broadcasts or a few on distinct banks), recompute the winner
+//             value (the hull's: the same fmax chain as the scan; the
+//             sphere's: |p - pos| - radius), the row and its prep, and
+//             write every channel of the slot; then zeros into the empty
+//             slots.  Each output float is written once, coalesced, and no
+//             row work is done for points the pack drops.
+//   Measured on an H100 at T=512: 0.41 ms at N=2048 (the winner scan's
+//   float32 issue ~0.3 ms of it), 0.15 ms at N=512.
+// Each (body, slot) receives at most one point, so the TPU kernel's
+// scatter matmul (a 3-way bf16 split through a one-hot, exact only because
+// every output is a single term) is a direct store here.
+//
 // The unpacked and vals variants: one thread a point, 256-point blocks
 // (grid tracks x point blocks), the track's planes staged in shared memory
 // by every block.  Vals: 17 x 96 plane evaluations a point and one value
@@ -55,14 +78,11 @@
 // world inertia behind K1 and dinv use the JAX CPU build's contracted
 // expressions (hts_fma/hts_dot3/hts_subp, common.cuh), so the rows equal
 // the JAX package's bit for bit on the CPU.
-// Left for later: the plane loop is latency-bound on shared-memory reads;
-// several points a thread with register-blocked planes would raise the
-// arithmetic rate.
+// Left for later (unpacked and vals): the plane loop is latency-bound on
+// shared-memory reads; the pack's register blocking would serve them too.
 #include "common.cuh"
 
-#define CR_THREADS 1024
 #define CR_MAXPB 8192
-#define CR_MAXSEG 64
 #define CR_BP 24
 #define CU_THREADS 256
 
@@ -178,10 +198,141 @@ __device__ __forceinline__ CrRow cr_row(const float* spl, const float* sb,
   return r;
 }
 
+// ---- the pack (kernels 2 and 2.5) -----------------------------------------
+// One block's shared memory (dynamic, crp_layout): the planes as float4
+// records pl4[b * SP + q] (SP = P + 1), the slab clip's d at the origin
+// d0[b * SP + q], the body scalars sb[r * CR_BP + b], the (segment, body)
+// table, the per-body counts (32 ints) and filled-slot offsets (32), and
+// the slot map slot[b * C + r].
+struct CrpLayout {
+  int SP, nseg;
+  size_t pl4, d0, sb, seg, cnt, slot, bytes;
+};
+
+__host__ __device__ __forceinline__ CrpLayout crp_layout(int N, int P, int B,
+                                                         int C) {
+  CrpLayout L;
+  L.SP = P + 1;
+  L.nseg = N >> 5;
+  size_t o = 0;
+  L.pl4 = o;
+  o += (size_t)B * L.SP * 16;
+  L.d0 = o;
+  o += (size_t)B * L.SP * 4;
+  L.sb = o;
+  o += 16 * CR_BP * 4;
+  L.seg = o;
+  o += (size_t)L.nseg * CR_BP * 4;
+  L.cnt = o;
+  o += 64 * 4;
+  L.slot = o;
+  o += (size_t)CR_BP * C * 2;
+  L.bytes = (o + 15) & ~(size_t)15;
+  return L;
+}
+
+// Phase B of one filled slot: point (px, py, pz) won by body b (its hull
+// if `hull`, else its sphere); the same operations in the same order as
+// cr_row(directed) and the solve prep, so the same bits.  v: CH channels.
+// The slab clip runs only where the ray meets the normal from the front
+// (use_ray needs it; otherwise its te, tx and miss are never read): for a
+// camera's own cloud that is a few points in a hundred.
+template <int CH>
+__device__ __forceinline__ void crp_slot(float* v, const float4* pb,
+                                         const float* db, const float* sb,
+                                         int b, int P, float px, float py,
+                                         float pz, bool hull, float ox,
+                                         float oy, float oz, float dt,
+                                         float wsc) {
+  const float dx = px - SB(0, b), dy = py - SB(1, b), dz = pz - SB(2, b);
+  const float dist = sqrtf(hts_dot3(dx, dy, dz, dx, dy, dz));
+  const float inv = 1.0f / fmaxf(dist, 1e-20f);
+  float wnx = dx * inv, wny = dy * inv, wnz = dz * inv;
+  // the winner value: the hull's most-above plane (the scan's fmax chain)
+  // or the sphere's |p - pos| - radius
+  float dmax = -INFINITY;
+#pragma unroll 4
+  for (int q = 0; q < P; ++q) {
+    const float4 w = pb[q];
+    dmax = fmaxf(dmax, hts_dot3(w.x, w.y, w.z, px, py, pz) + w.w);
+  }
+  const float best = hull ? dmax : dist - SB(3, b);
+  if (hull) {          // the blend of the maximal planes
+    float sx = 0.0f, sy = 0.0f, sz = 0.0f, cnt = 0.0f;
+#pragma unroll 4
+    for (int q = 0; q < P; ++q) {
+      const float4 w = pb[q];
+      const float dw = hts_dot3(w.x, w.y, w.z, px, py, pz) + w.w;
+      if (dw == dmax) { sx += w.x; sy += w.y; sz += w.z; cnt += 1.0f; }
+    }
+    cnt = fmaxf(cnt, 1.0f);
+    wnx = sx / cnt;
+    wny = sy / cnt;
+    wnz = sz / cnt;
+  }
+  const float rx = px - ox, ry = py - oy, rz = pz - oz;
+  const bool front = hts_dot3(rx, ry, rz, wnx, wny, wnz) > 0.0f;
+  bool use_ray = false;
+  float te = 0.0f;
+  if (front) {         // the slab clip of origin->p against the hull
+    bool miss = false;
+    float tx = 1.0f;
+#pragma unroll 4
+    for (int q = 0; q < P; ++q) {
+      const float4 w = pb[q];
+      const float dw = hts_dot3(w.x, w.y, w.z, px, py, pz) + w.w;
+      const float dw0 = db[q];
+      if (dw0 >= 0.0f && dw >= 0.0f) miss = true;
+      const float den = dw0 - dw;
+      const float tt = den != 0.0f ? dw0 / den : 0.0f;
+      te = fmaxf(te, (dw0 >= 0.0f && dw < 0.0f) ? tt : 0.0f);
+      tx = fminf(tx, (dw0 <= 0.0f && dw > 0.0f) ? tt : 1.0f);
+    }
+    use_ray = !miss && te <= tx;
+  }
+  const float rinv =
+      1.0f / fmaxf(sqrtf(hts_dot3(rx, ry, rz, rx, ry, rz)), 1e-20f);
+  const float w1x = use_ray ? hts_fma(rx, te, ox) : hts_fma(-wnx, best, px);
+  const float w1y = use_ray ? hts_fma(ry, te, oy) : hts_fma(-wny, best, py);
+  const float w1z = use_ray ? hts_fma(rz, te, oz) : hts_fma(-wnz, best, pz);
+  const float nxf = use_ray ? rx * rinv : wnx;
+  const float nyf = use_ray ? ry * rinv : wny;
+  const float nzf = use_ray ? rz * rinv : wnz;
+  const float td = hts_dot3(w1x - px, w1y - py, w1z - pz, nxf, nyf, nzf);
+  // the solve prep
+  const float r1x = w1x - SB(0, b), r1y = w1y - SB(1, b),
+              r1z = w1z - SB(2, b);
+  const float Jx = hts_subp(r1y, nzf, r1z, nyf);
+  const float Jy = hts_subp(r1z, nxf, r1x, nzf);
+  const float Jz = hts_subp(r1x, nyf, r1y, nxf);
+  const float Kx = hts_dot3(SB(6, b), SB(7, b), SB(8, b), Jx, Jy, Jz);
+  const float Ky = hts_dot3(SB(9, b), SB(10, b), SB(11, b), Jx, Jy, Jz);
+  const float Kz = hts_dot3(SB(12, b), SB(13, b), SB(14, b), Jx, Jy, Jz);
+  const float ccx = hts_subp(Ky, r1z, Kz, r1y);
+  const float ccy = hts_subp(Kz, r1x, Kx, r1z);
+  const float ccz = hts_subp(Kx, r1y, Ky, r1x);
+  const float den = SB(5, b) + hts_dot3(ccx, ccy, ccz, nxf, nyf, nzf);
+  v[0] = nxf; v[1] = nyf; v[2] = nzf;
+  v[3] = Jx; v[4] = Jy; v[5] = Jz;
+  v[6] = Kx; v[7] = Ky; v[8] = Kz;
+  v[9] = den != 0.0f ? 1.0f / den : 0.0f;      // a kept point is active
+  if constexpr (CH == 12) {
+    v[10] = td / dt;
+    v[11] = wsc;
+  } else {
+    v[10] = r1x; v[11] = r1y; v[12] = r1z;
+    v[13] = td;
+    v[14] = wsc;
+    v[15] = 1.0f;
+  }
+}
+
 // CH = 12: [n(3), J1(3), K1(3), dinv, tsm, scale] (kernel 2);
 // CH = 16: [n(3), J1(3), K1(3), dinv, r1(3), td, scale, active] (2.5).
-template <int CH>
-__global__ void __launch_bounds__(CR_THREADS)
+// K: points a thread in the winner scan; at most 2048 / K threads, and
+// K / 2 blocks an SM at 64 registers a thread.
+template <int CH, int K>
+__global__ void __launch_bounds__(2048 / K, K / 2)
 cloud_rows_pack_kernel(const float* __restrict__ pts,
                        const float* __restrict__ planes,
                        const float* __restrict__ body,
@@ -189,94 +340,123 @@ cloud_rows_pack_kernel(const float* __restrict__ pts,
                        float* __restrict__ packed,
                        float* __restrict__ counts, int N, int P, int B,
                        int C) {
-  constexpr int SC = CH == 12 ? 11 : 14;   // the force-scale channel
-  __shared__ float spl[CR_MAXPB];
-  __shared__ float sb[16 * CR_BP];
-  __shared__ int seg[CR_MAXSEG * CR_BP];
-  __shared__ int cnt_sh[CR_BP];
-  const int t = blockIdx.x;
-  const int tid = threadIdx.x, lane = tid & 31;
-  const int PB = 5 * P * B;
-  const int nseg = N >> 5;
+  extern __shared__ __align__(16) unsigned char crp_sh[];
+  const CrpLayout L = crp_layout(N, P, B, C);
+  float4* pl4 = (float4*)(crp_sh + L.pl4);
+  float* d0 = (float*)(crp_sh + L.d0);
+  float* sb = (float*)(crp_sh + L.sb);
+  int* seg = (int*)(crp_sh + L.seg);
+  int* cnt_sh = (int*)(crp_sh + L.cnt);
+  int* off = cnt_sh + 32;
+  short* slot = (short*)(crp_sh + L.slot);
+  const int SP = L.SP, nseg = L.nseg, S = CR_BP * C;
+  const int t = blockIdx.x, tid = threadIdx.x, lane = tid & 31;
+  const int nt = blockDim.x;
   const float* pt = pts + (size_t)t * 8 * N;
-  float* out = packed + (size_t)t * CH * CR_BP * C;
-  for (int i = tid; i < PB; i += CR_THREADS)
-    spl[i] = planes[(size_t)t * PB + i];
-  for (int i = tid; i < 16 * CR_BP; i += CR_THREADS)
-    sb[i] = body[(size_t)t * 16 * CR_BP + i];
-  for (int i = tid; i < nseg * CR_BP; i += CR_THREADS) seg[i] = 0;
-  for (int i = tid; i < CH * CR_BP * C; i += CR_THREADS) out[i] = 0.0f;
-  __syncthreads();
-  const float ox = misc[t * 8 + 0], oy = misc[t * 8 + 1];
-  const float oz = misc[t * 8 + 2], dt = misc[t * 8 + 3];
+  float* out = packed + (size_t)t * CH * S;
 
-  float vals[2][CH];
-  int key[2], lrank[2];
-  for (int k = 0; k < 2; ++k) {
-    const int p = k * CR_THREADS + tid;
-    key[k] = -1;
-    lrank[k] = 0;
-    if ((k * CR_THREADS + (tid & ~31)) >= N) continue;  // warp-uniform
-    const float px = pt[0 * N + p], py = pt[1 * N + p], pz = pt[2 * N + p];
-    const bool active = pt[4 * N + p] > 0.0f;
-    const CrRow r = cr_row(spl, sb, P, B, px, py, pz, ox, oy, oz, true);
-    const int wb = r.wb;
-    const float nxf = r.nx, nyf = r.ny, nzf = r.nz;
-    const float r1x = r.w1x - SB(0, wb), r1y = r.w1y - SB(1, wb),
-                r1z = r.w1z - SB(2, wb);
-    const float Jx = hts_subp(r1y, nzf, r1z, nyf);
-    const float Jy = hts_subp(r1z, nxf, r1x, nzf);
-    const float Jz = hts_subp(r1x, nyf, r1y, nxf);
-    const float Kx = hts_dot3(SB(6, wb), SB(7, wb), SB(8, wb), Jx, Jy, Jz);
-    const float Ky = hts_dot3(SB(9, wb), SB(10, wb), SB(11, wb), Jx, Jy, Jz);
-    const float Kz = hts_dot3(SB(12, wb), SB(13, wb), SB(14, wb), Jx, Jy, Jz);
-    const float ccx = hts_subp(Ky, r1z, Kz, r1y);
-    const float ccy = hts_subp(Kz, r1x, Kx, r1z);
-    const float ccz = hts_subp(Kx, r1y, Ky, r1x);
-    const float den = SB(5, wb) + hts_dot3(ccx, ccy, ccz, nxf, nyf, nzf);
-    const float dinv = (active && den != 0.0f) ? 1.0f / den : 0.0f;
-    float* v = vals[k];
-    v[0] = nxf; v[1] = nyf; v[2] = nzf;
-    v[3] = Jx; v[4] = Jy; v[5] = Jz;
-    v[6] = Kx; v[7] = Ky; v[8] = Kz;
-    v[9] = dinv;
-    if constexpr (CH == 12) {
-      v[10] = r.td / dt;
-    } else {
-      v[10] = r1x; v[11] = r1y; v[12] = r1z;
-      v[13] = r.td;
-      v[15] = active ? 1.0f : 0.0f;
+  // staging: planes_t (5P, B) transposed into the records
+  {
+    const float* src = planes + (size_t)t * 5 * P * B;
+    float* rec = (float*)pl4;
+    const int PB = P * B;
+    for (int i = tid; i < 5 * PB; i += nt) {
+      const int k = i / PB, r = i - k * PB;
+      const int q = r / B, b = r - q * B;
+      if (k < 4)
+        rec[(b * SP + q) * 4 + k] = src[i];
+      else
+        d0[b * SP + q] = src[i];
     }
-    v[SC] = 0.0f;
-    key[k] = active ? wb : -1;
   }
-  // ranks: group each warp's points by winner body
-  for (int k = 0; k < 2; ++k) {
-    if ((k * CR_THREADS + (tid & ~31)) >= N) continue;  // warp-uniform
-    const unsigned m = __match_any_sync(0xffffffffu, key[k]);
-    lrank[k] = __popc(m & ((1u << lane) - 1u));
-    if (key[k] >= 0 && lane == __ffs(m) - 1)
-      seg[((k * CR_THREADS + tid) >> 5) * CR_BP + key[k]] = __popc(m);
+  for (int i = tid; i < 16 * CR_BP; i += nt)
+    sb[i] = body[(size_t)t * 16 * CR_BP + i];
+  for (int i = tid; i < nseg * CR_BP; i += nt) seg[i] = 0;
+  for (int i = tid; i < S; i += nt) slot[i] = -1;
+  __syncthreads();
+
+  // phase A: the winner scan of K points a thread
+  float px[K], py[K], pz[K], best[K];
+  int widx[K];
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    const int p = j * nt + tid;
+    const bool in = p < N;
+    px[j] = in ? pt[p] : 0.0f;
+    py[j] = in ? pt[N + p] : 0.0f;
+    pz[j] = in ? pt[2 * N + p] : 0.0f;
+    best[j] = 0.0f;
+    widx[j] = 0;
+  }
+  for (int b = 0; b < B; ++b) {
+    const float cx = SB(0, b), cy = SB(1, b), cz = SB(2, b), rad = SB(3, b);
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const float dx = px[j] - cx, dy = py[j] - cy, dz = pz[j] - cz;
+      const float sv = sqrtf(hts_dot3(dx, dy, dz, dx, dy, dz)) - rad;
+      if (b == 0 || sv < best[j]) { best[j] = sv; widx[j] = b; }
+    }
+  }
+  for (int b = 0; b < B; ++b) {
+    const float4* pb = pl4 + b * SP;
+    float hv[K];
+#pragma unroll
+    for (int j = 0; j < K; ++j) hv[j] = -INFINITY;
+#pragma unroll 8
+    for (int q = 0; q < P; ++q) {
+      const float4 w = pb[q];
+#pragma unroll
+      for (int j = 0; j < K; ++j)
+        hv[j] = fmaxf(hv[j],
+                      hts_dot3(w.x, w.y, w.z, px[j], py[j], pz[j]) + w.w);
+    }
+#pragma unroll
+    for (int j = 0; j < K; ++j)
+      if (hv[j] < best[j]) { best[j] = hv[j]; widx[j] = B + b; }
+  }
+
+  // ranks: group each segment's active points by winner body
+  int key[K], lrank[K];
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    const int p = j * nt + tid;
+    key[j] = -1;
+    lrank[j] = 0;
+    if (j * nt + (tid & ~31) >= N) continue;          // warp-uniform
+    if (pt[4 * N + p] > 0.0f) key[j] = widx[j] >= B ? widx[j] - B : widx[j];
+    const unsigned m = __match_any_sync(0xffffffffu, key[j]);
+    lrank[j] = __popc(m & ((1u << lane) - 1u));
+    if (key[j] >= 0 && lane == __ffs(m) - 1)
+      seg[(p >> 5) * CR_BP + key[j]] = __popc(m);
   }
   __syncthreads();
-  if (tid < CR_BP) {
+  if (tid < 32) {
     int run = 0;
-    for (int s = 0; s < nseg; ++s) {
-      const int c = seg[s * CR_BP + tid];
-      seg[s * CR_BP + tid] = run;
-      run += c;
+    if (tid < CR_BP) {
+      for (int s = 0; s < nseg; ++s) {
+        const int c = seg[s * CR_BP + tid];
+        seg[s * CR_BP + tid] = run;
+        run += c;
+      }
+      cnt_sh[tid] = run;
+      counts[(size_t)t * CR_BP + tid] = (float)run;
     }
-    cnt_sh[tid] = run;
-    counts[(size_t)t * CR_BP + tid] = (float)run;
+    // body b fills its first min(count, C) slots (the thinning's floors
+    // step by C / count < 1 and so meet every slot): their offsets
+    const int inc = hts_warp_incl_scan(run < C ? run : C);
+    if (tid < CR_BP) off[tid + 1] = inc;
+    if (tid == 0) off[0] = 0;
   }
   __syncthreads();
+
+  // the slot map: each kept point into its body's slot
   const float Cf = (float)C;
-  const float invC = (float)(1.0 / (double)C);
-  for (int k = 0; k < 2; ++k) {
-    const int b = key[k];
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    const int b = key[j];
     if (b < 0) continue;
-    const int p = k * CR_THREADS + tid;
-    const float rankf = (float)(seg[(p >> 5) * CR_BP + b] + lrank[k]);
+    const int p = j * nt + tid;
+    const float rankf = (float)(seg[(p >> 5) * CR_BP + b] + lrank[j]);
     const float cntf = (float)cnt_sh[b];
     const bool thin = cntf > Cf;
     const float safe = fmaxf(cntf, 1.0f);
@@ -284,14 +464,43 @@ cloud_rows_pack_kernel(const float* __restrict__ pts,
     const float prev = floorf((rankf - 1.0f) * Cf / safe);
     const bool keep = !thin || rankf == 0.0f || nr > prev;
     if (!keep || nr >= Cf) continue;
-    const float comp = thin ? cntf * invC : 1.0f;
-    vals[k][SC] = SB(4, b) * comp;
-    const int col = b * C + (int)nr;
+    slot[b * C + (int)nr] = (short)((p << 1) | (widx[j] >= B ? 1 : 0));
+  }
+  __syncthreads();
+
+  // phase B: the filled slots' channels, the threads over them in order
+  // (a warp's 32 slots one body's or a few adjacent bodies', whose records
+  // lie on other banks), then zeros into the empty slots: each output
+  // float written once
+  const float ox = misc[t * 8 + 0], oy = misc[t * 8 + 1];
+  const float oz = misc[t * 8 + 2], dt = misc[t * 8 + 3];
+  const float invC = (float)(1.0 / (double)C);
+  for (int i = tid; i < off[CR_BP]; i += nt) {
+    int b = 0;
+    while (off[b + 1] <= i) ++b;
+    const int s = b * C + (i - off[b]);
+    const int e = slot[s];
+    float v[CH];
 #pragma unroll
-    for (int ch = 0; ch < CH; ++ch) out[ch * CR_BP * C + col] = vals[k][ch];
+    for (int ch = 0; ch < CH; ++ch) v[ch] = 0.0f;
+    if (e >= 0) {
+      const int p = e >> 1;
+      const float cntf = (float)cnt_sh[b];
+      const float comp = cntf > Cf ? cntf * invC : 1.0f;
+      crp_slot<CH>(v, pl4 + b * SP, d0 + b * SP, sb, b, P, pt[p],
+                   pt[N + p], pt[2 * N + p], (e & 1) != 0, ox, oy, oz, dt,
+                   SB(4, b) * comp);
+    }
+#pragma unroll
+    for (int ch = 0; ch < CH; ++ch) out[ch * S + s] = v[ch];
+  }
+  for (int s = tid; s < S; s += nt) {
+    const int b = s / C;
+    if (s - b * C < off[b + 1] - off[b]) continue;
+#pragma unroll
+    for (int ch = 0; ch < CH; ++ch) out[ch * S + s] = 0.0f;
   }
 }
-
 
 // Per-point rows without a pack (pack=False, directed) or the winner alone
 // (vals_only).  One thread a point, grid (tracks, point blocks).
@@ -342,26 +551,39 @@ cloud_rows_unpacked_kernel(const float* __restrict__ pts,
 }
 #undef PL
 #undef SB
+
+// K = 4 points a thread: 512 threads at the dynamics pass's N = 2048 (2
+// blocks an SM, 64 registers, no spill), 128 at MultiStepSim's N = 512.
+// On an H100 K = 8 (256 and 64 threads) was 16% slower at N = 2048 and 33%
+// at N = 512, K = 2 (1024, 256) 21% slower at N = 2048 and even at 512.
 template <int CH>
 static int cloud_rows_pack_launch(const void* pts, const void* planes,
                                   const void* body, const void* misc,
                                   void* packed, void* counts, int T, int N,
                                   int P, int B, int C, int bp,
                                   void* stream) {
-  if (N % 32 != 0 || N > CR_THREADS * 2 || 5 * P * B > CR_MAXPB ||
-      bp != CR_BP || B > CR_BP)
+  constexpr int K = 4;
+  const CrpLayout L = crp_layout(N, P, B, C);
+  if (N % 32 != 0 || N > 2048 || 5 * P * B > CR_MAXPB || bp != CR_BP ||
+      B > CR_BP || C <= 0 || L.bytes > 227 * 1024)
     return (int)cudaErrorInvalidValue;
-  if (T > 0) {
-    cloud_rows_pack_kernel<CH><<<T, CR_THREADS, 0, (cudaStream_t)stream>>>(
-        (const float*)pts, (const float*)planes, (const float*)body,
-        (const float*)misc, (float*)packed, (float*)counts, N, P, B, C);
+  if (T <= 0) return (int)cudaGetLastError();
+  if (L.bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        cloud_rows_pack_kernel<CH, K>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.bytes);
+    if (e != cudaSuccess) return (int)e;
   }
+  const int nt = N / K > 32 ? (N / K + 31) / 32 * 32 : 32;
+  cloud_rows_pack_kernel<CH, K><<<T, nt, L.bytes, (cudaStream_t)stream>>>(
+      (const float*)pts, (const float*)planes, (const float*)body,
+      (const float*)misc, (float*)packed, (float*)counts, N, P, B, C);
   return (int)cudaGetLastError();
 }
 
 // pts (T, 8, N); planes (T, 5P, B); body (T, 16, 24); misc (T, 8)
 // [origin, dt]; packed (T, 12, 24*C); counts (T, 24).  Requires N % 32 == 0,
-// N <= 2048, 5*P*B <= 8192, bp == 24.
+// N <= 2048, 5*P*B <= 8192, bp == 24, C > 0.
 HTS_EXPORT int hts_cloud_rows_solve(const void* pts, const void* planes,
                                     const void* body, const void* misc,
                                     void* packed, void* counts, int T, int N,

@@ -33,9 +33,16 @@ per-body active counts (T, BP).  `cloud_rows_packed` is kernel 2.5's
 The plane values, the world planes and inertia and the row and prep
 expressions are the JAX CPU build's contracted ones (maths/fma.py), so the
 output equals the JAX package's bit for bit on the CPU.
+
+Off the main path: `pack_slot_map` states in PyTorch how the pack kernels
+fill their slots from their winner scan (the table their row pass walks),
+and `synthetic_cloud` makes the seeded clouds with a thinned body,
+inactive points and inner-sphere winners that the tests and
+chip_smoke.py hold the pack kernels to.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import kernels
@@ -253,6 +260,68 @@ def point_rows_plain(pts_h, planes_t, body_sc, misc, slots: int,
     col = torch.where(ok, wb * C + nr.to(torch.int64),
                       torch.full_like(wb, -1))
     return vals, col, counts
+
+
+def pack_slot_map(wb, hull, active, slots: int):
+    """The pack kernels' slot map in plain PyTorch, built as the kernel
+    builds it from its winner scan: wb (T, N) winner body, hull (T, N)
+    bool (the hull won), active (T, N) bool; N a multiple of 32.  Each
+    32-point segment's active points are counted per body, the counts
+    summed over the earlier segments (exclusive prefix), and a point's rank
+    is its segment's prefix plus its rank among the segment's points of its
+    body; the thinning keeps a point as point_rows_plain does.  Returns the
+    slot map (T, BP*slots) int64 (point << 1 | hull in a filled slot, -1 in
+    an empty one) and the per-body counts (T, BP) int32."""
+    T, N = wb.shape
+    C = slots
+    dev = wb.device
+    key = torch.where(active, wb, torch.full_like(wb, -1))
+    oh = (key[:, :, None] == torch.arange(BP, device=dev)).to(torch.int32)
+    seg = oh.reshape(T, N // 32, 32, BP)
+    seg_n = seg.sum(2)                                        # (T, S, BP)
+    prefix = torch.cumsum(seg_n, 1) - seg_n
+    lrank = torch.cumsum(seg, 2) - seg                        # in-segment
+    counts = seg_n.sum(1)                                     # (T, BP)
+    rank_all = (prefix[:, :, None] + lrank).reshape(T, N, BP)
+    wbc = wb.clamp(min=0)
+    rankf = torch.gather(rank_all, 2, wbc[..., None])[..., 0].to(
+        torch.float32)
+    cntf = torch.gather(counts, 1, wbc).to(torch.float32)
+    thin = cntf > C
+    safe = torch.clamp(cntf, min=1.0)
+    nr = torch.where(thin, torch.floor(rankf * C / safe), rankf)
+    prev = torch.floor((rankf - 1.0) * C / safe)
+    keep = (~thin) | (rankf == 0) | (nr > prev)
+    ok = active & keep & (nr < C)
+    tt, nn = torch.nonzero(ok, as_tuple=True)
+    smap = torch.full((T, BP * C), -1, dtype=torch.int64, device=dev)
+    smap[tt, wb[tt, nn] * C + nr[tt, nn].to(torch.int64)] = (
+        nn * 2 + hull[tt, nn].to(torch.int64))
+    return smap, counts
+
+
+def synthetic_cloud(pose, n: int, seed: int, crowd: float = 0.5,
+                    inactive: float = 0.25):
+    """Seeded points for the pack kernels' checks, as the planes carrier
+    (T, 8, n) on pose's device: around the hands of pose (T, B, 7), a
+    `crowd` share within ~5 mm of body 0's centre (so that body wins more
+    than 128 active points and its slots are thinned), the rest within
+    ~3 cm of a random body's centre, and one point in 16 on a body's
+    centre, where the body's inner sphere ties with or beats its hull and
+    wins; an `inactive` share masked off."""
+    rng = np.random.default_rng(seed)
+    T, B = pose.shape[0], pose.shape[1]
+    centres = pose[..., :3].detach().cpu().numpy()
+    body = rng.integers(0, B, (T, n))
+    crowded = rng.random((T, n)) < crowd
+    body[crowded] = 0
+    spread = np.where(crowded, 0.005, 0.03)
+    spread = np.where(rng.random((T, n)) < 1 / 16, 0.0, spread)[..., None]
+    pts = (centres[np.arange(T)[:, None], body]
+           + rng.standard_normal((T, n, 3)) * spread).astype(np.float32)
+    mask = rng.random((T, n)) >= inactive
+    return points_planes(torch.tensor(pts, device=pose.device),
+                         torch.tensor(mask, device=pose.device))
 
 
 def _pack_plain(pts_h, planes_t, body_sc, misc, slots: int, parity: bool):
