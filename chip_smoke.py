@@ -6,12 +6,18 @@ one NVIDIA GPU.  Run from the repository root:
 
 Phases, each printing one line with its elapsed seconds:
   1. build (or reuse) the CUDA kernel library: one nvcc call into build/;
-     ptxas's registers, stack, spills and static shared memory of the row
-     sweep, PGS and cloud-rows pack kernels
+     ptxas's registers, stack, spills and static shared memory of the
+     redesigned kernels (the row sweep, PGS, cloud-rows pack, contact and
+     correspondence kernels); the contact and correspondence kernels must
+     use no stack and spill nothing
   2. the card's name and power limit, as nvidia-smi reports them
   3. each of the four kernels against its plain PyTorch version at T=4
-     tracks, one frame, full width (the cloud kernel and kernel 2
-     bit-identical)
+     tracks, one frame, full width (the cloud kernel, kernel 2 and the
+     contact kernel bit-identical); the contact kernel bit for bit again
+     at bank poses with contacts and on seeded synthetic tracks
+     (physics.contact_kernel.synthetic_contact_inputs: every collide pair
+     near, and hulls with duplicated planes and vertices, so every
+     reduction meets exact ties)
   4. the dynamics-only tracking slice at T=512 tracks for 30 frames: even
      tracks see the cached dyn30 renders and are held to golden.json's
      dyntrack poses; odd tracks see the port's own fake_depth renders of
@@ -23,8 +29,9 @@ Phases, each printing one line with its elapsed seconds:
      last frame's shapes beside its plain version's time and its bound; the
      timed kernel and plain outputs are held to each other under phase 3's
      tolerances, so every kernel is also checked at the main path's shapes;
-     one more PGS launch reads its clock64 counters (cycles a step) and the
-     tracks an SM holds
+     the contact kernel's near pairs and its design's issue floor; one more
+     PGS launch reads its clock64 counters (cycles a step) and the tracks
+     an SM holds
   6. the CNN frame's kernels against their plain versions at T=4: the
      unpacked-rows and vals variants of the cloud-rows kernel, and the PGS
      kernel on a multistep plan and on the unibody plan; and the card forms
@@ -43,12 +50,16 @@ Phases, each printing one line with its elapsed seconds:
      again under phase 6's tolerances (the PGS plans' cycles as in phase 5)
   9. the reference solvers' kernels against their plain versions, bit for
      bit, at T=4 and at T=512 (the T=512 ones timed): the correspondence
-     kernel and the row sweep on a sequential and on a colored solve's
-     rows, with the T=512 rows' wavefront (wave_schedule: level steps a
-     sweep, mean and largest), the design's streamed floor and the
-     kernel's clock64 cycles a level step; the reference-layout contact
-     rows at T=512 on poses with active contacts (the golden's contact pose
-     and animbank poses); and the row sweep bit for bit on rows with active
+     kernel (also at T=4 on seeded inputs whose clip quotients tie and lie
+     within an ulp, ops.correspondence.synthetic_clip_inputs; at T=512 with
+     its clip candidates, divisions and issue floor) and the row sweep on a
+     sequential and on a colored solve's rows, with the T=512 rows'
+     wavefront (wave_schedule: level steps a sweep, mean and largest), the
+     design's streamed floor and the kernel's clock64 cycles a level step;
+     the contact kernel bit for bit and timed at T=512 on poses with active
+     contacts (the golden's contact pose and animbank poses), with its
+     near pairs and issue floor, and the reference-layout contact rows
+     there; and the row sweep bit for bit on rows with active
      friction rows: a sequential and a colored frame's rows at those poses
      (T=512) and seeded synthetic rows with masters after their readers and
      inactive masters (T=4)
@@ -98,9 +109,9 @@ for the correspondence kernel and the row sweep, the colored frame's
 frame's (phase 13) for kernel 2.5); the last line is
 {"ok": true, "device": {...}}.  Exits non-zero, printing no result, when a
 phase fails, when there is no CUDA device, or when run outside the
-repository.  --json PATH writes every measured number to PATH.  The
-PGS kernel, the row sweep and kernels 2 and 2.5 are held to their plain
-versions bit for bit (max_abs_err 0) at T=4 and T=512.
+repository.  --json PATH writes every measured number to PATH.  Every
+kernel but the unpacked-rows and vals variants of the cloud-rows kernel is
+held to its plain version bit for bit (max_abs_err 0) at T=4 and T=512.
 """
 from __future__ import annotations
 
@@ -155,6 +166,10 @@ KERNELS = {   # name: (source, the TPU kernel it replaces)
     "cloud_rows_packed": (f"{PORT}/csrc/cloud_rows.cu",
                           f"{JAXPKG}/ops/cloud_rows.py:34"),
 }
+# the kernels redesigned for the card, whose ptxas report phase 1 prints
+# (the last two must use no stack and spill nothing)
+REDESIGNED = ("row_sweep_kernel", "pgs_kernel", "cloud_rows_pack_kernel",
+              "contact_fields_kernel", "correspondence_kernel")
 FIRST = ("cloud_from_depth", "cloud_rows_solve", "contact_fields",
          "pgs_solve")            # the dynamics path's kernels (phases 3-5)
 # the PGS kernel's plans that the CNN frame adds: row name -> plan kind
@@ -215,6 +230,17 @@ def quat_err(a, b):
     import torch
     sign = torch.sign((a * b).sum(-1, keepdim=True))
     return (a - b * sign).abs().max().item()
+
+
+def near_pairs(args):
+    """Kernel 3's cull on its inputs (vw, nw, dw, aux, pairs, ...): (T, NP)
+    bool, the pairs whose bounding spheres meet, by the kernel's
+    expression."""
+    aux, pairs = args[3], args[4]
+    a, b = pairs[:, 0], pairs[:, 1]
+    dc = [aux[:, a, 6 + c] - aux[:, b, 6 + c] for c in range(3)]
+    rs = aux[:, a, 9] + aux[:, b, 9]
+    return dc[0] * dc[0] + dc[1] * dc[1] + dc[2] * dc[2] <= rs * rs
 
 
 class Smoke:
@@ -376,16 +402,11 @@ class Smoke:
         if name == "cloud_rows_solve":       # bit-identical, as 2.5
             return self.hold_pack(k, p, name)
         if name == "contact_fields":
-            # active masks equal, values <= 2e-5 where active; the error
-            # reported is over every row, inactive ones too
-            ka, pa = k[:, :, 8] > 0.5, p[:, :, 8] > 0.5
-            check(torch.equal(ka, pa), "contacts: active masks differ")
-            act = pa[:, :, None, :].expand_as(p)
-            aerr = (k - p).abs()[act].max().item() if act.any() else 0.0
-            check(aerr <= 2e-5, f"contacts differ: {aerr}")
+            # bit for bit, every row: skip rows and inactive rows too
             err = (k - p).abs().max().item()
-            return err, (f"contacts {err:.3g} ({int(pa.sum())} active "
-                         f"rows)")
+            check(torch.equal(k, p), f"contacts not bit-identical ({err})")
+            return err, (f"contacts {err:.3g} (bit-identical; "
+                         f"{int((p[:, :, 8] > 0.5).sum())} active rows)")
         if name == "cloud_vals":
             # equal winners, values < 1e-6 (the same fused multiply-adds
             # on both sides: bit-identical expected)
@@ -469,7 +490,27 @@ class Smoke:
               "contacts: no active row to compare")
         err, note = self.hold("contact_fields", k2, p2)
         self.results["contact_fields"]["max_abs_err_bank_poses"] = err
-        return f"at bank poses: {note}"
+        return f"at bank poses: {note}; " + self.contacts_synthetic(inp, fns)
+
+    def contacts_synthetic(self, inp, fns):
+        """Kernel 3 bit for bit on seeded synthetic tracks at T=4
+        (physics.contact_kernel.synthetic_contact_inputs): tracks 0-1 with
+        every collide pair near, odd tracks with each hull's second half of
+        planes and vertices copied from its first (exact ties in every
+        reduction)."""
+        torch = self.torch
+        from hand_tracking_samples_tpu_torch.physics.contact_kernel import (
+            synthetic_contact_inputs)
+        cin = synthetic_contact_inputs(
+            torch.tensor(self.bank[[0, 30, 60, 90]], device=self.dev),
+            self.model, seed=3) + inp["contact_fields"][4:]
+        near = near_pairs(cin)
+        check(bool(near[:2].all()), "synthetic contacts: a pair not near")
+        err, note = self.hold("contact_fields", fns["contact_fields"][0](*cin),
+                              fns["contact_fields"][1](*cin))
+        self.results["contact_fields"]["max_abs_err_synthetic"] = err
+        return (f"synthetic ({int(near.sum())} near pairs of "
+                f"{near.numel()}): {note}")
 
     # ---- phase 4 ------------------------------------------------------------
     def slice_run(self):
@@ -608,6 +649,8 @@ class Smoke:
                 library_ms=None, bytes=nbytes, operations=ops)
             if name == "pgs_solve":
                 note += "; " + self.cycles(name, args)
+            if name == "contact_fields":
+                note += "; " + self.contact_floor(args, self.results[name])
             parts.append(f"{name} {ms:.4f} ms (plain {plain_ms:.2f}; "
                          f"{note})")
         return (f"T={T}: {fps:.1f} tracked frames/s{busy}; "
@@ -733,10 +776,7 @@ class Smoke:
             vw, nw, dw, aux, pairs, npt = args[:6]
             T, _, B, V = vw.shape
             P = nw.shape[-1]
-            a, b = pairs[:, 0], pairs[:, 1]
-            dc = aux[:, a, 6:9] - aux[:, b, 6:9]
-            rs = aux[:, a, 9] + aux[:, b, 9]
-            near = int(((dc * dc).sum(-1) <= rs * rs).sum())
+            near = int(near_pairs(args).sum())
             NP = pairs.shape[0]
             nin = sum(x.numel() * 4 for x in (vw, nw, dw, aux))
             # two face scans (3 mul, 2 add, 1 min a vert-plane pair),
@@ -1125,7 +1165,9 @@ class Smoke:
             pts_h, planes, d0 = args
             T, B, P = d0.shape
             N = pts_h.shape[2]
-            # slab divisions: where an origin-side plane is crossed
+            # clip candidates: where a plane the origin lies on the outer
+            # (inner) side of has the point inside (outside); the function
+            # takes a subtract and a division for each
             ndiv = 0
             for i in range(0, T, 16):
                 pl, dd, ph = planes[i:i + 16], d0[i:i + 16], pts_h[i:i + 16]
@@ -1135,6 +1177,7 @@ class Smoke:
                 ndiv += int((((a >= 0) & (d1 < 0)) | ((a <= 0) & (d1 > 0)))
                             .sum())
             nbytes = T * N * 3 * 4 + T * B * P * 5 * 4 + 5 * T * B * N * 4
+            self.results[name]["clip_candidates"] = ndiv
             return nbytes, T * B * P * N * 12 + ndiv * 2
         mom0, mi, rows, it, ip = args
         T = mom0.shape[0]
@@ -1172,6 +1215,8 @@ class Smoke:
                     err, note = self.hold_ref(name, kfn(*args), pfn(*args))
                     self.results[name]["max_abs_err_t4"] = err
                     lines.append(f"T=4 {note}")
+                    if name == "correspondence":
+                        lines.append(self.clip_synthetic(kfn, pfn))
                     continue
                 ms, k = self.event_ms(kfn, args, warm=2, reps=5)
                 plain_ms, p = self.event_ms(pfn, args, warm=0, reps=1)
@@ -1192,14 +1237,35 @@ class Smoke:
                         lambda a, b: torch.matmul(
                             a.reshape(T, -1, 8), b), (planes, pts_h),
                         warm=2, reps=5)
-                    self.results[name]["dots_only_matmul_ms"] = dots_ms
-                    note += f"; dots-only matmul {dots_ms:.4f} ms"
+                    r = self.results[name]
+                    Bp = planes.shape[1] * planes.shape[2]
+                    r.update(dots_only_matmul_ms=dots_ms,
+                             divisions=2 * T * planes.shape[1]
+                             * pts_h.shape[2],
+                             issue_floor_ms=self.issue_ms(
+                                 T * Bp * pts_h.shape[2] * 7 / 32))
+                    note += (f"; dots-only matmul {dots_ms:.4f} ms; issue "
+                             f"floor {r['issue_floor_ms']:.4f} ms; "
+                             f"{r['clip_candidates']} clip candidates, "
+                             f"{r['divisions']} divisions")
                 lines.append(f"T={T} {name} {ms:.4f} ms (plain "
                              f"{plain_ms:.1f} ms, bound {max(tb, to):.4f} "
                              f"ms; {note})")
         lines.append(self.contacts_active_t512())
         lines.append(self.sweep_friction_rows())
         return "; ".join(lines)
+
+    def clip_synthetic(self, kfn, pfn):
+        """Kernel 8 bit for bit on seeded inputs whose clip quotients tie
+        and lie within an ulp of each other (ops.correspondence.
+        synthetic_clip_inputs, T=4, N=2048)."""
+        from hand_tracking_samples_tpu_torch.ops.correspondence import (
+            synthetic_clip_inputs)
+        args = synthetic_clip_inputs(4, self.model.n_bodies, 96, 2048,
+                                     seed=10, device=self.dev)
+        err, note = self.hold_ref("correspondence", kfn(*args), pfn(*args))
+        self.results["correspondence"]["max_abs_err_synthetic"] = err
+        return f"T=4 synthetic near-ties: {note}"
 
     def waves(self, name, args):
         """The wavefront of the row sweep's rows (wave_schedule): level
@@ -1251,8 +1317,15 @@ class Smoke:
         pairs = torch.as_tensor(self.model.np["collide_pairs"],
                                 device=self.dev)
         args = cin + (pairs, 4, 3, self.params.driftmax)
-        k, p = contact_fields_raw(*args), contact_fields_plain(*args)
+        ms, k = self.event_ms(contact_fields_raw, args, warm=2, reps=10)
+        p = contact_fields_plain(*args)
         err, note = self.hold("contact_fields", k, p)
+        nbytes, ops = self.work("contact_fields", args)
+        rec = dict(ms=ms, max_abs_err=err, bound_ms=max(
+            nbytes / PEAK_BYTES_S, ops / PEAK_F32_S) * 1e3)
+        note += (f"; {ms:.4f} ms, bound {rec['bound_ms']:.4f} ms, "
+                 + self.contact_floor(args, rec))
+        self.results["contact_fields"]["contact_poses"] = rec
         rk = contact_rows_from_fields(fields_of(k), self.model, self.params)
         rp = contact_rows_from_fields(fields_of(p), self.model, self.params)
         check(torch.equal(rk.active, rp.active),
@@ -1486,12 +1559,9 @@ class Smoke:
                                                      dt) + (C,)
         return {2048: dyn, 512: ms}
 
-    def scan_issue_ms(self, args):
-        """The least time the pack kernels' exact winner scan takes on
-        this card: 5 float32 instructions a hull-plane evaluation (FMUL,
-        FFMA, FFMA, FADD, FMNMX; the bound's 7 operations fold into them),
-        every point against every body's planes, one warp instruction a
-        clock on each of the SMs' 4 schedulers at the card's largest SM
+    def issue_ms(self, warp_instructions):
+        """The time the card takes to issue this many warp instructions:
+        one a clock on each of the SMs' 4 schedulers at its largest SM
         clock (nvidia-smi clocks.max.sm)."""
         torch = self.torch
         if not hasattr(self, "max_sm_hz"):
@@ -1500,11 +1570,32 @@ class Smoke:
                  "--format=csv,noheader,nounits"], capture_output=True,
                 text=True, timeout=60)
             self.max_sm_hz = float(out.stdout.split()[0]) * 1e6
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        return warp_instructions / (4 * sms * self.max_sm_hz) * 1e3
+
+    def scan_issue_ms(self, args):
+        """The least time the pack kernels' exact winner scan takes on
+        this card: 5 float32 instructions a hull-plane evaluation (FMUL,
+        FFMA, FFMA, FADD, FMNMX; the bound's 7 operations fold into them),
+        every point against every body's planes (issue_ms)."""
         pts, planes = args[0], args[1]
         T, _, N = pts.shape
         evals = T * N * planes.shape[1] // 5 * planes.shape[2]
-        sms = torch.cuda.get_device_properties(0).multi_processor_count
-        return evals * 5 / 32 / (4 * sms * self.max_sm_hz) * 1e3
+        return self.issue_ms(evals * 5 / 32)
+
+    def contact_floor(self, args, rec):
+        """Kernel 3's near pairs on these inputs and its design's issue
+        floor: a warp per near pair, whose two face scans take, for each of
+        the other hull's V vertices, one broadcast load and 3 planes a lane
+        of 6 float32 instructions (FMUL, FMUL, FADD, FMUL, FADD, FMNMX);
+        the refinement and the manifold not counted.  Records both in
+        rec and returns a note."""
+        near = int(near_pairs(args).sum())
+        T, V = args[0].shape[0], args[0].shape[-1]
+        rec.update(near_pairs=near,
+                   issue_floor_ms=self.issue_ms(near * 2 * V * (3 * 6 + 1)))
+        return (f"{near} near pairs ({near / T:.1f} a track), issue floor "
+                f"{rec['issue_floor_ms']:.4f} ms")
 
     def pack_pairs(self):
         """{kernel name: (wrapper, plain version, dt)} of kernels 2, 2.5."""
@@ -1935,9 +2026,16 @@ def main(argv=None) -> int:
         record["build"] = {k: v for k, v in info.items() if k != "log"}
         ptx = {k: v for k, v in kernels.ptxas_summary(
             info.get("log", "")).items()
-            if "row_sweep_kernel" in k or "pgs_kernel" in k
-            or "cloud_rows_pack_kernel" in k}
+            if any(n in k for n in REDESIGNED)}
         record["ptxas"] = ptx
+        if info["built"]:        # a reused library has no log to read
+            for n in ("contact_fields_kernel", "correspondence_kernel"):
+                got = [v for k, v in ptx.items() if n in k]
+                check(len(got) == 1, f"ptxas: no entry for {n}")
+                check(got[0].get("stack") == 0
+                      and got[0].get("spill_stores") == 0
+                      and got[0].get("spill_loads") == 0,
+                      f"ptxas: {n} uses a stack or spills: {got[0]}")
         return (f"{'built' if info['built'] else 'reused'} "
                 f"{os.path.relpath(info['path'], REPO)} in "
                 f"{info['seconds']:.1f} s; ptxas -v: " + "; ".join(

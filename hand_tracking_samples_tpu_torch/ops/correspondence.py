@@ -25,6 +25,7 @@ kernel); the planes' lanes 4-7 are zero and add nothing there.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import kernels
@@ -154,3 +155,61 @@ def hull_reductions(pose, model, points, origin, planes_w=None):
         planes_w = world_planes(pose, model)
     d0 = origin_dots(planes_w, model, origin)
     return correspondence_reductions(points_h(points), planes_w, d0)
+
+
+def synthetic_clip_inputs(T: int, B: int, P: int, N: int, seed: int,
+                          device="cpu"):
+    """Seeded kernel inputs (pts_h, planes, d0) for the correspondence kernel's
+    checks, built so that clip quotients tie and lie within an ulp of each
+    other.  Three planes in five are axis planes n = (1, 0, 0) whose offset
+    w, origin dot a and the points' x are multiples of 1/8 (the plane value
+    x + w and a - d1 exact, so quotients such as 1/3 and 2/6 tie and planes
+    of equal w tie for the max); one in twenty has a = +0 (both sides of the
+    clip); about a third of the axis planes are twins of the plane before
+    them with a moved an ulp up or down (quotients an ulp or less apart; the
+    twins of a = 0 have the subnormal a = +-2^-149); and planes 0-1 (a = 64)
+    and 2-3 (a = -1/4096) are such twins whose quotients bound every point's
+    enter and exit clip.  The rest are random unit normals with random
+    offsets and origin dots, and each body's last 4 planes are masked as
+    world_planes masks them (n = 0, w = -1e9, a = -1)."""
+    rng = np.random.default_rng(seed)
+    eighths = lambda *shape: rng.integers(-8, 9, shape) / 8.0
+    pts = np.zeros((T, 8, N), np.float32)
+    pts[:, 0] = eighths(T, N)
+    pts[:, 1:3] = rng.uniform(-0.1, 0.1, (T, 2, N))
+    pts[:, 3] = 1.0
+    n = rng.standard_normal((T, B, P, 3))
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    w = rng.uniform(-0.1, 0.1, (T, B, P))
+    a = (rng.uniform(0.01, 0.1, (T, B, P))
+         * rng.choice([-1.0, 1.0], (T, B, P))).astype(np.float32)
+    axis = rng.random((T, B, P)) < 0.6
+    n[axis] = (1.0, 0.0, 0.0)
+    w[axis] = eighths(int(axis.sum()))
+    a[axis] = eighths(int(axis.sum()))
+    a[rng.random((T, B, P)) < 0.05] = 0.0
+    # twins: an axis plane followed by a copy with a an ulp up or down
+    twin = axis[..., :-1] & (rng.random((T, B, P - 1)) < 0.5)
+    twin[..., 1:] &= ~twin[..., :-1]
+    tt, bb, pp = np.nonzero(twin)
+    n[tt, bb, pp + 1], w[tt, bb, pp + 1] = n[tt, bb, pp], w[tt, bb, pp]
+    step = np.where(rng.random(pp.shape) < 0.5, np.inf, -np.inf)
+    a[tt, bb, pp + 1] = np.nextafter(a[tt, bb, pp], step.astype(np.float32))
+    # planes 0-1 and 2-3: twins whose quotients bound every point's clip
+    # (a = 64: enter quotients above 0.96; a = -1/4096: exit ones below
+    # 0.002), so the ulp between them decides the bounds' bits
+    n[:, :, :4], w[:, :, 2] = (1.0, 0.0, 0.0), w[:, :, 0]
+    w[:, :, 1], w[:, :, 3] = w[:, :, 0], w[:, :, 2]
+    a[:, :, 0], a[:, :, 2] = 64.0, -1.0 / 4096
+    for k in (1, 3):
+        step = np.where(rng.random((T, B)) < 0.5, np.inf, -np.inf)
+        a[:, :, k] = np.nextafter(a[:, :, k - 1], step.astype(np.float32))
+    planes = np.zeros((T, B, P, 8), np.float32)
+    planes[..., :3] = n
+    planes[..., 3] = w
+    planes[:, :, -4:, :3] = 0.0
+    planes[:, :, -4:, 3] = -1e9
+    a[:, :, -4:] = -1.0
+    return (torch.tensor(pts, device=device),
+            torch.tensor(planes, device=device),
+            torch.tensor(a, device=device))

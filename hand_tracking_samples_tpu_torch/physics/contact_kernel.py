@@ -160,9 +160,10 @@ def contact_fields_raw(vw, nw, dw, aux, pairs, n_points: int,
     T, _, B, V = vw.shape
     P = nw.shape[-1]
     NP = pairs.shape[0]
-    if V > 48 or 3 * B * V + 4 * B * P + 16 * B > 12288:
+    smem = (B * V + B * P) * 16 + (16 * B + 2 * NP + 33) * 4
+    if V > 64 or P > 96 or n_points > 32 or smem > 232448:
         raise ValueError(f"contact kernel geometry too large: B={B} V={V} "
-                         f"P={P}")
+                         f"P={P} NP={NP} n_points={n_points}")
     out = torch.empty((T, NP, NCH, n_points), device=dev)
     err = kernels.library().hts_contact_fields(
         *[x.data_ptr() for x in args], pairs32.data_ptr(), out.data_ptr(),
@@ -211,6 +212,44 @@ def contact_inputs(pose, lin, ang, model):
     nw_t = torch.stack(nw, dim=0).permute(3, 0, 1, 2).contiguous()
     return (vw_t, nw_t, dw.permute(2, 0, 1).contiguous(),
             aux.permute(2, 0, 1).contiguous())
+
+
+def synthetic_contact_inputs(pose, model, seed: int):
+    """Seeded kernel inputs (vw, nw, dw, aux) for the contact kernel's
+    checks, from poses (T, B, 7) and small random momenta: tracks 0 and 1
+    mod 4 have their bodies pulled to within a fifth of their distance
+    from the hand's centre, so every collide pair is near; odd tracks have
+    every hull's second half of planes and of vertices made copies of its
+    first half (where both halves' planes are real: the padded planes keep
+    their -1e30 offsets), so the face scans, the support refinement and
+    the manifold see exact ties."""
+    rng = np.random.default_rng(seed)
+    T, B = pose.shape[0], pose.shape[1]
+    dev = pose.device
+    pose = pose.clone()
+    together = torch.arange(T, device=dev) % 4 < 2
+    centre = pose[:, :, :3].mean(dim=1, keepdim=True)
+    pulled = centre + (pose[:, :, :3] - centre) * 0.2
+    pose[:, :, :3] = torch.where(together[:, None, None], pulled,
+                                 pose[:, :, :3])
+    f32 = lambda a: torch.tensor(a.astype(np.float32), device=dev)
+    vw, nw, dw, aux = contact_inputs(pose, f32(rng.standard_normal(
+        (T, B, 3)) * 1e-3), f32(rng.standard_normal((T, B, 3)) * 1e-4),
+        model)
+    dup = torch.arange(T, device=dev) % 2 == 1
+    V, P = vw.shape[-1], nw.shape[-1]
+    hv, hp = V // 2, P // 2
+    real = model.plane_mask[:, :hp] & model.plane_mask[:, hp:2 * hp]
+    for x in (vw, nw, dw):
+        last = x.shape[-1]
+        h = hv if last == V else hp
+        src = x[..., :h].clone()
+        tgt = x[..., h:2 * h]
+        keep = dup.view([T] + [1] * (x.dim() - 1))
+        if last == P:      # copy only where both halves are real planes
+            keep = keep & real
+        x[..., h:2 * h] = torch.where(keep, src, tgt)
+    return vw, nw, dw, aux
 
 
 def contact_fields(pose, lin, ang, model, params, n_points: int,
