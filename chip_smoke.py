@@ -7,13 +7,16 @@ one NVIDIA GPU.  Run from the repository root:
 Phases, each printing one line with its elapsed seconds:
   1. build (or reuse) the CUDA kernel library: one nvcc call into build/;
      ptxas's registers, stack, spills and static shared memory of the
-     redesigned kernels (the row sweep, PGS, cloud-rows pack, contact and
-     correspondence kernels); the contact and correspondence kernels must
-     use no stack and spill nothing
+     redesigned kernels (the row sweep, PGS, cloud-rows pack, contact,
+     correspondence, cloud and vals kernels); the last four (NO_SPILL)
+     must use no stack and spill nothing
   2. the card's name and power limit, as nvidia-smi reports them
   3. each of the four kernels against its plain PyTorch version at T=4
      tracks, one frame, full width (the cloud kernel, kernel 2 and the
-     contact kernel bit-identical); the contact kernel bit for bit again
+     contact kernel bit-identical); the cloud kernel bit for bit again on
+     seeded rasters (ops.cloud_kernel.synthetic_depths: no valid pixel,
+     every pixel valid, exactly the budget kept, hand-like blobs keeping
+     fewer and more than it; frac 4 and 3); the contact kernel bit for bit again
      at bank poses with contacts and on seeded synthetic tracks
      (physics.contact_kernel.synthetic_contact_inputs: every collide pair
      near, and hulls with duplicated planes and vertices, so every
@@ -29,11 +32,14 @@ Phases, each printing one line with its elapsed seconds:
      last frame's shapes beside its plain version's time and its bound; the
      timed kernel and plain outputs are held to each other under phase 3's
      tolerances, so every kernel is also checked at the main path's shapes;
+     the cloud kernel on phase 3's seeded rasters at T=512;
      the contact kernel's near pairs and its design's issue floor; one more
      PGS launch reads its clock64 counters (cycles a step) and the tracks
      an SM holds
   6. the CNN frame's kernels against their plain versions at T=4: the
-     unpacked-rows and vals variants of the cloud-rows kernel, and the PGS
+     unpacked-rows and vals variants of the cloud-rows kernel (the vals
+     kernel bit for bit, also on seeded clouds, ops.cloud_rows.
+     synthetic_cloud at N=2048 and N=300), and the PGS
      kernel on a multistep plan and on the unibody plan; and the card forms
      of the contracted arithmetic (maths/fma.py) against its CPU forms
   7. the CNN frame (segmentation, net, FitError, reset with UnibodyFit,
@@ -46,8 +52,11 @@ Phases, each printing one line with its elapsed seconds:
      versions on the CPU must agree to 1e-4 m; every kernel and both new
      PGS plans must have launched
   8. the CNN frame's timing, its device-time split, and the new kernels
-     and plans timed at its T=512 shapes, each held to its plain version
-     again under phase 6's tolerances (the PGS plans' cycles as in phase 5)
+     and plans timed at its T=512 shapes beside their bounds, each held to
+     its plain version again under phase 6's tolerances (the PGS plans'
+     cycles as in phase 5); the vals kernel's full-scan issue floor, the
+     share of hull-plane evaluations its warp exit skipped (its evals
+     counter), and the vals kernel on seeded clouds at T=512
   9. the reference solvers' kernels against their plain versions, bit for
      bit, at T=4 and at T=512 (the T=512 ones timed): the correspondence
      kernel (also at T=4 on seeded inputs whose clip quotients tie and lie
@@ -110,8 +119,8 @@ frame's (phase 13) for kernel 2.5); the last line is
 {"ok": true, "device": {...}}.  Exits non-zero, printing no result, when a
 phase fails, when there is no CUDA device, or when run outside the
 repository.  --json PATH writes every measured number to PATH.  Every
-kernel but the unpacked-rows and vals variants of the cloud-rows kernel is
-held to its plain version bit for bit (max_abs_err 0) at T=4 and T=512.
+kernel but the unpacked-rows variant of the cloud-rows kernel is held to
+its plain version bit for bit (max_abs_err 0) at T=4 and T=512.
 """
 from __future__ import annotations
 
@@ -167,9 +176,11 @@ KERNELS = {   # name: (source, the TPU kernel it replaces)
                           f"{JAXPKG}/ops/cloud_rows.py:34"),
 }
 # the kernels redesigned for the card, whose ptxas report phase 1 prints
-# (the last two must use no stack and spill nothing)
 REDESIGNED = ("row_sweep_kernel", "pgs_kernel", "cloud_rows_pack_kernel",
-              "contact_fields_kernel", "correspondence_kernel")
+              "contact_fields_kernel", "correspondence_kernel",
+              "cloud_from_depth_kernel", "cloud_vals_kernel")
+# of those, the kernels that must use no stack and spill nothing
+NO_SPILL = REDESIGNED[3:]
 FIRST = ("cloud_from_depth", "cloud_rows_solve", "contact_fields",
          "pgs_solve")            # the dynamics path's kernels (phases 3-5)
 # the PGS kernel's plans that the CNN frame adds: row name -> plan kind
@@ -407,13 +418,12 @@ class Smoke:
             check(torch.equal(k, p), f"contacts not bit-identical ({err})")
             return err, (f"contacts {err:.3g} (bit-identical; "
                          f"{int((p[:, :, 8] > 0.5).sum())} active rows)")
-        if name == "cloud_vals":
-            # equal winners, values < 1e-6 (the same fused multiply-adds
-            # on both sides: bit-identical expected)
-            check(torch.equal(k[:, 1], p[:, 1]), "vals: winners differ")
+        if name == "cloud_vals":             # bit-identical
             err = (k - p).abs().max().item()
-            check(err < 1e-6, f"vals differ: {err}")
-            return err, f"vals {err:.3g} ({k.shape[2]} points a track)"
+            check(torch.equal(k, p), f"vals not bit-identical ({err}; "
+                  f"{int((k[:, 1] != p[:, 1]).sum())} winners differ)")
+            return err, (f"vals {err:.3g} (bit-identical; {k.shape[2]} "
+                         f"points a track)")
         if name == "cloud_rows_unpacked":
             # every row field < 1e-6 of its channel's scale
             scale = p.abs().amax(dim=(0, 2)).clamp(min=1.0)
@@ -464,8 +474,34 @@ class Smoke:
                                   inp["P"])
             self.results[name]["max_abs_err_t4"] = err
             lines.append(note)
+        lines[0] += "; " + self.cloud_synthetic(4)
         lines[2] += "; " + self.contacts_at_bank_poses(inp, fns)
         return "; ".join(lines)
+
+    def cloud_synthetic(self, T):
+        """Kernel 1 bit for bit on the seeded rasters of
+        ops.cloud_kernel.synthetic_depths at T tracks (no valid pixel,
+        every pixel valid, exactly the budget kept, hand-like blobs keeping
+        fewer and more than the budget), at the path's frac and at 3."""
+        from hand_tracking_samples_tpu_torch.ops.cloud_kernel import (
+            cloud_from_depth_planes, cloud_from_depth_planes_plain,
+            depth_tensor, synthetic_depths)
+        cfg, notes = self.cfg, []
+        H, W = self.dyn.shape[1], self.dyn.shape[2]
+        for frac in (cfg.subsample_fraction, 3):
+            d = depth_tensor(synthetic_depths(T, H, W, seed=T + frac,
+                                              frac=frac,
+                                              budget=cfg.point_budget),
+                             self.dev)
+            args = (d, self.cam, 0.1, cfg.drangey, frac, cfg.point_budget)
+            err, _ = self.hold("cloud_from_depth",
+                               cloud_from_depth_planes(*args),
+                               cloud_from_depth_planes_plain(*args))
+            self.results["cloud_from_depth"][
+                f"max_abs_err_synthetic_t{T}_frac{frac}"] = err
+            notes.append(f"frac {frac} {err:.3g}")
+        return (f"synthetic rasters T={T} bit-identical "
+                f"({', '.join(notes)})")
 
     def contacts_at_bank_poses(self, inp, fns):
         """Contacts at poses with contacts (golden contact frame and a
@@ -651,8 +687,11 @@ class Smoke:
                 note += "; " + self.cycles(name, args)
             if name == "contact_fields":
                 note += "; " + self.contact_floor(args, self.results[name])
-            parts.append(f"{name} {ms:.4f} ms (plain {plain_ms:.2f}; "
-                         f"{note})")
+            if name == "cloud_from_depth":
+                note += "; " + self.cloud_synthetic(T)
+            parts.append(f"{name} {ms:.4f} ms (bound {max(tb, to):.4f} ms "
+                         f"by {'bytes' if tb >= to else 'operations'}; "
+                         f"plain {plain_ms:.2f}; {note})")
         return (f"T={T}: {fps:.1f} tracked frames/s{busy}; "
                 + "; ".join(parts))
 
@@ -793,7 +832,10 @@ class Smoke:
             # the rows add the winner's planes again and the row itself
             per_pt = B * P * 7 + B * 12
             if name == "cloud_vals":
-                return nin + T * 2 * N * 4, T * N * per_pt
+                # the hull-plane evaluations these inputs need: those the
+                # kernel's exit leaves (vals_exit, run first)
+                evals = self.results["cloud_vals"]["hull_plane_evals"]
+                return nin + T * 2 * N * 4, evals * 7 + T * N * B * 12
             return nin + T * 8 * N * 4, T * N * (per_pt + P * 23 + 60)
         plan, it, ip, mom0, mi, singles, lin_rows, ang_rows = args
         T, _, bp = mom0.shape
@@ -977,7 +1019,35 @@ class Smoke:
                                   inp["P"].get(name))
             self.results[name]["max_abs_err_t4"] = err
             lines.append(note)
+        lines[2] += "; " + self.vals_synthetic(T)
         return "; ".join(lines)
+
+    def vals_synthetic(self, T):
+        """Kernel 7 bit for bit on seeded clouds of
+        ops.cloud_rows.synthetic_cloud around T tracks' poses (a crowded
+        body, points on body centres where the inner sphere ties with or
+        beats the hull, a quarter inactive): N=2048, and N=300 at T=4 (a
+        block's last warp partly past N)."""
+        torch = self.torch
+        from hand_tracking_samples_tpu_torch.ops.cloud_rows import (
+            _kernel_inputs_ph, cloud_vals_k, cloud_vals_plain,
+            synthetic_cloud)
+        pose = self.init_state(T).body.pose
+        B = pose.shape[1]
+        rest = _kernel_inputs_ph(pose, self.model, (0.0, 0.0, 0.0),
+                                 torch.zeros(B, device=self.dev), 0.0)
+        notes = []
+        for n in (2048, 300) if T == 4 else (2048,):
+            pts = synthetic_cloud(pose, n, seed=T + n)
+            k = cloud_vals_k(pts, *rest)
+            p = cloud_vals_plain(pts, *rest[:2])
+            err, _ = self.hold("cloud_vals", k, p)
+            self.results["cloud_vals"][
+                f"max_abs_err_synthetic_t{T}_n{n}"] = err
+            notes.append(f"N={n} {err:.3g} ({int((p[:, 0] < 0).sum())} "
+                         f"inside a body)")
+        return (f"synthetic clouds T={T} bit-identical "
+                f"({', '.join(notes)})")
 
     def cnn_slice(self):
         torch = self.torch
@@ -1086,6 +1156,9 @@ class Smoke:
             ms, k = self.event_ms(kfn, args, warm=2, reps=10)
             plain_ms, p = self.event_ms(pfn, args, warm=0, reps=1)
             err, note = self.hold(name, k, p, inp["P"].get(name))
+            if name == "cloud_vals":      # its work depends on the data
+                note += "; " + self.vals_exit(args) + "; " \
+                    + self.vals_synthetic(T)
             nbytes, ops = self.work(name, args)
             tb, to = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_S * 1e3
             self.results[name].update(
@@ -1095,8 +1168,9 @@ class Smoke:
                 library_ms=None, bytes=nbytes, operations=ops)
             if name in PLANS:
                 note += "; " + self.cycles(name, args)
-            parts.append(f"{name} {ms:.4f} ms (plain {plain_ms:.2f}; "
-                         f"{note})")
+            parts.append(f"{name} {ms:.4f} ms (bound {max(tb, to):.4f} ms "
+                         f"by {'bytes' if tb >= to else 'operations'}; "
+                         f"plain {plain_ms:.2f}; {note})")
         return (f"T={T}: {dt / F * 1e3:.1f} ms a CNN frame, "
                 f"{T * F / dt:.1f} tracked frames/s{busy}; "
                 + "; ".join(parts))
@@ -1573,6 +1647,33 @@ class Smoke:
         sms = torch.cuda.get_device_properties(0).multi_processor_count
         return warp_instructions / (4 * sms * self.max_sm_hz) * 1e3
 
+    def vals_exit(self, args):
+        """Kernel 7 on these inputs: the full scan's issue floor (every
+        point against every body's planes, scan_issue_ms), the share of
+        hull-plane evaluations its warp exit skipped (one more launch with
+        its evals counter: the planes each warp scanned, of B * P8, for
+        its 128 points) and the issue floor of those it made."""
+        torch = self.torch
+        from hand_tracking_samples_tpu_torch.ops.cloud_rows import (
+            cloud_vals_k)
+        pts, planes = args[0], args[1]
+        T, _, N = pts.shape
+        P, B = planes.shape[1] // 5, planes.shape[2]
+        ev = torch.zeros(T, dtype=torch.int64, device=self.dev)
+        cloud_vals_k(*args, evals=ev)
+        torch.cuda.synchronize()
+        warps = T * -(-N // 128)
+        full = warps * B * (-(-P // 8) * 8)
+        skipped = 1.0 - int(ev.sum()) / full
+        evals = int(ev.sum()) * 128
+        r = self.results["cloud_vals"]
+        r.update(issue_floor_ms=self.scan_issue_ms(args),
+                 exit_skipped_share=skipped, hull_plane_evals=evals,
+                 exit_issue_floor_ms=self.issue_ms(evals * 5 / 32))
+        return (f"full scan's issue floor {r['issue_floor_ms']:.4f} ms; the "
+                f"exit skipped {skipped:.3f} of the hull-plane evaluations "
+                f"(theirs {r['exit_issue_floor_ms']:.4f} ms)")
+
     def scan_issue_ms(self, args):
         """The least time the pack kernels' exact winner scan takes on
         this card: 5 float32 instructions a hull-plane evaluation (FMUL,
@@ -2029,7 +2130,7 @@ def main(argv=None) -> int:
             if any(n in k for n in REDESIGNED)}
         record["ptxas"] = ptx
         if info["built"]:        # a reused library has no log to read
-            for n in ("contact_fields_kernel", "correspondence_kernel"):
+            for n in NO_SPILL:
                 got = [v for k, v in ptx.items() if n in k]
                 check(len(got) == 1, f"ptxas: no entry for {n}")
                 check(got[0].get("stack") == 0

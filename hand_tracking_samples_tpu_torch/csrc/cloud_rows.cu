@@ -10,8 +10,10 @@
 //                             channels (kernel 2.5)
 //   cloud_rows_unpacked_kernel  pack=False (_cloud_rows_unpacked_call_b,
 //                             :430): per-point directed rows, UnibodyFit
-//   cloud_vals_kernel         vals_only=True (same call): winner body and
-//                             value per point, FitError
+//                             (kernel 6)
+//   cloud_vals_kernel         vals_only=True (its branch at :118, launched
+//                             at :409 and :430): winner body and value per
+//                             point, FitError (kernel 7)
 //
 // Each is the same function as its plain version in ops/cloud_rows.py
 // (cloud_rows_solve_plain, cloud_rows_packed_plain,
@@ -27,15 +29,16 @@
 //               point order), uniform thinning to C slots, force scale
 //               compensated by count/C
 //
-// Bound on the H100: operations.  Per point 17 x 96 hull-plane
-// evaluations of 7 float32 operations, then ~23 operations on each of the
-// winner's 96 planes: about 14 kFLOP a point, 28 MFLOP a track at 2048
-// points; at 512 tracks ~15 GFLOP, 0.22 ms at 67 TFLOP/s (a quarter at
-// 512 points).  Bytes: 2048 x 8 x 4 in, CH x 24 x 128 x 4 out a track
-// (213 KB at 12 channels, 262 KB at 16), 0.03-0.04 ms at 512 tracks.
-// An exact kernel issues more than that count: a plane evaluation is 5
-// float32 instructions (FMUL, FFMA, FFMA, FADD, FMNMX), so the winner scan
-// alone needs ~0.3 ms of the card's float32 issue at 512 x 2048 points.
+// Bound on the H100: operations.  The winner scan is 17 x 96 hull-plane
+// evaluations of 7 float32 operations a point (11.4 kFLOP; the spheres
+// add ~0.2 kFLOP), the pack then ~23 operations on each of the winner's
+// 96 planes: about 14 kFLOP a point, 28 MFLOP a track at 2048 points; at
+// 512 tracks ~15 GFLOP, 0.22 ms at 67 TFLOP/s (a quarter at 512 points).
+// Bytes: 2048 x 8 x 4 in, CH x 24 x 128 x 4 out a track (213 KB at 12
+// channels, 262 KB at 16), 0.03-0.04 ms at 512 tracks.  An exact kernel
+// issues more than that count: a plane evaluation is 5 float32
+// instructions (FMUL, FFMA, FFMA, FADD, FMNMX), so the winner scan alone
+// needs 0.256 ms of the card's float32 issue at 512 x 2048 points.
 //
 // The pack's design (one block per track, its planes in shared memory):
 //   staging   the track's world planes as one float4 (n.x, n.y, n.z, d)
@@ -68,18 +71,42 @@
 // scatter matmul (a 3-way bf16 split through a one-hot, exact only because
 // every output is a single term) is a direct store here.
 //
-// The unpacked and vals variants: one thread a point, 256-point blocks
-// (grid tracks x point blocks), the track's planes staged in shared memory
-// by every block.  Vals: 17 x 96 plane evaluations a point and one value
-// out, bound by operations (2.6 kFLOP a point: 512 tracks x 2048 points,
-// 0.04 ms at 67 TFLOP/s).  Unpacked: the same plus the winner's 96 planes,
-// 8 floats out a point.
+// The unpacked variant (kernel 6): one thread a point, 256-point blocks
+// (grid tracks x point blocks), the track's planes staged in shared
+// memory by every block; the winner scan, then the winner's 96 planes and
+// the row, 8 floats out a point.  Left for later: its plane loop is
+// latency-bound on scalar shared-memory reads; the vals kernel's design
+// would serve it.
+//
+// The vals kernel (kernel 7): the winner value and body of each point,
+// bound by the scan's operations: 11.4 kFLOP a point, 0.18 ms at 512
+// tracks x 2048 points and 67 TFLOP/s (its issue floor, 5 instructions a
+// plane evaluation, 0.256 ms).  Design: the pack's phase A on the planes
+// of its own block, with a warp-uniform exit.
+//   staging   the track's planes as float4 records, bodies P8 + 1 records
+//             apart, P8 = P rounded up to 8 with (0, 0, 0, -inf) pads;
+//             up to 2048 points a block (grid tracks x point blocks)
+//   scan      4 consecutive points a thread (a warp's 128 points are one
+//             run of the cloud: neighbouring pixels, mostly one winner),
+//             one broadcast 16-byte load a plane for the 4; the spheres'
+//             strict-< scan gives the first best, then the hulls in order
+//             with the same fmax chain as the pack's scan
+//   exit      after every 8 planes of a hull, __all_sync over the warp's
+//             "partial max >= best" for every point: the hull's value can
+//             only grow, so under strict < the body cannot win and its
+//             value is never read, and the warp leaves the body.  A body
+//             that wins is scanned to its end, so its value keeps its
+//             bits.  On the dyn30 clouds the warps scan 33-42% of the
+//             planes (tests/test_torch_vals_exit.py states this order;
+//             a thread's points 512 apart would scan 58-75%)
+// Measured on an H100 at T=512 on the CNN frame's FitError inputs
+// (PERF.md, chip_ab.py): 0.156 ms (1.128 before this design), 0.340
+// without the exit.  The exit leaves a third of the evaluations there:
+// their bound is 0.062 ms and their issue floor 0.084 ms.
 // The plane values that pick the winner and the hull-normal blend, the
 // world inertia behind K1 and dinv use the JAX CPU build's contracted
 // expressions (hts_fma/hts_dot3/hts_subp, common.cuh), so the rows equal
 // the JAX package's bit for bit on the CPU.
-// Left for later (unpacked and vals): the plane loop is latency-bound on
-// shared-memory reads; the pack's register blocking would serve them too.
 #include "common.cuh"
 
 #define CR_MAXPB 8192
@@ -502,15 +529,14 @@ cloud_rows_pack_kernel(const float* __restrict__ pts,
   }
 }
 
-// Per-point rows without a pack (pack=False, directed) or the winner alone
-// (vals_only).  One thread a point, grid (tracks, point blocks).
+// Per-point rows without a pack (pack=False, directed): one thread a
+// point, grid (tracks, point blocks).
 __global__ void __launch_bounds__(CU_THREADS)
 cloud_rows_unpacked_kernel(const float* __restrict__ pts,
                            const float* __restrict__ planes,
                            const float* __restrict__ body,
                            const float* __restrict__ misc,
-                           float* __restrict__ out, int N, int P, int B,
-                           int vals_only) {
+                           float* __restrict__ out, int N, int P, int B) {
   __shared__ float spl[CR_MAXPB];
   __shared__ float sb[16 * CR_BP];
   const int t = blockIdx.x;
@@ -525,16 +551,6 @@ cloud_rows_unpacked_kernel(const float* __restrict__ pts,
   if (p >= N) return;
   const float* pt = pts + (size_t)t * 8 * N;
   const float px = pt[0 * N + p], py = pt[1 * N + p], pz = pt[2 * N + p];
-  if (vals_only) {
-    // out (T, 2, N): [winner value, winner body]
-    float best;
-    int widx;
-    cr_winner(spl, sb, P, B, px, py, pz, &best, &widx);
-    float* o = out + (size_t)t * 2 * N;
-    o[p] = best;
-    o[N + p] = (float)(widx >= B ? widx - B : widx);
-    return;
-  }
   // out (T, 8, N): [n(3), w1(3), td, active]
   const float ox = misc[t * 8 + 0], oy = misc[t * 8 + 1];
   const float oz = misc[t * 8 + 2];
@@ -548,6 +564,126 @@ cloud_rows_unpacked_kernel(const float* __restrict__ pts,
   o[5 * N + p] = r.w1z;
   o[6 * N + p] = r.td;
   o[7 * N + p] = pt[4 * N + p] > 0.0f ? 1.0f : 0.0f;
+}
+
+// ---- the vals kernel (kernel 7) --------------------------------------------
+// One block takes up to CV_THREADS * CV_K points of a track (grid (tracks,
+// point blocks)); each thread CV_K consecutive points, so a warp's
+// 32 * CV_K points are one run of the cloud (neighbouring pixels, which
+// mostly share their winner).  Shared memory (dynamic): the track's hull
+// planes as float4 records (n.x, n.y, n.z, d), body b's at pl4[b * SP],
+// SP = P8 + 1 with P8 = P rounded up to CV_CHUNK (the pad records
+// (0, 0, 0, -inf) leave a max unchanged), then the spheres' centres and
+// radii sb[r * B + b], r = 0..3.
+#define CV_THREADS 512
+#define CV_K 4
+#define CV_CHUNK 8
+
+__host__ __device__ __forceinline__ int cv_p8(int P) {
+  return (P + CV_CHUNK - 1) / CV_CHUNK * CV_CHUNK;
+}
+__host__ __device__ __forceinline__ size_t cv_smem(int P, int B) {
+  return (size_t)B * (cv_p8(P) + 1) * 16 + (size_t)4 * B * 4;
+}
+
+// out (T, 2, N): [winner value, winner body].  evals, when not null,
+// (T,) counts: each warp adds the planes it scanned (of B * P8 a warp).
+__global__ void __launch_bounds__(CV_THREADS, 2)
+cloud_vals_kernel(const float* __restrict__ pts,
+                  const float* __restrict__ planes,
+                  const float* __restrict__ body, float* __restrict__ out,
+                  unsigned long long* __restrict__ evals, int N, int P,
+                  int B) {
+  extern __shared__ __align__(16) unsigned char cv_sh[];
+  const int P8 = cv_p8(P), SP = P8 + 1;
+  float4* pl4 = (float4*)cv_sh;
+  float* sb = (float*)(cv_sh + (size_t)B * SP * 16);
+  const int t = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
+
+  // staging: planes_t (5P, B) rows 0-3 into the records, one a thread
+  {
+    const float* src = planes + (size_t)t * 5 * P * B;
+    const int PB = P * B;
+    for (int i = tid; i < B * P8; i += nt) {
+      const int q = i / B, b = i - q * B;
+      pl4[b * SP + q] =
+          q < P ? make_float4(src[i], src[PB + i], src[2 * PB + i],
+                              src[3 * PB + i])
+                : make_float4(0.0f, 0.0f, 0.0f, -INFINITY);
+    }
+    for (int i = tid; i < 4 * B; i += nt) {
+      const int r = i / B, b = i - r * B;
+      sb[i] = body[(size_t)t * 16 * CR_BP + r * CR_BP + b];
+    }
+  }
+  __syncthreads();
+
+  const float* pt = pts + (size_t)t * 8 * N;
+  const int p0 = blockIdx.y * (nt * CV_K) + tid * CV_K;
+  float px[CV_K], py[CV_K], pz[CV_K], best[CV_K];
+  int widx[CV_K];
+#pragma unroll
+  for (int j = 0; j < CV_K; ++j) {
+    const bool in = p0 + j < N;
+    px[j] = in ? pt[p0 + j] : 0.0f;
+    py[j] = in ? pt[N + p0 + j] : 0.0f;
+    pz[j] = in ? pt[2 * N + p0 + j] : 0.0f;
+    best[j] = 0.0f;
+    widx[j] = 0;
+  }
+  // the spheres: the first best
+  for (int b = 0; b < B; ++b) {
+    const float cx = sb[b], cy = sb[B + b], cz = sb[2 * B + b];
+    const float rad = sb[3 * B + b];
+#pragma unroll
+    for (int j = 0; j < CV_K; ++j) {
+      const float dx = px[j] - cx, dy = py[j] - cy, dz = pz[j] - cz;
+      const float sv = sqrtf(hts_dot3(dx, dy, dz, dx, dy, dz)) - rad;
+      if (b == 0 || sv < best[j]) { best[j] = sv; widx[j] = b; }
+    }
+  }
+  // the hulls: the most-above plane, the same fmax chain as the pack's
+  // scan.  Once every point of the warp has a partial max >= its best, the
+  // body cannot win under strict < and its value is never read: the warp
+  // leaves the body.  A body that wins is scanned to its end.
+  int scanned = 0;
+  for (int b = 0; b < B; ++b) {
+    const float4* pb = pl4 + b * SP;
+    float hv[CV_K];
+#pragma unroll
+    for (int j = 0; j < CV_K; ++j) hv[j] = -INFINITY;
+    int q0 = 0;
+    while (q0 < P8) {
+#pragma unroll
+      for (int i = 0; i < CV_CHUNK; ++i) {
+        const float4 w = pb[q0 + i];
+#pragma unroll
+        for (int j = 0; j < CV_K; ++j)
+          hv[j] = fmaxf(hv[j],
+                        hts_dot3(w.x, w.y, w.z, px[j], py[j], pz[j]) + w.w);
+      }
+      q0 += CV_CHUNK;
+      bool lost = true;
+#pragma unroll
+      for (int j = 0; j < CV_K; ++j)
+        lost = lost && (p0 + j >= N || hv[j] >= best[j]);
+      if (__all_sync(0xffffffffu, lost)) break;
+    }
+    scanned += q0;
+#pragma unroll
+    for (int j = 0; j < CV_K; ++j)
+      if (hv[j] < best[j]) { best[j] = hv[j]; widx[j] = B + b; }
+  }
+  float* o = out + (size_t)t * 2 * N;
+#pragma unroll
+  for (int j = 0; j < CV_K; ++j) {
+    const int p = p0 + j;
+    if (p >= N) continue;
+    o[p] = best[j];
+    o[N + p] = (float)(widx[j] >= B ? widx[j] - B : widx[j]);
+  }
+  if (evals != nullptr && (tid & 31) == 0)
+    atomicAdd(evals + t, (unsigned long long)scanned);
 }
 #undef PL
 #undef SB
@@ -604,12 +740,11 @@ HTS_EXPORT int hts_cloud_rows_packed(const void* pts, const void* planes,
 }
 
 // pts (T, 8, N); planes (T, 5P, B); body (T, 16, 24); misc (T, 8);
-// out (T, 8, N) rows, or (T, 2, N) [value, body] when vals_only.
-// Requires 5*P*B <= 8192.
+// out (T, 8, N) rows.  Requires 5*P*B <= 8192.
 HTS_EXPORT int hts_cloud_rows_unpacked(const void* pts, const void* planes,
                                        const void* body, const void* misc,
                                        void* out, int T, int N, int P, int B,
-                                       int vals_only, void* stream) {
+                                       void* stream) {
   if (5 * P * B > CR_MAXPB || B > CR_BP || N <= 0)
     return (int)cudaErrorInvalidValue;
   if (T > 0) {
@@ -617,7 +752,35 @@ HTS_EXPORT int hts_cloud_rows_unpacked(const void* pts, const void* planes,
     cloud_rows_unpacked_kernel<<<grid, CU_THREADS, 0,
                                  (cudaStream_t)stream>>>(
         (const float*)pts, (const float*)planes, (const float*)body,
-        (const float*)misc, (float*)out, N, P, B, vals_only);
+        (const float*)misc, (float*)out, N, P, B);
   }
+  return (int)cudaGetLastError();
+}
+
+// pts (T, 8, N); planes (T, 5P, B); body (T, 16, 24); out (T, 2, N)
+// [winner value, winner body]; evals null or (T,) uint64 counts of the
+// planes the warps scanned.  Requires N >= 1, P >= 1, 1 <= B <= 24.
+HTS_EXPORT int hts_cloud_vals(const void* pts, const void* planes,
+                              const void* body, void* out, void* evals,
+                              int T, int N, int P, int B, void* stream) {
+  const size_t smem = cv_smem(P, B);
+  if (N <= 0 || P <= 0 || B <= 0 || B > CR_BP || smem > 227 * 1024)
+    return (int)cudaErrorInvalidValue;
+  if (T <= 0) return (int)cudaGetLastError();
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        cloud_vals_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  // a block of CV_THREADS threads a 2048 points, fewer (whole warps) for a
+  // smaller cloud
+  const int per = CV_THREADS * CV_K;
+  const int nt = N >= per ? CV_THREADS
+                          : ((N + CV_K - 1) / CV_K + 31) / 32 * 32;
+  dim3 grid(T, (N + per - 1) / per);
+  cloud_vals_kernel<<<grid, nt, smem, (cudaStream_t)stream>>>(
+      (const float*)pts, (const float*)planes, (const float*)body,
+      (float*)out, (unsigned long long*)evals, N, P, B);
   return (int)cudaGetLastError();
 }

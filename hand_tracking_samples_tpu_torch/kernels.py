@@ -141,15 +141,15 @@ def ptxas_summary(log: str) -> dict:
 
 def _declare(lib):
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.hts_cloud_from_depth.argtypes = [P, P, P, I, I, I, I, I, I, F, F, F,
-                                         F, F, F, F, F, P]
+    lib.hts_cloud_from_depth.argtypes = [P, P, I, I, I, I, I, I, I, F, F,
+                                         F, F, F, F, P]
     lib.hts_cloud_rows_solve.argtypes = [P, P, P, P, P, P, I, I, I, I, I,
                                          I, P]
     lib.hts_cloud_rows_packed.argtypes = lib.hts_cloud_rows_solve.argtypes
     lib.hts_contact_fields.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I,
                                        I, F, P]
-    lib.hts_cloud_rows_unpacked.argtypes = [P, P, P, P, P, I, I, I, I, I,
-                                            P]
+    lib.hts_cloud_rows_unpacked.argtypes = [P, P, P, P, P, I, I, I, I, P]
+    lib.hts_cloud_vals.argtypes = [P, P, P, P, P, I, I, I, I, P]
     lib.hts_pgs_solve.argtypes = [P, P]
     lib.hts_correspondence.argtypes = [P] * 8 + [I, I, I, I, P]
     lib.hts_row_sweep.argtypes = [P, P]
@@ -157,6 +157,7 @@ def _declare(lib):
     lib.hts_pgs_occupancy.argtypes = [P]
     for fn in (lib.hts_cloud_from_depth, lib.hts_cloud_rows_solve,
                lib.hts_cloud_rows_packed, lib.hts_cloud_rows_unpacked,
+               lib.hts_cloud_vals,
                lib.hts_contact_fields,
                lib.hts_pgs_solve, lib.hts_correspondence,
                lib.hts_row_sweep, lib.hts_row_sweep_occupancy,

@@ -11,8 +11,19 @@ Depth reaches both as int16 holding the u16 raster bit for bit (torch.uint16
 supports few operations); `depth_tensor` makes that view from a NumPy u16
 image.  Output: the planes carrier ph (T, 8, budget) with rows
 [x, y, z, 1, mask, 0, 0, 0].
+
+The kernel tests the range in integers: `valid_range` finds the u16
+depths whose float32 product with the depth scale passes the plain
+version's float test, over all 65,536 values (one interval).
+
+Off the main path: `synthetic_depths` makes the seeded rasters (no valid
+pixel, every pixel valid, exactly `budget` pixels kept, hand-like blobs
+that keep fewer and more than `budget`) that the tests and chip_smoke.py
+hold the kernel to.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -37,6 +48,23 @@ def _scalars(cam, range_lo, range_hi, frac):
                 inv_frac=f(1.0 / frac), cx=cam.principal[0],
                 cy=cam.principal[1], rfx=rcp(cam.focal[0]),
                 rfy=rcp(cam.focal[1]))
+
+
+@functools.lru_cache(maxsize=16)
+def valid_range(scale: float, lo: float, hi: float):
+    """[ulo, uhi): the u16 depths u whose float32 product u * scale lies in
+    [lo, hi) (the float32 values of _scalars), found over all 65,536 values.
+    The rounded product is monotone in u, so they form one interval; the
+    kernel tests the range in integers."""
+    d = np.arange(65536, dtype=np.float32) * np.float32(scale)
+    idx = np.flatnonzero((d >= np.float32(lo)) & (d < np.float32(hi)))
+    if idx.size == 0:
+        return 0, 0
+    ulo, uhi = int(idx[0]), int(idx[-1]) + 1
+    if uhi - ulo != idx.size:
+        raise ValueError(f"the valid depths are not one interval (scale "
+                         f"{scale})")
+    return ulo, uhi
 
 
 def cloud_from_depth_planes_plain(depth, cam, range_lo, range_hi,
@@ -80,27 +108,79 @@ def cloud_from_depth_planes_plain(depth, cam, range_lo, range_hi,
 def cloud_from_depth_planes(depth, cam, range_lo, range_hi, frac: int,
                             budget: int) -> torch.Tensor:
     """The planes route of cloud_from_depth (JAX ops/cloud_kernel.py:273)
-    and the kernel's wrapper: (T, H, W) int16 depth -> (T, 8, budget)."""
+    and the kernel's wrapper: (T, H, W) int16 depth -> (T, 8, budget).
+    On the card one launch a call, one block a track; the output is the
+    only allocation (each kept pixel writes its own slot, so no scratch)."""
     if depth.device.type == "cpu":
         return cloud_from_depth_planes_plain(depth, cam, range_lo, range_hi,
                                              frac, budget)
     if depth.dtype != torch.int16 or depth.dim() != 3:
         raise ValueError("depth must be a (T, H, W) int16 tensor")
     depth = depth.contiguous()
+    if depth.data_ptr() % 16 != 0:      # a view: its 16-byte loads need a copy
+        depth = depth.clone()
     dev = kernels.require_cuda(depth)
     T, H, W = depth.shape
+    if (H * W) % 8 != 0:
+        raise ValueError(f"the kernel reads 8 pixels a load: H*W = {H * W}")
     k = _scalars(cam, range_lo, range_hi, frac)
-    maxkept = -(-(H * W) // frac)
+    ulo, uhi = valid_range(k["scale"], k["lo"], k["hi"])
     out = torch.empty((T, 8, budget), dtype=torch.float32, device=dev)
-    scratch = torch.empty((T, maxkept), dtype=torch.int32, device=dev)
-    lib = kernels.library()
-    err = lib.hts_cloud_from_depth(
-        depth.data_ptr(), out.data_ptr(), scratch.data_ptr(), T, H, W, frac,
-        budget, maxkept, k["lo"], k["hi"], k["scale"], k["inv_frac"],
-        k["cx"], k["cy"], k["rfx"], k["rfy"], kernels.stream_ptr(dev))
+    err = kernels.library().hts_cloud_from_depth(
+        depth.data_ptr(), out.data_ptr(), T, H, W, frac, budget, ulo, uhi,
+        k["scale"], k["inv_frac"], k["cx"], k["cy"], k["rfx"], k["rfy"],
+        kernels.stream_ptr(dev))
     kernels.check(err, "cloud_from_depth")
     cloud_from_depth_planes.launches += 1
     return out
+
+
+def synthetic_depths(T: int, H: int, W: int, seed: int, frac: int = 4,
+                     budget: int = 2048, depth_scale: float = 0.001,
+                     range_lo: float = 0.1, range_hi: float = 0.7):
+    """Seeded u16 rasters (T, H, W) for the kernel's checks, one kind a
+    track by t % 5: 0 no valid pixel (zeros, and depths just outside the
+    range); 1 every pixel valid; 2 exactly `budget` kept pixels (the valid
+    ones scattered); 3 and 4 hand-like: an elliptic blob of depths around
+    0.35-0.5 m with holes, out-of-range specks and the range's two edge
+    values, sized to keep about half of and three times `budget` (as far as
+    the raster holds).  A NumPy array; `depth_tensor` uploads it."""
+    rng = np.random.default_rng(seed)
+    HW = H * W
+    u_lo = int(np.ceil(range_lo / depth_scale))
+    u_hi = int(np.floor(range_hi / depth_scale))
+    lo_edge, hi_edge = range_lo / depth_scale, range_hi / depth_scale
+    out = np.zeros((T, HW), np.uint16)
+    yy, xx = np.divmod(np.arange(HW), W)
+    for t in range(T):
+        kind = t % 5
+        d = np.zeros(HW, np.int64)
+        if kind == 0:
+            n = HW // 3
+            d[rng.choice(HW, n, replace=False)] = rng.choice(
+                [max(int(lo_edge) - 1, 0), int(hi_edge) + 1, 65535], n)
+        elif kind == 1:
+            d[:] = rng.integers(u_lo + 1, u_hi - 1, HW)
+        elif kind == 2:
+            n = min(HW, (budget - 1) * frac + 1)    # kept: ceil(n / frac)
+            d[rng.choice(HW, n, replace=False)] = rng.integers(
+                u_lo + 1, u_hi - 1, n)
+        else:
+            want = min(HW, (budget // 2 if kind == 3 else 3 * budget) * frac)
+            ry = np.sqrt(want / np.pi * rng.uniform(0.6, 0.9))
+            rx = want / np.pi / ry
+            cy = rng.uniform(0.3, 0.7) * H
+            cx = rng.uniform(0.3, 0.7) * W
+            inside = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1.0
+            d[inside] = (rng.uniform(350, 500) + 40 * np.sin(
+                xx[inside] / 7.0) + rng.normal(0, 2, inside.sum())).astype(
+                    np.int64)
+            specks = rng.random(HW) < 0.02
+            d[specks] = rng.choice([0, int(hi_edge) + 5, 65535, u_lo - 1,
+                                    int(lo_edge), int(hi_edge)],
+                                   int(specks.sum()))
+        out[t] = np.clip(d, 0, 65535)
+    return out.reshape(T, H, W)
 
 
 def planes_points(ph):

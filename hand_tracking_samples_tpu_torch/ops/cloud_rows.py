@@ -38,7 +38,7 @@ Off the main path: `pack_slot_map` states in PyTorch how the pack kernels
 fill their slots from their winner scan (the table their row pass walks),
 and `synthetic_cloud` makes the seeded clouds with a thinned body,
 inactive points and inner-sphere winners that the tests and
-chip_smoke.py hold the pack kernels to.
+chip_smoke.py hold the pack kernels and the vals kernel to.
 """
 from __future__ import annotations
 
@@ -462,22 +462,6 @@ def cloud_vals_plain(pts_h, planes_t, body_sc):
     return torch.stack([best, wb.to(torch.float32)], dim=1)
 
 
-def _unpacked_launch(pts_h, planes_t, body_sc, misc, vals_only: bool):
-    args = [x.contiguous() for x in (pts_h, planes_t, body_sc, misc)]
-    dev = kernels.require_cuda(*args)
-    T, _, N = pts_h.shape
-    P, B = planes_t.shape[1] // 5, planes_t.shape[2]
-    if 5 * P * B > 8192 or B > BP:
-        raise ValueError(f"cloud_rows kernel takes 5*P*B <= 8192: P={P} "
-                         f"B={B}")
-    out = torch.empty((T, 2 if vals_only else 8, N), device=dev)
-    err = kernels.library().hts_cloud_rows_unpacked(
-        *[a.data_ptr() for a in args], out.data_ptr(), T, N, P, B,
-        int(vals_only), kernels.stream_ptr(dev))
-    kernels.check(err, "cloud_rows_unpacked")
-    return out
-
-
 @kernels.wrapper("cloud_rows_unpacked")
 def cloud_rows_unpacked(pts_h, planes_t, body_sc, misc):
     """Kernel wrapper (replaces hand_tracking_samples_tpu/ops/
@@ -485,18 +469,49 @@ def cloud_rows_unpacked(pts_h, planes_t, body_sc, misc):
     _cloud_rows_unpacked_call_b at :430): per-point directed rows."""
     if pts_h.device.type == "cpu":
         return cloud_rows_unpacked_plain(pts_h, planes_t, body_sc, misc)
-    out = _unpacked_launch(pts_h, planes_t, body_sc, misc, False)
+    args = [x.contiguous() for x in (pts_h, planes_t, body_sc, misc)]
+    dev = kernels.require_cuda(*args)
+    T, _, N = pts_h.shape
+    P, B = planes_t.shape[1] // 5, planes_t.shape[2]
+    if 5 * P * B > 8192 or B > BP:
+        raise ValueError(f"cloud_rows kernel takes 5*P*B <= 8192: P={P} "
+                         f"B={B}")
+    out = torch.empty((T, 8, N), device=dev)
+    err = kernels.library().hts_cloud_rows_unpacked(
+        *[a.data_ptr() for a in args], out.data_ptr(), T, N, P, B,
+        kernels.stream_ptr(dev))
+    kernels.check(err, "cloud_rows_unpacked")
     cloud_rows_unpacked.launches += 1
     return out
 
 
 @kernels.wrapper("cloud_vals")
-def cloud_vals_k(pts_h, planes_t, body_sc, misc):
+def cloud_vals_k(pts_h, planes_t, body_sc, misc, evals=None):
     """Kernel wrapper (replaces hand_tracking_samples_tpu/ops/
-    cloud_rows.py:34 with vals_only=True, same call): winner per point."""
+    cloud_rows.py:34 with vals_only=True, launched at :409 and :430):
+    (T, 2, N) [winner value, winner body] per point.  misc is not read.
+    evals: None, or a (T,) int64 tensor on the card to which the kernel
+    adds the hull planes its warps scanned (a warp scans B * P8 planes
+    without its exit, P8 = P rounded up to 8)."""
     if pts_h.device.type == "cpu":
         return cloud_vals_plain(pts_h, planes_t, body_sc)
-    out = _unpacked_launch(pts_h, planes_t, body_sc, misc, True)
+    args = [x.contiguous() for x in (pts_h, planes_t, body_sc)]
+    dev = kernels.require_cuda(*args)
+    T, _, N = pts_h.shape
+    P, B = planes_t.shape[1] // 5, planes_t.shape[2]
+    if B > BP or body_sc.shape[1:] != (16, BP):
+        raise ValueError(f"cloud_vals kernel takes B <= {BP} bodies and "
+                         f"body_sc (T, 16, {BP}): B={B}")
+    if evals is not None and (evals.dtype != torch.int64
+                              or evals.shape != (T,)
+                              or evals.device != dev):
+        raise ValueError("evals must be a (T,) int64 tensor on the card")
+    out = torch.empty((T, 2, N), device=dev)
+    err = kernels.library().hts_cloud_vals(
+        *[a.data_ptr() for a in args], out.data_ptr(),
+        0 if evals is None else evals.data_ptr(), T, N, P, B,
+        kernels.stream_ptr(dev))
+    kernels.check(err, "cloud_vals")
     cloud_vals_k.launches += 1
     return out
 
