@@ -8,8 +8,8 @@ Phases, each printing one line with its elapsed seconds:
   1. build (or reuse) the CUDA kernel library: one nvcc call into build/;
      ptxas's registers, stack, spills and static shared memory of the
      redesigned kernels (the row sweep, PGS, cloud-rows pack, contact,
-     correspondence, cloud and vals kernels); the last four (NO_SPILL)
-     must use no stack and spill nothing
+     correspondence, cloud, vals and unpacked-rows kernels); the last five
+     (NO_SPILL) must use no stack and spill nothing
   2. the card's name and power limit, as nvidia-smi reports them
   3. each of the four kernels against its plain PyTorch version at T=4
      tracks, one frame, full width (the cloud kernel, kernel 2 and the
@@ -37,9 +37,9 @@ Phases, each printing one line with its elapsed seconds:
      PGS launch reads its clock64 counters (cycles a step) and the tracks
      an SM holds
   6. the CNN frame's kernels against their plain versions at T=4: the
-     unpacked-rows and vals variants of the cloud-rows kernel (the vals
-     kernel bit for bit, also on seeded clouds, ops.cloud_rows.
-     synthetic_cloud at N=2048 and N=300), and the PGS
+     unpacked-rows and vals variants of the cloud-rows kernel, bit for
+     bit, also on seeded clouds (ops.cloud_rows.synthetic_cloud: the vals
+     kernel at N=2048 and N=300, the unpacked rows at N=512 and N=67), and the PGS
      kernel on a multistep plan and on the unibody plan; and the card forms
      of the contracted arithmetic (maths/fma.py) against its CPU forms
   7. the CNN frame (segmentation, net, FitError, reset with UnibodyFit,
@@ -54,9 +54,9 @@ Phases, each printing one line with its elapsed seconds:
   8. the CNN frame's timing, its device-time split, and the new kernels
      and plans timed at its T=512 shapes beside their bounds, each held to
      its plain version again under phase 6's tolerances (the PGS plans'
-     cycles as in phase 5); the vals kernel's full-scan issue floor, the
-     share of hull-plane evaluations its warp exit skipped (its evals
-     counter), and the vals kernel on seeded clouds at T=512
+     cycles as in phase 5); the vals and unpacked-rows kernels' full-scan
+     issue floor, the share of hull-plane evaluations their warp exits
+     skipped (their evals counters), and both on seeded clouds at T=512
   9. the reference solvers' kernels against their plain versions, bit for
      bit, at T=4 and at T=512 (the T=512 ones timed): the correspondence
      kernel (also at T=4 on seeded inputs whose clip quotients tie and lie
@@ -119,8 +119,8 @@ frame's (phase 13) for kernel 2.5); the last line is
 {"ok": true, "device": {...}}.  Exits non-zero, printing no result, when a
 phase fails, when there is no CUDA device, or when run outside the
 repository.  --json PATH writes every measured number to PATH.  Every
-kernel but the unpacked-rows variant of the cloud-rows kernel is held to
-its plain version bit for bit (max_abs_err 0) at T=4 and T=512.
+kernel is held to its plain version bit for bit (max_abs_err 0) at T=4
+and T=512.
 """
 from __future__ import annotations
 
@@ -178,7 +178,8 @@ KERNELS = {   # name: (source, the TPU kernel it replaces)
 # the kernels redesigned for the card, whose ptxas report phase 1 prints
 REDESIGNED = ("row_sweep_kernel", "pgs_kernel", "cloud_rows_pack_kernel",
               "contact_fields_kernel", "correspondence_kernel",
-              "cloud_from_depth_kernel", "cloud_vals_kernel")
+              "cloud_from_depth_kernel", "cloud_vals_kernel",
+              "cloud_rows_unpacked_kernel")
 # of those, the kernels that must use no stack and spill nothing
 NO_SPILL = REDESIGNED[3:]
 FIRST = ("cloud_from_depth", "cloud_rows_solve", "contact_fields",
@@ -186,6 +187,9 @@ FIRST = ("cloud_from_depth", "cloud_rows_solve", "contact_fields",
 # the PGS kernel's plans that the CNN frame adds: row name -> plan kind
 PLANS = {"pgs_solve[multistep]": "ms", "pgs_solve[unibody]": "uni"}
 NEW = ("cloud_rows_unpacked", "cloud_vals") + tuple(PLANS)
+# the points a warp of the blocked winner scan takes: 32 x the points a
+# thread (csrc/cloud_rows.cu UR_K for kernel 6, CV_K for kernel 7)
+SCAN_WARP_POINTS = {"cloud_rows_unpacked": 32, "cloud_vals": 128}
 # the row sweep on the colored solver's rows: the JAX colored solve's
 # fori_loops (physics/colored.py:300)
 REF_ROWS = {"row_sweep[colored]": (f"{PORT}/csrc/row_sweep.cu",
@@ -424,14 +428,12 @@ class Smoke:
                   f"{int((k[:, 1] != p[:, 1]).sum())} winners differ)")
             return err, (f"vals {err:.3g} (bit-identical; {k.shape[2]} "
                          f"points a track)")
-        if name == "cloud_rows_unpacked":
-            # every row field < 1e-6 of its channel's scale
-            scale = p.abs().amax(dim=(0, 2)).clamp(min=1.0)
-            rel = ((k - p).abs().amax(dim=(0, 2)) / scale).max().item()
+        if name == "cloud_rows_unpacked":    # bit-identical
             err = (k - p).abs().max().item()
-            check(rel < 1e-6, f"unpacked rows differ: {rel}")
-            return err, (f"unibody rows {err:.3g} "
-                         f"({int((p[:, 7] > 0.5).sum())} active)")
+            check(torch.equal(k, p), f"unpacked rows not bit-identical "
+                  f"({err})")
+            return err, (f"unibody rows {err:.3g} (bit-identical; "
+                         f"{int((p[:, 7] > 0.5).sum())} active)")
         if name == "pgs_solve[unibody]":
             # the free body's motion: positions < 1e-5 m, quats < 1e-5
             from hand_tracking_samples_tpu_torch.tracker.runtime import (
@@ -828,15 +830,20 @@ class Smoke:
             T, _, N = pts.shape
             P, B = planes.shape[1] // 5, planes.shape[2]
             nin = sum(x.numel() * 4 for x in (pts, planes, body, misc))
-            # the winner scan (hull planes: 3 mul, 3 add, 1 max; spheres);
-            # the rows add the winner's planes again and the row itself
-            per_pt = B * P * 7 + B * 12
+            # the winner scan: the hull-plane evaluations these inputs need,
+            # those the kernel's exit leaves (scan_exit, run first; 3 mul,
+            # 3 add, 1 max each), and the spheres
+            evals = self.results[name]["hull_plane_evals"]
+            ops = evals * 7 + T * N * B * 12
             if name == "cloud_vals":
-                # the hull-plane evaluations these inputs need: those the
-                # kernel's exit leaves (vals_exit, run first)
-                evals = self.results["cloud_vals"]["hull_plane_evals"]
-                return nin + T * 2 * N * 4, evals * 7 + T * N * B * 12
-            return nin + T * 8 * N * 4, T * N * (per_pt + P * 23 + 60)
+                return nin + T * 2 * N * 4, ops
+            # the row pass: the blend for hull winners (a plane's value and
+            # its comparison, 7), the slab clip for front points (a plane's
+            # value, the difference, the quotient, two side tests, max and
+            # min, 12), and the row itself
+            hull, front = self.row_pass_points(args)
+            return (nin + T * 8 * N * 4,
+                    ops + (hull * 7 + front * 12) * P + T * N * 60)
         plan, it, ip, mom0, mi, singles, lin_rows, ang_rows = args
         T, _, bp = mom0.shape
         B = len(plan.massinv)                 # the real bodies
@@ -965,7 +972,8 @@ class Smoke:
                                          0.0)
         b0 = rt.pose_from_scratch(body, m, an, ph, cam)
         keep, N = rt._subsample4(ph)
-        uph = compact_planes(ph, keep, max(N // 4, 64))
+        # contiguous, as cloud_rows_unibody hands it to the kernel
+        uph = compact_planes(ph, keep, max(N // 4, 64)).contiguous()
         rows = (uph,) + _kernel_inputs_ph(b0.pose, m, cam[:, :3], zb, 0.0)
         x = rt.unibody_inputs(b0, m, self.params, ph, cam[:, :3],
                               cfg.unibody_force)
@@ -1019,33 +1027,34 @@ class Smoke:
                                   inp["P"].get(name))
             self.results[name]["max_abs_err_t4"] = err
             lines.append(note)
-        lines[2] += "; " + self.vals_synthetic(T)
+        lines[1] += "; " + self.scan_synthetic("cloud_rows_unpacked", T)
+        lines[2] += "; " + self.scan_synthetic("cloud_vals", T)
         return "; ".join(lines)
 
-    def vals_synthetic(self, T):
-        """Kernel 7 bit for bit on seeded clouds of
-        ops.cloud_rows.synthetic_cloud around T tracks' poses (a crowded
-        body, points on body centres where the inner sphere ties with or
-        beats the hull, a quarter inactive): N=2048, and N=300 at T=4 (a
-        block's last warp partly past N)."""
+    def scan_synthetic(self, name, T):
+        """Kernel 7 (cloud_vals) or kernel 6 (cloud_rows_unpacked) bit for
+        bit on seeded clouds of ops.cloud_rows.synthetic_cloud around T
+        tracks' poses, the camera at the origin (a crowded body, points on
+        body centres where the inner sphere ties with or beats the hull, a
+        quarter inactive): kernel 7 at N=2048, and N=300 at T=4 (a block's
+        last warp partly past N); kernel 6 at UnibodyFit's N=512 and at
+        N=67 (a thread's 4 points partly past N)."""
         torch = self.torch
         from hand_tracking_samples_tpu_torch.ops.cloud_rows import (
-            _kernel_inputs_ph, cloud_vals_k, cloud_vals_plain,
-            synthetic_cloud)
+            _kernel_inputs_ph, synthetic_cloud)
         pose = self.init_state(T).body.pose
         B = pose.shape[1]
         rest = _kernel_inputs_ph(pose, self.model, (0.0, 0.0, 0.0),
                                  torch.zeros(B, device=self.dev), 0.0)
+        kfn, pfn = self.pairs_of()[name]
+        ns = ((512, 67) if name == "cloud_rows_unpacked"
+              else (2048, 300) if T == 4 else (2048,))
         notes = []
-        for n in (2048, 300) if T == 4 else (2048,):
+        for n in ns:
             pts = synthetic_cloud(pose, n, seed=T + n)
-            k = cloud_vals_k(pts, *rest)
-            p = cloud_vals_plain(pts, *rest[:2])
-            err, _ = self.hold("cloud_vals", k, p)
-            self.results["cloud_vals"][
-                f"max_abs_err_synthetic_t{T}_n{n}"] = err
-            notes.append(f"N={n} {err:.3g} ({int((p[:, 0] < 0).sum())} "
-                         f"inside a body)")
+            err, _ = self.hold(name, kfn(pts, *rest), pfn(pts, *rest))
+            self.results[name][f"max_abs_err_synthetic_t{T}_n{n}"] = err
+            notes.append(f"N={n} {err:.3g}")
         return (f"synthetic clouds T={T} bit-identical "
                 f"({', '.join(notes)})")
 
@@ -1156,9 +1165,10 @@ class Smoke:
             ms, k = self.event_ms(kfn, args, warm=2, reps=10)
             plain_ms, p = self.event_ms(pfn, args, warm=0, reps=1)
             err, note = self.hold(name, k, p, inp["P"].get(name))
-            if name == "cloud_vals":      # its work depends on the data
-                note += "; " + self.vals_exit(args) + "; " \
-                    + self.vals_synthetic(T)
+            if name in ("cloud_vals", "cloud_rows_unpacked"):
+                # their work depends on the data
+                note += "; " + self.scan_exit(name, args) + "; " \
+                    + self.scan_synthetic(name, T)
             nbytes, ops = self.work(name, args)
             tb, to = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_S * 1e3
             self.results[name].update(
@@ -1647,32 +1657,46 @@ class Smoke:
         sms = torch.cuda.get_device_properties(0).multi_processor_count
         return warp_instructions / (4 * sms * self.max_sm_hz) * 1e3
 
-    def vals_exit(self, args):
-        """Kernel 7 on these inputs: the full scan's issue floor (every
-        point against every body's planes, scan_issue_ms), the share of
-        hull-plane evaluations its warp exit skipped (one more launch with
-        its evals counter: the planes each warp scanned, of B * P8, for
-        its 128 points) and the issue floor of those it made."""
+    def scan_exit(self, name, args):
+        """Kernel 7 (cloud_vals) or kernel 6 (cloud_rows_unpacked) on these
+        inputs: the full scan's issue floor (every point against every
+        body's planes, scan_issue_ms), the share of hull-plane evaluations
+        its warp exit skipped (one more launch with its evals counter: the
+        planes each warp scanned, of B * P8, for its SCAN_WARP_POINTS) and
+        the issue floor of those it made."""
         torch = self.torch
-        from hand_tracking_samples_tpu_torch.ops.cloud_rows import (
-            cloud_vals_k)
         pts, planes = args[0], args[1]
         T, _, N = pts.shape
         P, B = planes.shape[1] // 5, planes.shape[2]
         ev = torch.zeros(T, dtype=torch.int64, device=self.dev)
-        cloud_vals_k(*args, evals=ev)
+        self.pairs_of()[name][0](*args, evals=ev)
         torch.cuda.synchronize()
-        warps = T * -(-N // 128)
-        full = warps * B * (-(-P // 8) * 8)
+        wp = SCAN_WARP_POINTS[name]
+        full = T * -(-N // wp) * B * (-(-P // 8) * 8)
         skipped = 1.0 - int(ev.sum()) / full
-        evals = int(ev.sum()) * 128
-        r = self.results["cloud_vals"]
+        evals = int(ev.sum()) * wp
+        r = self.results[name]
         r.update(issue_floor_ms=self.scan_issue_ms(args),
                  exit_skipped_share=skipped, hull_plane_evals=evals,
                  exit_issue_floor_ms=self.issue_ms(evals * 5 / 32))
         return (f"full scan's issue floor {r['issue_floor_ms']:.4f} ms; the "
                 f"exit skipped {skipped:.3f} of the hull-plane evaluations "
                 f"(theirs {r['exit_issue_floor_ms']:.4f} ms)")
+
+    def row_pass_points(self, args):
+        """Kernel 6's row pass on these inputs: the points won by a hull
+        (their blend reads the winner's planes) and the points whose ray
+        meets the normal from the front (their slab clip reads them).  A
+        point is front where the ray and the row's normal meet from the
+        front: a clipped row's normal is the ray's own direction."""
+        from hand_tracking_samples_tpu_torch.ops.cloud_rows import (
+            _winner_plain, cloud_rows_unpacked_plain)
+        pts, planes, body, misc = args
+        _, widx, _ = _winner_plain(pts, planes, body)
+        rows = cloud_rows_unpacked_plain(*args)
+        ray = pts[:, 0:3] - misc[:, 0:3, None]
+        front = (ray * rows[:, 0:3]).sum(1) > 0
+        return int((widx >= planes.shape[2]).sum()), int(front.sum())
 
     def scan_issue_ms(self, args):
         """The least time the pack kernels' exact winner scan takes on

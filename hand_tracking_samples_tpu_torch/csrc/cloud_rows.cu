@@ -71,12 +71,26 @@
 // scatter matmul (a 3-way bf16 split through a one-hot, exact only because
 // every output is a single term) is a direct store here.
 //
-// The unpacked variant (kernel 6): one thread a point, 256-point blocks
-// (grid tracks x point blocks), the track's planes staged in shared
-// memory by every block; the winner scan, then the winner's 96 planes and
-// the row, 8 floats out a point.  Left for later: its plane loop is
-// latency-bound on scalar shared-memory reads; the vals kernel's design
-// would serve it.
+// The unpacked variant (kernel 6): the vals kernel's blocked scan, then
+// the row pass on what the scan kept.
+//   staging   the vals kernel's float4 records and sphere rows, plus the
+//             slab clip's d-at-origin d0[b * SP + q] (planes_t row 4);
+//             one block of 512 threads a track at UnibodyFit's N = 512
+//   scan      the vals kernel's with one point a thread (a warp's 32
+//             points one run of the cloud): spheres first, then the hulls
+//             with the warp exit.  A body that wins is scanned to its end,
+//             so a hull winner's best is the fmax chain's value that the
+//             blend compares against (no dmax pass)
+//   row pass  per point, cr_dirrow on the kept (best, winner): the sphere
+//             normal, the blend of the maximal planes for a hull winner
+//             only, the slab clip only where the ray meets the normal from
+//             the front; 8 floats out a point, a warp's stores coalesced
+// Bound on the H100: operations, the scan's evaluations made plus the row
+// pass: 0.021 ms at T=512 on the CNN frame's reset inputs, whose scan
+// skips 66% of the hull-plane evaluations.  Measured there (chip_ab.py):
+// 0.095 ms (0.353 before this design), 0.032 ms at the T=128 the CNN
+// frame launches (0.097); the row pass takes a third of it, its slab clip
+// (43% of these points meet the normal from the front) 0.020 ms.
 //
 // The vals kernel (kernel 7): the winner value and body of each point,
 // bound by the scan's operations: 11.4 kFLOP a point, 0.18 ms at 512
@@ -111,110 +125,72 @@
 
 #define CR_MAXPB 8192
 #define CR_BP 24
-#define CU_THREADS 256
 
-// planes_t rows: channel k of plane q of body b at spl[(k*P + q)*B + b]
-#define PL(k, q, b) spl[((k) * P + (q)) * B + (b)]
 #define SB(r, b) sb[(r) * CR_BP + (b)]
 
-// The strict-< winner scan: 17 sphere candidates, then 17 hull most-above
-// candidates (the first minimum wins).  widx < B: sphere of body widx;
-// widx >= B: hull of body widx - B.
-__device__ __forceinline__ void cr_winner(const float* spl, const float* sb,
-                                          int P, int B, float px, float py,
-                                          float pz, float* best_out,
-                                          int* widx_out) {
-  float best = 0.0f;
-  int widx = 0;
-  for (int b = 0; b < B; ++b) {
-    const float dx = px - SB(0, b), dy = py - SB(1, b), dz = pz - SB(2, b);
-    const float sv = sqrtf(hts_dot3(dx, dy, dz, dx, dy, dz)) - SB(3, b);
-    if (b == 0 || sv < best) { best = sv; widx = b; }
-  }
-  for (int b = 0; b < B; ++b) {
-    float hv = -INFINITY;
-    for (int q = 0; q < P; ++q) {
-      const float v = hts_dot3(PL(0, q, b), PL(1, q, b), PL(2, q, b), px, py,
-                               pz) + PL(3, q, b);
-      hv = fmaxf(hv, v);
-    }
-    if (hv < best) { best = hv; widx = B + b; }
-  }
-  *best_out = best;
-  *widx_out = widx;
-}
-
-struct CrRow {
-  int wb;                 // winner body
-  float best;             // winner value
+struct CrDirRow {
   float nx, ny, nz;       // row normal
   float w1x, w1y, w1z;    // world attach point
   float td;               // target distance
 };
 
-// Correspondence + CloudConstraint row of one point (directed: the slab
-// clip of the ray origin->p against the winner's hull).
-__device__ __forceinline__ CrRow cr_row(const float* spl, const float* sb,
-                                        int P, int B, float px, float py,
-                                        float pz, float ox, float oy,
-                                        float oz, bool directed) {
-  float best;
-  int widx;
-  cr_winner(spl, sb, P, B, px, py, pz, &best, &widx);
-  const bool use_hull = widx >= B;
-  const int wb = use_hull ? widx - B : widx;
-  float wnx, wny, wnz;
-  {
-    const float dx = px - SB(0, wb), dy = py - SB(1, wb), dz = pz - SB(2, wb);
-    const float inv = 1.0f / fmaxf(sqrtf(hts_dot3(dx, dy, dz, dx, dy, dz)),
-                                   1e-20f);
-    wnx = dx * inv;
-    wny = dy * inv;
-    wnz = dz * inv;
+// The directed CloudConstraint row (physmodel.h:137-181) of point p won by
+// body b: pb and db its plane records and d-at-origin values, (dx, dy, dz)
+// = p - c (c its centre) and dist = |p - c|; hull: its hull won with the
+// most-above value best (the fmax chain of its planes), else its sphere
+// did.  The normal is the sphere's (p - c) / |p - c| or the mean of the
+// hull's maximal planes (dw == best).
+// The slab clip of origin->p against the hull runs only where the ray
+// meets the normal from the front (use_ray needs it; otherwise te, tx and
+// miss are never read): for a camera's own cloud a few points in a
+// hundred, for UnibodyFit's rows at the PoseFromScratch pose about 43%.
+// The same operations in the same order as the plain version
+// (ops/cloud_rows.py _rows_plain), so the same bits.
+__device__ __forceinline__ CrDirRow cr_dirrow(const float4* pb,
+                                              const float* db, int P,
+                                              float px, float py, float pz,
+                                              float dx, float dy, float dz,
+                                              float dist, bool hull,
+                                              float best, float ox,
+                                              float oy, float oz) {
+  const float inv = 1.0f / fmaxf(dist, 1e-20f);
+  float wnx = dx * inv, wny = dy * inv, wnz = dz * inv;
+  if (hull) {          // the blend of the maximal planes
+    float sx = 0.0f, sy = 0.0f, sz = 0.0f, cnt = 0.0f;
+#pragma unroll 4
+    for (int q = 0; q < P; ++q) {
+      const float4 w = pb[q];
+      const float dw = hts_dot3(w.x, w.y, w.z, px, py, pz) + w.w;
+      if (dw == best) { sx += w.x; sy += w.y; sz += w.z; cnt += 1.0f; }
+    }
+    cnt = fmaxf(cnt, 1.0f);
+    wnx = sx / cnt;
+    wny = sy / cnt;
+    wnz = sz / cnt;
   }
-  // the winner body's planes: maximal set, slab clip
-  float dmax = -INFINITY;
-  for (int q = 0; q < P; ++q) {
-    const float v = hts_dot3(PL(0, q, wb), PL(1, q, wb), PL(2, q, wb), px, py,
-                             pz) + PL(3, q, wb);
-    dmax = fmaxf(dmax, v);
-  }
-  float sx = 0.0f, sy = 0.0f, sz = 0.0f, cnt = 0.0f;
-  bool miss = false;
-  float te = 0.0f, tx = 1.0f;
-  for (int q = 0; q < P; ++q) {
-    const float nx = PL(0, q, wb), ny = PL(1, q, wb), nz = PL(2, q, wb);
-    const float dw = hts_dot3(nx, ny, nz, px, py, pz) + PL(3, q, wb);
-    if (dw == dmax) { sx += nx; sy += ny; sz += nz; cnt += 1.0f; }
-    if (directed) {
-      const float dw0 = PL(4, q, wb);
+  const float rx = px - ox, ry = py - oy, rz = pz - oz;
+  const bool front = hts_dot3(rx, ry, rz, wnx, wny, wnz) > 0.0f;
+  bool use_ray = false;
+  float te = 0.0f;
+  if (front) {         // the slab clip of origin->p against the hull
+    bool miss = false;
+    float tx = 1.0f;
+#pragma unroll 4
+    for (int q = 0; q < P; ++q) {
+      const float4 w = pb[q];
+      const float dw = hts_dot3(w.x, w.y, w.z, px, py, pz) + w.w;
+      const float dw0 = db[q];
       if (dw0 >= 0.0f && dw >= 0.0f) miss = true;
       const float den = dw0 - dw;
       const float tt = den != 0.0f ? dw0 / den : 0.0f;
       te = fmaxf(te, (dw0 >= 0.0f && dw < 0.0f) ? tt : 0.0f);
       tx = fminf(tx, (dw0 <= 0.0f && dw > 0.0f) ? tt : 1.0f);
     }
+    use_ray = !miss && te <= tx;
   }
-  if (use_hull) {
-    cnt = fmaxf(cnt, 1.0f);
-    wnx = sx / cnt;
-    wny = sy / cnt;
-    wnz = sz / cnt;
-  }
-  CrRow r;
-  r.wb = wb;
-  r.best = best;
-  bool use_ray = false;
-  float rx = 0.0f, ry = 0.0f, rz = 0.0f, rinv = 0.0f;
-  if (directed) {
-    const bool hit = !miss && te <= tx;
-    rx = px - ox;
-    ry = py - oy;
-    rz = pz - oz;
-    rinv = 1.0f / fmaxf(sqrtf(hts_dot3(rx, ry, rz, rx, ry, rz)), 1e-20f);
-    const bool front = hts_dot3(rx, ry, rz, wnx, wny, wnz) > 0.0f;
-    use_ray = front && hit;
-  }
+  const float rinv =
+      1.0f / fmaxf(sqrtf(hts_dot3(rx, ry, rz, rx, ry, rz)), 1e-20f);
+  CrDirRow r;
   r.w1x = use_ray ? hts_fma(rx, te, ox) : hts_fma(-wnx, best, px);
   r.w1y = use_ray ? hts_fma(ry, te, oy) : hts_fma(-wny, best, py);
   r.w1z = use_ray ? hts_fma(rz, te, oz) : hts_fma(-wnz, best, pz);
@@ -259,11 +235,9 @@ __host__ __device__ __forceinline__ CrpLayout crp_layout(int N, int P, int B,
 }
 
 // Phase B of one filled slot: point (px, py, pz) won by body b (its hull
-// if `hull`, else its sphere); the same operations in the same order as
-// cr_row(directed) and the solve prep, so the same bits.  v: CH channels.
-// The slab clip runs only where the ray meets the normal from the front
-// (use_ray needs it; otherwise its te, tx and miss are never read): for a
-// camera's own cloud that is a few points in a hundred.
+// if `hull`, else its sphere); the winner value, cr_dirrow's row and the
+// solve prep, the same operations in the same order as the plain version,
+// so the same bits.  v: CH channels.
 template <int CH>
 __device__ __forceinline__ void crp_slot(float* v, const float4* pb,
                                          const float* db, const float* sb,
@@ -273,8 +247,6 @@ __device__ __forceinline__ void crp_slot(float* v, const float4* pb,
                                          float wsc) {
   const float dx = px - SB(0, b), dy = py - SB(1, b), dz = pz - SB(2, b);
   const float dist = sqrtf(hts_dot3(dx, dy, dz, dx, dy, dz));
-  const float inv = 1.0f / fmaxf(dist, 1e-20f);
-  float wnx = dx * inv, wny = dy * inv, wnz = dz * inv;
   // the winner value: the hull's most-above plane (the scan's fmax chain)
   // or the sphere's |p - pos| - radius
   float dmax = -INFINITY;
@@ -284,71 +256,31 @@ __device__ __forceinline__ void crp_slot(float* v, const float4* pb,
     dmax = fmaxf(dmax, hts_dot3(w.x, w.y, w.z, px, py, pz) + w.w);
   }
   const float best = hull ? dmax : dist - SB(3, b);
-  if (hull) {          // the blend of the maximal planes
-    float sx = 0.0f, sy = 0.0f, sz = 0.0f, cnt = 0.0f;
-#pragma unroll 4
-    for (int q = 0; q < P; ++q) {
-      const float4 w = pb[q];
-      const float dw = hts_dot3(w.x, w.y, w.z, px, py, pz) + w.w;
-      if (dw == dmax) { sx += w.x; sy += w.y; sz += w.z; cnt += 1.0f; }
-    }
-    cnt = fmaxf(cnt, 1.0f);
-    wnx = sx / cnt;
-    wny = sy / cnt;
-    wnz = sz / cnt;
-  }
-  const float rx = px - ox, ry = py - oy, rz = pz - oz;
-  const bool front = hts_dot3(rx, ry, rz, wnx, wny, wnz) > 0.0f;
-  bool use_ray = false;
-  float te = 0.0f;
-  if (front) {         // the slab clip of origin->p against the hull
-    bool miss = false;
-    float tx = 1.0f;
-#pragma unroll 4
-    for (int q = 0; q < P; ++q) {
-      const float4 w = pb[q];
-      const float dw = hts_dot3(w.x, w.y, w.z, px, py, pz) + w.w;
-      const float dw0 = db[q];
-      if (dw0 >= 0.0f && dw >= 0.0f) miss = true;
-      const float den = dw0 - dw;
-      const float tt = den != 0.0f ? dw0 / den : 0.0f;
-      te = fmaxf(te, (dw0 >= 0.0f && dw < 0.0f) ? tt : 0.0f);
-      tx = fminf(tx, (dw0 <= 0.0f && dw > 0.0f) ? tt : 1.0f);
-    }
-    use_ray = !miss && te <= tx;
-  }
-  const float rinv =
-      1.0f / fmaxf(sqrtf(hts_dot3(rx, ry, rz, rx, ry, rz)), 1e-20f);
-  const float w1x = use_ray ? hts_fma(rx, te, ox) : hts_fma(-wnx, best, px);
-  const float w1y = use_ray ? hts_fma(ry, te, oy) : hts_fma(-wny, best, py);
-  const float w1z = use_ray ? hts_fma(rz, te, oz) : hts_fma(-wnz, best, pz);
-  const float nxf = use_ray ? rx * rinv : wnx;
-  const float nyf = use_ray ? ry * rinv : wny;
-  const float nzf = use_ray ? rz * rinv : wnz;
-  const float td = hts_dot3(w1x - px, w1y - py, w1z - pz, nxf, nyf, nzf);
+  const CrDirRow r = cr_dirrow(pb, db, P, px, py, pz, dx, dy, dz, dist,
+                               hull, best, ox, oy, oz);
   // the solve prep
-  const float r1x = w1x - SB(0, b), r1y = w1y - SB(1, b),
-              r1z = w1z - SB(2, b);
-  const float Jx = hts_subp(r1y, nzf, r1z, nyf);
-  const float Jy = hts_subp(r1z, nxf, r1x, nzf);
-  const float Jz = hts_subp(r1x, nyf, r1y, nxf);
+  const float r1x = r.w1x - SB(0, b), r1y = r.w1y - SB(1, b),
+              r1z = r.w1z - SB(2, b);
+  const float Jx = hts_subp(r1y, r.nz, r1z, r.ny);
+  const float Jy = hts_subp(r1z, r.nx, r1x, r.nz);
+  const float Jz = hts_subp(r1x, r.ny, r1y, r.nx);
   const float Kx = hts_dot3(SB(6, b), SB(7, b), SB(8, b), Jx, Jy, Jz);
   const float Ky = hts_dot3(SB(9, b), SB(10, b), SB(11, b), Jx, Jy, Jz);
   const float Kz = hts_dot3(SB(12, b), SB(13, b), SB(14, b), Jx, Jy, Jz);
   const float ccx = hts_subp(Ky, r1z, Kz, r1y);
   const float ccy = hts_subp(Kz, r1x, Kx, r1z);
   const float ccz = hts_subp(Kx, r1y, Ky, r1x);
-  const float den = SB(5, b) + hts_dot3(ccx, ccy, ccz, nxf, nyf, nzf);
-  v[0] = nxf; v[1] = nyf; v[2] = nzf;
+  const float den = SB(5, b) + hts_dot3(ccx, ccy, ccz, r.nx, r.ny, r.nz);
+  v[0] = r.nx; v[1] = r.ny; v[2] = r.nz;
   v[3] = Jx; v[4] = Jy; v[5] = Jz;
   v[6] = Kx; v[7] = Ky; v[8] = Kz;
   v[9] = den != 0.0f ? 1.0f / den : 0.0f;      // a kept point is active
   if constexpr (CH == 12) {
-    v[10] = td / dt;
+    v[10] = r.td / dt;
     v[11] = wsc;
   } else {
     v[10] = r1x; v[11] = r1y; v[12] = r1z;
-    v[13] = td;
+    v[13] = r.td;
     v[14] = wsc;
     v[15] = 1.0f;
   }
@@ -529,52 +461,15 @@ cloud_rows_pack_kernel(const float* __restrict__ pts,
   }
 }
 
-// Per-point rows without a pack (pack=False, directed): one thread a
-// point, grid (tracks, point blocks).
-__global__ void __launch_bounds__(CU_THREADS)
-cloud_rows_unpacked_kernel(const float* __restrict__ pts,
-                           const float* __restrict__ planes,
-                           const float* __restrict__ body,
-                           const float* __restrict__ misc,
-                           float* __restrict__ out, int N, int P, int B) {
-  __shared__ float spl[CR_MAXPB];
-  __shared__ float sb[16 * CR_BP];
-  const int t = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int PB = 5 * P * B;
-  for (int i = tid; i < PB; i += CU_THREADS)
-    spl[i] = planes[(size_t)t * PB + i];
-  for (int i = tid; i < 16 * CR_BP; i += CU_THREADS)
-    sb[i] = body[(size_t)t * 16 * CR_BP + i];
-  __syncthreads();
-  const int p = blockIdx.y * CU_THREADS + tid;
-  if (p >= N) return;
-  const float* pt = pts + (size_t)t * 8 * N;
-  const float px = pt[0 * N + p], py = pt[1 * N + p], pz = pt[2 * N + p];
-  // out (T, 8, N): [n(3), w1(3), td, active]
-  const float ox = misc[t * 8 + 0], oy = misc[t * 8 + 1];
-  const float oz = misc[t * 8 + 2];
-  const CrRow r = cr_row(spl, sb, P, B, px, py, pz, ox, oy, oz, true);
-  float* o = out + (size_t)t * 8 * N;
-  o[0 * N + p] = r.nx;
-  o[1 * N + p] = r.ny;
-  o[2 * N + p] = r.nz;
-  o[3 * N + p] = r.w1x;
-  o[4 * N + p] = r.w1y;
-  o[5 * N + p] = r.w1z;
-  o[6 * N + p] = r.td;
-  o[7 * N + p] = pt[4 * N + p] > 0.0f ? 1.0f : 0.0f;
-}
-
-// ---- the vals kernel (kernel 7) --------------------------------------------
-// One block takes up to CV_THREADS * CV_K points of a track (grid (tracks,
-// point blocks)); each thread CV_K consecutive points, so a warp's
-// 32 * CV_K points are one run of the cloud (neighbouring pixels, which
-// mostly share their winner).  Shared memory (dynamic): the track's hull
-// planes as float4 records (n.x, n.y, n.z, d), body b's at pl4[b * SP],
-// SP = P8 + 1 with P8 = P rounded up to CV_CHUNK (the pad records
-// (0, 0, 0, -inf) leave a max unchanged), then the spheres' centres and
-// radii sb[r * B + b], r = 0..3.
+// ---- the blocked winner scan (kernels 6 and 7) ---------------------------
+// A block takes up to its threads x K points of a track (grid (tracks,
+// point blocks)); each thread K consecutive points, so a warp's 32 * K
+// points are one run of the cloud (neighbouring pixels, which mostly
+// share their winner).  Shared memory (dynamic): the track's hull planes
+// as float4 records (n.x, n.y, n.z, d), body b's at pl4[b * SP], SP = P8 + 1
+// with P8 = P rounded up to CV_CHUNK (the pad records (0, 0, 0, -inf) leave
+// a max unchanged), then the spheres' centres and radii sb[r * B + b],
+// r = 0..3; kernel 6 adds the slab clip's d at the origin d0[b * SP + q].
 #define CV_THREADS 512
 #define CV_K 4
 #define CV_CHUNK 8
@@ -586,6 +481,176 @@ __host__ __device__ __forceinline__ size_t cv_smem(int P, int B) {
   return (size_t)B * (cv_p8(P) + 1) * 16 + (size_t)4 * B * 4;
 }
 
+// One track's staging: src its planes_t (5P, B), body_t its body
+// scalars (16, CR_BP); d0 null or the d-at-origin array.
+__device__ __forceinline__ void cv_stage(const float* __restrict__ src,
+                                         const float* __restrict__ body_t,
+                                         float4* pl4, float* sb, float* d0,
+                                         int P, int B) {
+  const int P8 = cv_p8(P), SP = P8 + 1, PB = P * B;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  for (int i = tid; i < B * P8; i += nt) {
+    const int q = i / B, b = i - q * B;
+    pl4[b * SP + q] =
+        q < P ? make_float4(src[i], src[PB + i], src[2 * PB + i],
+                            src[3 * PB + i])
+              : make_float4(0.0f, 0.0f, 0.0f, -INFINITY);
+    if (d0 != nullptr && q < P) d0[b * SP + q] = src[4 * PB + i];
+  }
+  for (int i = tid; i < 4 * B; i += nt) {
+    const int r = i / B, b = i - r * B;
+    sb[i] = body_t[r * CR_BP + b];
+  }
+}
+
+// The winner scan of the K points p0 + j (those at or past N count as
+// lost): the spheres' strict-< scan gives the first best, then the hulls
+// in order with the pack's fmax chain.  Once every point of the warp has a
+// partial max >= its best, the body cannot win under strict < and its
+// value is never read: the warp leaves the body.  A body that wins is
+// scanned to its end, so its value keeps its bits.  widx < B: sphere of
+// body widx; widx >= B: hull of body widx - B.  Returns the planes the
+// warp scanned (of B * P8).
+template <int K>
+__device__ __forceinline__ int cv_scan(const float4* pl4, const float* sb,
+                                       int P8, int B, int N, int p0,
+                                       const float (&px)[K],
+                                       const float (&py)[K],
+                                       const float (&pz)[K],
+                                       float (&best)[K], int (&widx)[K]) {
+  const int SP = P8 + 1;
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    best[j] = 0.0f;
+    widx[j] = 0;
+  }
+  for (int b = 0; b < B; ++b) {
+    const float cx = sb[b], cy = sb[B + b], cz = sb[2 * B + b];
+    const float rad = sb[3 * B + b];
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const float dx = px[j] - cx, dy = py[j] - cy, dz = pz[j] - cz;
+      const float sv = sqrtf(hts_dot3(dx, dy, dz, dx, dy, dz)) - rad;
+      if (b == 0 || sv < best[j]) { best[j] = sv; widx[j] = b; }
+    }
+  }
+  int scanned = 0;
+  for (int b = 0; b < B; ++b) {
+    const float4* pb = pl4 + b * SP;
+    float hv[K];
+#pragma unroll
+    for (int j = 0; j < K; ++j) hv[j] = -INFINITY;
+    int q0 = 0;
+    while (q0 < P8) {
+#pragma unroll
+      for (int i = 0; i < CV_CHUNK; ++i) {
+        const float4 w = pb[q0 + i];
+#pragma unroll
+        for (int j = 0; j < K; ++j)
+          hv[j] = fmaxf(hv[j],
+                        hts_dot3(w.x, w.y, w.z, px[j], py[j], pz[j]) + w.w);
+      }
+      q0 += CV_CHUNK;
+      bool lost = true;
+#pragma unroll
+      for (int j = 0; j < K; ++j)
+        lost = lost && (p0 + j >= N || hv[j] >= best[j]);
+      if (__all_sync(0xffffffffu, lost)) break;
+    }
+    scanned += q0;
+#pragma unroll
+    for (int j = 0; j < K; ++j)
+      if (hv[j] < best[j]) { best[j] = hv[j]; widx[j] = B + b; }
+  }
+  return scanned;
+}
+
+// The K points p0 + j of a track's planes carrier pt (T, 8, N) (zeros
+// past N).
+template <int K>
+__device__ __forceinline__ void cv_points(const float* pt, int N, int p0,
+                                          float (&px)[K], float (&py)[K],
+                                          float (&pz)[K]) {
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    const bool in = p0 + j < N;
+    px[j] = in ? pt[p0 + j] : 0.0f;
+    py[j] = in ? pt[N + p0 + j] : 0.0f;
+    pz[j] = in ? pt[2 * N + p0 + j] : 0.0f;
+  }
+}
+
+// ---- kernel 6: per-point directed rows without a pack --------------------
+// UR_THREADS x UR_K points a block: one block of 16 warps a track at the
+// reset's N = 512 (UnibodyFit's stride-4 subsample of the 2048-point
+// cloud), a warp's 32 points one run of it.  The scan and the row pass are
+// latency-bound: on an H100, 2 or 4 points a thread (fewer warps, the
+// pack's register blocking) were 4% and 18% slower at T=512 and 47% and
+// 126% at the CNN frame's T=128; 2 or 4 blocks a track 1-7% slower.
+#define UR_THREADS 512
+#define UR_K 1
+
+__host__ __device__ __forceinline__ size_t ur_smem(int P, int B) {
+  return cv_smem(P, B) + (size_t)B * (cv_p8(P) + 1) * 4;
+}
+
+// out (T, 8, N): [n(3), w1(3), td, active].  evals, when not null, (T,)
+// counts: each warp adds the planes its scan took (of B * P8 a warp).
+__global__ void __launch_bounds__(UR_THREADS, 512 / UR_THREADS)
+cloud_rows_unpacked_kernel(const float* __restrict__ pts,
+                           const float* __restrict__ planes,
+                           const float* __restrict__ body,
+                           const float* __restrict__ misc,
+                           float* __restrict__ out,
+                           unsigned long long* __restrict__ evals, int N,
+                           int P, int B) {
+  extern __shared__ __align__(16) unsigned char ur_sh[];
+  const int P8 = cv_p8(P), SP = P8 + 1;
+  float4* pl4 = (float4*)ur_sh;
+  float* sb = (float*)(ur_sh + (size_t)B * SP * 16);
+  float* d0 = sb + 4 * B;
+  const int t = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
+  cv_stage(planes + (size_t)t * 5 * P * B, body + (size_t)t * 16 * CR_BP,
+           pl4, sb, d0, P, B);
+  __syncthreads();
+
+  const float* pt = pts + (size_t)t * 8 * N;
+  const int p0 = blockIdx.y * (nt * UR_K) + tid * UR_K;
+  float px[UR_K], py[UR_K], pz[UR_K], best[UR_K];
+  int widx[UR_K];
+  cv_points<UR_K>(pt, N, p0, px, py, pz);
+  const int scanned =
+      cv_scan<UR_K>(pl4, sb, P8, B, N, p0, px, py, pz, best, widx);
+
+  // the row pass on the kept (best, winner)
+  const float ox = misc[t * 8 + 0], oy = misc[t * 8 + 1];
+  const float oz = misc[t * 8 + 2];
+  float* o = out + (size_t)t * 8 * N;
+#pragma unroll
+  for (int j = 0; j < UR_K; ++j) {
+    const int p = p0 + j;
+    if (p >= N) continue;
+    const bool hull = widx[j] >= B;
+    const int b = hull ? widx[j] - B : widx[j];
+    const float dx = px[j] - sb[b], dy = py[j] - sb[B + b];
+    const float dz = pz[j] - sb[2 * B + b];
+    const CrDirRow r = cr_dirrow(
+        pl4 + b * SP, d0 + b * SP, P, px[j], py[j], pz[j], dx, dy, dz,
+        sqrtf(hts_dot3(dx, dy, dz, dx, dy, dz)), hull, best[j], ox, oy, oz);
+    o[p] = r.nx;
+    o[N + p] = r.ny;
+    o[2 * N + p] = r.nz;
+    o[3 * N + p] = r.w1x;
+    o[4 * N + p] = r.w1y;
+    o[5 * N + p] = r.w1z;
+    o[6 * N + p] = r.td;
+    o[7 * N + p] = pt[4 * N + p] > 0.0f ? 1.0f : 0.0f;
+  }
+  if (evals != nullptr && (tid & 31) == 0)
+    atomicAdd(evals + t, (unsigned long long)scanned);
+}
+
+// ---- kernel 7: the winner value and body of each point -------------------
 // out (T, 2, N): [winner value, winner body].  evals, when not null,
 // (T,) counts: each warp adds the planes it scanned (of B * P8 a warp).
 __global__ void __launch_bounds__(CV_THREADS, 2)
@@ -599,81 +664,17 @@ cloud_vals_kernel(const float* __restrict__ pts,
   float4* pl4 = (float4*)cv_sh;
   float* sb = (float*)(cv_sh + (size_t)B * SP * 16);
   const int t = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
-
-  // staging: planes_t (5P, B) rows 0-3 into the records, one a thread
-  {
-    const float* src = planes + (size_t)t * 5 * P * B;
-    const int PB = P * B;
-    for (int i = tid; i < B * P8; i += nt) {
-      const int q = i / B, b = i - q * B;
-      pl4[b * SP + q] =
-          q < P ? make_float4(src[i], src[PB + i], src[2 * PB + i],
-                              src[3 * PB + i])
-                : make_float4(0.0f, 0.0f, 0.0f, -INFINITY);
-    }
-    for (int i = tid; i < 4 * B; i += nt) {
-      const int r = i / B, b = i - r * B;
-      sb[i] = body[(size_t)t * 16 * CR_BP + r * CR_BP + b];
-    }
-  }
+  cv_stage(planes + (size_t)t * 5 * P * B, body + (size_t)t * 16 * CR_BP,
+           pl4, sb, nullptr, P, B);
   __syncthreads();
 
   const float* pt = pts + (size_t)t * 8 * N;
   const int p0 = blockIdx.y * (nt * CV_K) + tid * CV_K;
   float px[CV_K], py[CV_K], pz[CV_K], best[CV_K];
   int widx[CV_K];
-#pragma unroll
-  for (int j = 0; j < CV_K; ++j) {
-    const bool in = p0 + j < N;
-    px[j] = in ? pt[p0 + j] : 0.0f;
-    py[j] = in ? pt[N + p0 + j] : 0.0f;
-    pz[j] = in ? pt[2 * N + p0 + j] : 0.0f;
-    best[j] = 0.0f;
-    widx[j] = 0;
-  }
-  // the spheres: the first best
-  for (int b = 0; b < B; ++b) {
-    const float cx = sb[b], cy = sb[B + b], cz = sb[2 * B + b];
-    const float rad = sb[3 * B + b];
-#pragma unroll
-    for (int j = 0; j < CV_K; ++j) {
-      const float dx = px[j] - cx, dy = py[j] - cy, dz = pz[j] - cz;
-      const float sv = sqrtf(hts_dot3(dx, dy, dz, dx, dy, dz)) - rad;
-      if (b == 0 || sv < best[j]) { best[j] = sv; widx[j] = b; }
-    }
-  }
-  // the hulls: the most-above plane, the same fmax chain as the pack's
-  // scan.  Once every point of the warp has a partial max >= its best, the
-  // body cannot win under strict < and its value is never read: the warp
-  // leaves the body.  A body that wins is scanned to its end.
-  int scanned = 0;
-  for (int b = 0; b < B; ++b) {
-    const float4* pb = pl4 + b * SP;
-    float hv[CV_K];
-#pragma unroll
-    for (int j = 0; j < CV_K; ++j) hv[j] = -INFINITY;
-    int q0 = 0;
-    while (q0 < P8) {
-#pragma unroll
-      for (int i = 0; i < CV_CHUNK; ++i) {
-        const float4 w = pb[q0 + i];
-#pragma unroll
-        for (int j = 0; j < CV_K; ++j)
-          hv[j] = fmaxf(hv[j],
-                        hts_dot3(w.x, w.y, w.z, px[j], py[j], pz[j]) + w.w);
-      }
-      q0 += CV_CHUNK;
-      bool lost = true;
-#pragma unroll
-      for (int j = 0; j < CV_K; ++j)
-        lost = lost && (p0 + j >= N || hv[j] >= best[j]);
-      if (__all_sync(0xffffffffu, lost)) break;
-    }
-    scanned += q0;
-#pragma unroll
-    for (int j = 0; j < CV_K; ++j)
-      if (hv[j] < best[j]) { best[j] = hv[j]; widx[j] = B + b; }
-  }
+  cv_points<CV_K>(pt, N, p0, px, py, pz);
+  const int scanned =
+      cv_scan<CV_K>(pl4, sb, P8, B, N, p0, px, py, pz, best, widx);
   float* o = out + (size_t)t * 2 * N;
 #pragma unroll
   for (int j = 0; j < CV_K; ++j) {
@@ -685,7 +686,6 @@ cloud_vals_kernel(const float* __restrict__ pts,
   if (evals != nullptr && (tid & 31) == 0)
     atomicAdd(evals + t, (unsigned long long)scanned);
 }
-#undef PL
 #undef SB
 
 // K = 4 points a thread: 512 threads at the dynamics pass's N = 2048 (2
@@ -740,20 +740,31 @@ HTS_EXPORT int hts_cloud_rows_packed(const void* pts, const void* planes,
 }
 
 // pts (T, 8, N); planes (T, 5P, B); body (T, 16, 24); misc (T, 8);
-// out (T, 8, N) rows.  Requires 5*P*B <= 8192.
+// out (T, 8, N) rows; evals null or (T,) uint64 counts of the planes the
+// warps scanned.  Requires N >= 1, P >= 1, 1 <= B <= 24 and the staged
+// planes in a block's shared memory (ur_smem(P, B) <= 227 KB).
 HTS_EXPORT int hts_cloud_rows_unpacked(const void* pts, const void* planes,
                                        const void* body, const void* misc,
-                                       void* out, int T, int N, int P, int B,
-                                       void* stream) {
-  if (5 * P * B > CR_MAXPB || B > CR_BP || N <= 0)
+                                       void* out, void* evals, int T, int N,
+                                       int P, int B, void* stream) {
+  const size_t smem = ur_smem(P, B);
+  if (N <= 0 || P <= 0 || B <= 0 || B > CR_BP || smem > 227 * 1024)
     return (int)cudaErrorInvalidValue;
-  if (T > 0) {
-    dim3 grid(T, (N + CU_THREADS - 1) / CU_THREADS);
-    cloud_rows_unpacked_kernel<<<grid, CU_THREADS, 0,
-                                 (cudaStream_t)stream>>>(
-        (const float*)pts, (const float*)planes, (const float*)body,
-        (const float*)misc, (float*)out, N, P, B);
+  if (T <= 0) return (int)cudaGetLastError();
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        cloud_rows_unpacked_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
   }
+  // UR_THREADS threads a block, fewer (whole warps) for a smaller cloud
+  const int per = UR_THREADS * UR_K;
+  const int nt = N >= per ? UR_THREADS
+                          : ((N + UR_K - 1) / UR_K + 31) / 32 * 32;
+  dim3 grid(T, (N + per - 1) / per);
+  cloud_rows_unpacked_kernel<<<grid, nt, smem, (cudaStream_t)stream>>>(
+      (const float*)pts, (const float*)planes, (const float*)body,
+      (const float*)misc, (float*)out, (unsigned long long*)evals, N, P, B);
   return (int)cudaGetLastError();
 }
 

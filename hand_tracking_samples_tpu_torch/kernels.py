@@ -148,7 +148,7 @@ def _declare(lib):
     lib.hts_cloud_rows_packed.argtypes = lib.hts_cloud_rows_solve.argtypes
     lib.hts_contact_fields.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I,
                                        I, F, P]
-    lib.hts_cloud_rows_unpacked.argtypes = [P, P, P, P, P, I, I, I, I, P]
+    lib.hts_cloud_rows_unpacked.argtypes = [P] * 6 + [I] * 4 + [P]
     lib.hts_cloud_vals.argtypes = [P, P, P, P, P, I, I, I, I, P]
     lib.hts_pgs_solve.argtypes = [P, P]
     lib.hts_correspondence.argtypes = [P] * 8 + [I, I, I, I, P]

@@ -462,23 +462,44 @@ def cloud_vals_plain(pts_h, planes_t, body_sc):
     return torch.stack([best, wb.to(torch.float32)], dim=1)
 
 
+def _unpacked_smem(P: int, B: int) -> int:
+    """The shared memory kernel 6 stages a track in (csrc ur_smem): its
+    planes as float4 records and d-at-origin values, bodies P8 + 1 apart
+    (P8 = P rounded up to 8), and the sphere rows."""
+    return B * (-(-P // 8) * 8 + 1) * 20 + 16 * B
+
+
+def _evals_ok(evals, T, dev):
+    if evals is not None and (evals.dtype != torch.int64
+                              or evals.shape != (T,)
+                              or evals.device != dev):
+        raise ValueError("evals must be a (T,) int64 tensor on the card")
+
+
 @kernels.wrapper("cloud_rows_unpacked")
-def cloud_rows_unpacked(pts_h, planes_t, body_sc, misc):
+def cloud_rows_unpacked(pts_h, planes_t, body_sc, misc, evals=None):
     """Kernel wrapper (replaces hand_tracking_samples_tpu/ops/
     cloud_rows.py:34 with pack=False, launched by
-    _cloud_rows_unpacked_call_b at :430): per-point directed rows."""
+    _cloud_rows_unpacked_call_b at :430): per-point directed rows.
+    evals: None, or a (T,) int64 tensor on the card to which the kernel
+    adds the hull planes its warps scanned (a warp scans B * P8 planes
+    without its exit, P8 = P rounded up to 8)."""
     if pts_h.device.type == "cpu":
         return cloud_rows_unpacked_plain(pts_h, planes_t, body_sc, misc)
     args = [x.contiguous() for x in (pts_h, planes_t, body_sc, misc)]
     dev = kernels.require_cuda(*args)
     T, _, N = pts_h.shape
     P, B = planes_t.shape[1] // 5, planes_t.shape[2]
-    if 5 * P * B > 8192 or B > BP:
-        raise ValueError(f"cloud_rows kernel takes 5*P*B <= 8192: P={P} "
-                         f"B={B}")
+    if (B > BP or body_sc.shape[1:] != (16, BP)
+            or _unpacked_smem(P, B) > 227 * 1024):
+        raise ValueError(f"cloud_rows_unpacked kernel takes B <= {BP} "
+                         f"bodies, body_sc (T, 16, {BP}) and P, B whose "
+                         f"planes fit 227 KB of shared memory: P={P} B={B}")
+    _evals_ok(evals, T, dev)
     out = torch.empty((T, 8, N), device=dev)
     err = kernels.library().hts_cloud_rows_unpacked(
-        *[a.data_ptr() for a in args], out.data_ptr(), T, N, P, B,
+        *[a.data_ptr() for a in args], out.data_ptr(),
+        0 if evals is None else evals.data_ptr(), T, N, P, B,
         kernels.stream_ptr(dev))
     kernels.check(err, "cloud_rows_unpacked")
     cloud_rows_unpacked.launches += 1
@@ -502,10 +523,7 @@ def cloud_vals_k(pts_h, planes_t, body_sc, misc, evals=None):
     if B > BP or body_sc.shape[1:] != (16, BP):
         raise ValueError(f"cloud_vals kernel takes B <= {BP} bodies and "
                          f"body_sc (T, 16, {BP}): B={B}")
-    if evals is not None and (evals.dtype != torch.int64
-                              or evals.shape != (T,)
-                              or evals.device != dev):
-        raise ValueError("evals must be a (T,) int64 tensor on the card")
+    _evals_ok(evals, T, dev)
     out = torch.empty((T, 2, N), device=dev)
     err = kernels.library().hts_cloud_vals(
         *[a.data_ptr() for a in args], out.data_ptr(),

@@ -29,31 +29,35 @@ torch.set_num_threads(1)
 THREADS = 512    # CV_THREADS: threads a block
 K = 4            # CV_K: consecutive points a thread
 CHUNK = 8        # CV_CHUNK: planes between the warp's exit votes
-WARP_PTS = 32 * K
 
 
-def blocked_vals(pts_h, planes_t, body_sc, strided=False):
+def blocked_vals(pts_h, planes_t, body_sc, strided=False, winners=False,
+                 k=K):
     """Kernel 7's order: (T, 2, N) [winner value, winner body], the planes
     the warps scanned, summed (the kernel's evals counter), and the planes
-    a full scan takes.  strided: a thread's K points THREADS apart
-    (p = j * THREADS + tid in a block of THREADS * K points) instead of
-    consecutive, the layout the kernel does not take (for the share of
-    planes each layout scans; N a multiple of THREADS * K)."""
+    a full scan takes; with winners, also the winner index (T, N) (widx <
+    B: the sphere of body widx, else the hull of body widx - B).  k: the
+    consecutive points a thread (kernel 6 takes 2).  strided: a thread's K
+    points THREADS apart (p = j * THREADS + tid in a block of THREADS * K
+    points) instead of consecutive, the layout the kernel does not take
+    (for the share of planes each layout scans; N a multiple of
+    THREADS * K)."""
     T, _, N = pts_h.shape
     P, B = planes_t.shape[1] // 5, planes_t.shape[2]
     P8 = -(-P // CHUNK) * CHUNK
-    nw = -(-N // WARP_PTS)
-    Np = nw * WARP_PTS
+    warp_pts = 32 * k
+    nw = -(-N // warp_pts)
+    Np = nw * warp_pts
     pts = torch.nn.functional.pad(pts_h[:, 0:3], (0, Np - N))  # (T, 3, Np)
     px, py, pz = pts[:, 0], pts[:, 1], pts[:, 2]              # (T, Np)
     inside = torch.arange(Np) < N
     idx = torch.arange(Np)
     if strided:
-        assert N % (THREADS * K) == 0
+        assert N % (THREADS * K) == 0 and k == K
         warp = (idx // (THREADS * K)) * (THREADS // 32) \
             + (idx % THREADS) // 32
     else:
-        warp = idx // WARP_PTS
+        warp = idx // warp_pts
     perm = torch.argsort(warp, stable=True)        # the warps' points, in turn
     best = torch.zeros_like(px)
     widx = torch.zeros(px.shape, dtype=torch.int64)
@@ -78,11 +82,11 @@ def blocked_vals(pts_h, planes_t, body_sc, strided=False):
         for q in range(CHUNK, P8 + 1, CHUNK):
             part = run[:, q - 1]
             lost = ((part >= best) | ~inside)[:, perm].reshape(
-                T, nw, WARP_PTS).all(-1)
+                T, nw, warp_pts).all(-1)
             leave = lost & ~left
             # a warp that leaves keeps its partial max (>= best, never read)
             at = torch.empty_like(inside.expand(T, Np))
-            at[:, perm] = leave.repeat_interleave(WARP_PTS, 1)
+            at[:, perm] = leave.repeat_interleave(warp_pts, 1)
             hv = torch.where(at, part, hv)
             scanned += int((~left).sum()) * CHUNK
             left |= leave
@@ -91,6 +95,8 @@ def blocked_vals(pts_h, planes_t, body_sc, strided=False):
         widx = torch.where(win, torch.full_like(widx, B + b), widx)
     wb = torch.where(widx >= B, widx - B, widx)
     out = torch.stack([best, wb.to(torch.float32)], dim=1)[..., :N]
+    if winners:
+        return out, scanned, T * nw * B * P8, widx[..., :N]
     return out, scanned, T * nw * B * P8
 
 
