@@ -108,6 +108,26 @@ Phases, each printing one line with its elapsed seconds:
  14. those frames' time at T=512, their device-time split, and kernels 2
      and 2.5 timed at both N beside their plain versions and their bounds,
      held to the plain versions again at the timed shapes
+ 15. the CNN frame on the reference solvers (the JAX package's default
+     tracker): the sequential CNN frame (use_pallas=True) at T=512 for 8
+     frames on phase 7's renders and groups, held to CNN_BAND_MM, with
+     every kernel of its path launched (REF_CNN_PATH: the cloud, contact,
+     vals, unpacked-rows and correspondence kernels, the row sweep, the
+     PGS kernel on the unibody plan only); the C++ goldens with their net
+     (assets/handposedd_synth.cnnb) on 2 tracks, each with use_pallas True
+     and False: synctrack_atc's 12 frames (< 3 mm a frame, mean < 2.5 mm)
+     and synctrack_trained's first 2 (< 5 mm); colored against sequential
+     at 2048 cloud rows a body over 3 CNN frames (COLORED_M,
+     COLORED_QUAT); use_pallas=False on 2 tracks (no cloud-rows,
+     correspondence or PGS launch) and its peak memory at T=64; a 2-track
+     CPU re-run of each configuration's first frame, the reset included
+     (< 1e-4 m); kernel 8 on MultiStepSim's N=512 subsample and the row
+     sweep on a MultiStepSim step's sequential and colored rows and on
+     UnibodyFit's one-body rows, bit for bit with their plain versions at
+     T=4 and T=512
+ 16. both reference-solver CNN frames' time at T=512 (use_pallas=True):
+     host clock, device busy and idle, launches; and phase 15's new kernel
+     shapes timed beside their plain versions and their bounds
 
 Each phase drives its path with the launch counts set to 0 just before it
 and reads them just after.  The line before the last is the kernels' JSON
@@ -208,6 +228,20 @@ SEQ_ODD_BAND_MM = dict(before=0.02, any=2.0, last5=0.5)
 # 0 and 0 on an H100 (PERF.md), as on the CPU.
 COLORED_M, COLORED_QUAT = 1e-5, 1e-5
 NOPALLAS_MEM_TRACKS = 64  # tracks of the use_pallas=False memory reading
+# The CNN frame on the reference solvers (phases 15-16): the kernels it
+# launches with use_pallas (the PGS kernel on the unibody plan only)
+REF_CNN_PATH = ("cloud_from_depth", "contact_fields", "cloud_vals",
+                "cloud_rows_unpacked", "correspondence", "row_sweep",
+                "pgs_solve")
+COLORED_CNN_TRACKS = 128  # colored against sequential, 3 CNN frames
+REF_CNN_TIMED_FRAMES = 4  # CNN frames timed per reference solver
+# the shapes of the path that earlier phases did not run: kernel 8 on
+# MultiStepSim's compacted subsample, the row sweep on MultiStepSim's and
+# on UnibodyFit's one-body rows (use_pallas=False)
+REF_CNN_SHAPES = {"correspondence": "correspondence[N=512]",
+                  "row_sweep": "row_sweep[multistep]",
+                  "row_sweep[colored]": "row_sweep[colored, multistep]",
+                  "row_sweep[unibody]": "row_sweep[unibody]"}
 # The voxel and mirror clouds (phases 12-14).  The far plane lies beyond
 # every valid depth of the renders (0.343-0.512 m), so its split is a no-op
 # there and the tracks meet the gates of the plain cloud; the cutting plane
@@ -1006,7 +1040,7 @@ class Smoke:
                         * b[: n // 2]).astype(self.np.float32)  # near ties
         x = self.np.float32(1 + 2 ** -12)          # a double-rounding case
         a[0], b[0], c[0] = x, x, self.np.float32(2 ** -70)
-        cpu = fq.fma(*(torch.tensor(v) for v in (a, b, c)))
+        cpu = fq.fma_exact(*(torch.tensor(v) for v in (a, b, c)))
         card = fq.fma(*(torch.tensor(v, device=self.dev)
                         for v in (a, b, c))).cpu()
         check(torch.equal(cpu, card), "addcmul on the card is not one fused "
@@ -1014,7 +1048,9 @@ class Smoke:
         r = torch.tensor(self.np.abs(a) * 1e3)
         check(torch.equal(fq.sqrt(r), fq.sqrt(r.to(self.dev)).cpu()),
               "sqrt on the card is not correctly rounded")
-        return f"fma and sqrt card forms equal the CPU forms ({n} values)"
+        return (f"fma and sqrt card forms equal the exact CPU forms ({n} "
+                f"values); this build's CPU addcmul is "
+                f"{'fused' if fq._cpu_addcmul_fused() else 'not fused'}")
 
     def compare_cnn(self):
         T = 4
@@ -1242,8 +1278,10 @@ class Smoke:
         check(err == 0.0, f"{name} differs from its plain version: {err}")
         return err, f"{name} momenta {err:.3g}"
 
-    def work_ref(self, name, args):
-        """(bytes, float32 operations) of one call on these inputs."""
+    def work_ref(self, name, args, rec=None):
+        """(bytes, float32 operations) of one call on these inputs; the
+        correspondence's clip candidates go into rec (default the
+        kernel's record)."""
         torch = self.torch
         if name == "correspondence":
             pts_h, planes, d0 = args
@@ -1261,7 +1299,8 @@ class Smoke:
                 ndiv += int((((a >= 0) & (d1 < 0)) | ((a <= 0) & (d1 > 0)))
                             .sum())
             nbytes = T * N * 3 * 4 + T * B * P * 5 * 4 + 5 * T * B * N * 4
-            self.results[name]["clip_candidates"] = ndiv
+            (self.results[name] if rec is None else rec)[
+                "clip_candidates"] = ndiv
             return nbytes, T * B * P * N * 12 + ndiv * 2
         mom0, mi, rows, it, ip = args
         T = mom0.shape[0]
@@ -1351,19 +1390,22 @@ class Smoke:
         self.results["correspondence"]["max_abs_err_synthetic"] = err
         return f"T=4 synthetic near-ties: {note}"
 
-    def waves(self, name, args):
+    def waves(self, name, args, rec=None):
         """The wavefront of the row sweep's rows (wave_schedule): level
         steps a sweep (linear + angular levels) over the tracks, and the
         design's streamed floor (every active row's 96-byte record read
-        every sweep) at the card's memory rate."""
+        every sweep) at the card's memory rate; recorded in rec (default
+        the kernel's record)."""
         from hand_tracking_samples_tpu_torch.physics.row_sweep import (
             REC, wave_schedule)
         mom0, _, rows, it, ip = args
         ws = wave_schedule(rows.lm, rows.am)
-        lev = (ws.lin_level.amax(1) + ws.ang_level.amax(1)).double()
+        top = lambda lv: (lv.amax(1) if lv.shape[1]     # no rows: 0
+                          else lv.new_zeros(lv.shape[0]))
+        lev = (top(ws.lin_level) + top(ws.ang_level)).double()
         nrows = int((ws.lin_level > 0).sum() + (ws.ang_level > 0).sum())
         floor = nrows * REC * 4 * (it + ip) / PEAK_BYTES_S * 1e3
-        self.results[name].update(
+        (self.results[name] if rec is None else rec).update(
             levels_mean=lev.mean().item(), levels_max=lev.max().item(),
             active_rows_mean=nrows / mom0.shape[0], stream_floor_ms=floor)
         return (f"levels a sweep mean {lev.mean().item():.1f}, max "
@@ -2109,6 +2151,342 @@ class Smoke:
         return f"T={T}: " + "; ".join(parts)
 
 
+    # ---- the CNN frame on the reference solvers: phases 15-16 --------------
+    def cnn_ref_cfg(self, solver, use_pallas=True, **kw):
+        from hand_tracking_samples_tpu_torch.tracker.config import (
+            TrackerConfig)
+        return TrackerConfig(cnn_every_frame=True, cnn_every_k=1,
+                             solver=solver, use_pallas=use_pallas,
+                             point_budget=2048, **kw)
+
+    def cnn_ref_inputs(self, st, depth):
+        """The reference CNN frame's new kernel shapes for state st and
+        depth (T, H, W): kernel 8 on MultiStepSim's subsample (N=512), the
+        row sweep on MultiStepSim's step-1 rows (keypoints, cloud,
+        ApplyAngles, the arm cone, joints, contacts, ranges) for the
+        sequential and the colored solve, and on the one-body rows of
+        UnibodyFit without the kernels (at the PoseFromScratch pose)."""
+        from hand_tracking_samples_tpu_torch.model.hand import body_params
+        from hand_tracking_samples_tpu_torch.ops import correspondence as oc
+        from hand_tracking_samples_tpu_torch.physics.colored import (
+            colored_sweep_inputs)
+        from hand_tracking_samples_tpu_torch.physics.schedule import (
+            build_hand_schedule)
+        from hand_tracking_samples_tpu_torch.physics.solver import (
+            sweep_inputs)
+        from hand_tracking_samples_tpu_torch.tracker import runtime as rt
+        cfg, m, body = self.cnn_ref_cfg("sequential"), self.model, st.body
+        it, ip = cfg.physics_iterations, cfg.physics_iterations_post
+        seg, an, _, _, ph = rt._cnn_frame_inputs(self.cnn, depth, self.cam,
+                                                 cfg)
+        cam = seg.cam.pose
+        ms = rt.multistep_reference_cloud(ph, cam, cfg, m.n_bodies)
+        pw = oc.world_planes(body.pose, m)
+        out = {"correspondence": (oc.points_h(ms.points), pw,
+                                  oc.origin_dots(pw, m, ms.origin))}
+        for name, sched, fn in (
+                ("row_sweep", None, sweep_inputs),
+                ("row_sweep[colored]", build_hand_schedule(m.np),
+                 colored_sweep_inputs)):
+            lin, ang = rt.multistep_rows(body, m, an, ms, cam, cfg,
+                                         self.params, 1, sched)
+            mom0, rows = fn(body, body_params(m), lin, ang, self.params)
+            out[name] = (mom0, m.massinv, rows, it, ip)
+        b0 = rt.pose_from_scratch(body, m, an, ph, cam)
+        ust, ubody, blk = rt.unibody_rows(b0, m, ph, cam[:, :3],
+                                          cfg.unibody_force)
+        mom0, rows = colored_sweep_inputs(ust, ubody, [blk], [], self.params)
+        out["row_sweep[unibody]"] = (mom0, ubody.massinv, rows, it, ip)
+        return out
+
+    def ref_sweep_fns(self):
+        from hand_tracking_samples_tpu_torch.ops.correspondence import (
+            correspondence_reductions, correspondence_reductions_plain)
+        from hand_tracking_samples_tpu_torch.physics.row_sweep import (
+            row_sweep, row_sweep_plain)
+        sweep = (row_sweep, row_sweep_plain)
+        return {"correspondence": (correspondence_reductions,
+                                   correspondence_reductions_plain),
+                "row_sweep": sweep, "row_sweep[colored]": sweep,
+                "row_sweep[unibody]": sweep}
+
+    def golden_cnn(self, use_pallas):
+        """The C++ goldens with their net (assets/handposedd_synth.cnnb) on
+        the sequential solver, T=2 tracks from the start pose on the cached
+        dyn30 renders: synctrack_atc (always_take_cnn, bank frames 0, 2,
+        .., 22; every frame's mean joint deviation < 3 mm and their mean <
+        2.5 mm, tests/test_tracker_e2e.py:148-150) and synctrack_trained's
+        first 2 frames (bank 0, 7; every coordinate within 5 mm, :116)."""
+        torch, np = self.torch, self.np
+        from hand_tracking_samples_tpu_torch.cnn.model import load_cnnb
+        from hand_tracking_samples_tpu_torch.parallel.tracks import (
+            batched_tracker_state, batched_update)
+        from hand_tracking_samples_tpu_torch.tracker.config import (
+            TrackerConfig)
+        if not hasattr(self, "golden_net"):
+            path = os.path.join(REPO, "assets", "handposedd_synth.cnnb")
+            check(os.path.exists(path), f"the C++ goldens' net {path} is "
+                  f"missing")
+            self.golden_net = load_cnnb(path, self.dev)
+        with open(os.path.join(REPO, "tests", "fixtures", "golden.json")) as f:
+            g = json.load(f)
+        out = {}
+        for name, frames, stride, kw in (
+                ("synctrack_atc", 12, 2, dict(always_take_cnn=True)),
+                ("synctrack_trained", 2, 7, {})):
+            cfg = TrackerConfig(point_budget=2048, use_pallas=use_pallas,
+                                **kw)
+            ref = torch.tensor(np.asarray(g[f"{name}_poses"], np.float32)
+                               .reshape(-1, 17, 7), device=self.dev)
+            st = batched_tracker_state(self.model, 2)
+            devs = []
+            for f in range(frames):
+                d = self.dyn[(f * stride) % len(self.dyn)].expand(2, -1, -1)
+                st, _ = batched_update(st, self.model, self.golden_net,
+                                       d.contiguous(), self.cam, cfg,
+                                       self.params)
+                diff = st.body.pose[..., :3] - ref[f][:, :3]
+                devs.append(diff.norm(dim=-1).mean(-1).max().item()
+                            if name == "synctrack_atc"
+                            else diff.abs().max().item())
+            devs = np.asarray(devs)
+            mm = " ".join(f"{x * 1e3:.3f}" for x in devs)
+            if name == "synctrack_atc":
+                check((devs < 3e-3).all() and devs.mean() < 2.5e-3,
+                      f"{name} (use_pallas={use_pallas}): mean joint "
+                      f"deviation per frame [{mm}] mm")
+            else:
+                check((devs < 5e-3).all(), f"{name} (use_pallas="
+                      f"{use_pallas}): largest deviation per frame [{mm}] mm")
+            out[name] = devs.tolist()
+        return out
+
+    def cnn_ref_slice(self):
+        """Phase 15: the sequential CNN frame (use_pallas=True) at T=512 x
+        8 frames on phase 7's renders and groups (CNN_BAND_MM); the C++
+        goldens with use_pallas True and False; colored against sequential
+        at 2048 cloud rows a body over 3 CNN frames; use_pallas=False on
+        the card with its peak memory; 2-track CPU re-runs of each
+        configuration's first frame; kernel 8 at N=512 and the row sweep
+        on MultiStepSim's and UnibodyFit's rows bit for bit at T=4 and
+        T=512."""
+        torch = self.torch
+        from hand_tracking_samples_tpu_torch import kernels
+        from hand_tracking_samples_tpu_torch.physics.pgs_kernel import (
+            pgs_solve)
+        T, F = CNN_TRACKS, CNN_FRAMES
+        cfg = self.cnn_ref_cfg("sequential")
+        grp = self.reset_group(T)
+        bank = torch.tensor(self.bank, device=self.dev)
+        fmt = lambda v: " ".join(f"{e:.2f}" for e in v)
+        box = []
+
+        def keep(st):
+            je = (st.body.pose[..., :3] - bank[30 + len(box)][:, :3]).norm(
+                dim=-1).mean(-1)
+            box.append(0)
+            return (je[~grp].mean(), je[~grp].max(), je[grp].mean(),
+                    je[grp].max(), st.body.pose[[0, 3]].clone())
+        kernels.reset_counts()
+        st, hist = self.cnn_run(self.cnn_state(T), F, T, keep=keep, cfg=cfg)
+        counts = kernels.counts()
+        kinds = dict(pgs_solve.kinds)
+        torch.cuda.synchronize()
+        check(all(counts[k] > 0 for k in REF_CNN_PATH),
+              f"a kernel of the path did not launch: {counts}")
+        check(counts["cloud_rows_solve"] == 0
+              and counts["cloud_rows_packed"] == 0 and set(kinds) == {"uni"},
+              f"a kernel solver's kernel launched: {counts}, plans {kinds}")
+        check(bool(torch.isfinite(st.body.pose).all()), "non-finite poses")
+        gt_mean, gt_max, rs_mean, rs_max = (
+            torch.stack([x[i] for x in hist]).cpu().numpy() * 1e3
+            for i in range(4))
+        band = CNN_BAND_MM
+        check(gt_max.max() < band["gt"] and rs_max[0] < band["reset_first"]
+              and rs_max[-1] < band["reset_last"],
+              f"sequential CNN frame outside {band}: on-hand tracks per "
+              f"frame [{fmt(gt_max)}] mm, reset tracks [{fmt(rs_max)}] mm")
+        self.cnn_ref_final = st
+        cpu = {"sequential": self.cnn_cpu_reference([hist[0][4]], cfg)}
+        lines = [f"sequential T={T} F={F}: joint err on-hand "
+                 f"[{fmt(gt_mean)}] mm, reset [{fmt(rs_mean)}] mm; launches "
+                 f"{counts}, PGS plans {kinds}"]
+
+        # the C++ goldens
+        golden = {f"use_pallas_{up}": self.golden_cnn(up)
+                  for up in (True, False)}
+        lines.append("C++ goldens: " + "; ".join(
+            f"{k} {n} [{fmt([x * 1e3 for x in v])}] mm"
+            for k, r in golden.items() for n, v in r.items()))
+
+        # colored against sequential, no cloud row thinned
+        Tc = COLORED_CNN_TRACKS
+        cmp = []
+        for solver in ("sequential", "colored"):
+            c = self.cnn_ref_cfg(solver, cloud_rows_per_body=2048)
+            _, h = self.cnn_run(self.cnn_state(Tc), 3, Tc, cfg=c,
+                                keep=lambda s: s.body.pose.clone())
+            cmp.append(h)
+        cerr = max((a[..., :3] - b[..., :3]).abs().max().item()
+                   for a, b in zip(*cmp))
+        qerr = max(quat_err(a[..., 3:], b[..., 3:]) for a, b in zip(*cmp))
+        check(cerr < COLORED_M and qerr < COLORED_QUAT,
+              f"colored CNN frame differs from sequential: {cerr} m, quat "
+              f"{qerr}")
+        cpu["colored"] = self.cnn_cpu_reference(
+            [cmp[1][0][[0, 3]]], self.cnn_ref_cfg("colored",
+                                                  cloud_rows_per_body=2048))
+        lines.append(f"colored vs sequential (2048 rows a body, T={Tc}, 3 "
+                     f"frames) {cerr:.3g} m, quat {qerr:.3g}")
+
+        # use_pallas=False on the card: 2 tracks against the CPU, the peak
+        # memory of one frame at NOPALLAS_MEM_TRACKS
+        nop = self.cnn_ref_cfg("sequential", use_pallas=False)
+        idx = torch.tensor([0, 3], device=self.dev)
+        full = self.cnn_state(4)
+        st2 = type(full)(type(full.body)(*[x[idx] for x in full.body]),
+                         full.prev_frame_error[idx], full.initializing[idx])
+        kernels.reset_counts()
+        _, h = self.cnn_run(st2, 1, 4, idx=idx, cfg=nop,
+                            keep=lambda s: s.body.pose.clone())
+        ncounts = kernels.counts()
+        check(all(ncounts[k] == 0 for k in ("correspondence", "cloud_vals",
+                                            "cloud_rows_unpacked",
+                                            "pgs_solve"))
+              and ncounts["row_sweep"] > 0 and ncounts["contact_fields"] > 0,
+              f"use_pallas=False launched: {ncounts}")
+        cpu["sequential_nopallas"] = self.cnn_cpu_reference(h, nop)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        m0 = torch.cuda.memory_allocated()
+        Tn = NOPALLAS_MEM_TRACKS
+        self.cnn_run(self.cnn_state(Tn), 1, Tn, cfg=nop)
+        torch.cuda.synchronize()
+        npeak = (torch.cuda.max_memory_allocated() - m0) / 2**30
+        lines.append(f"use_pallas=False: launches {ncounts}; peak at T={Tn} "
+                     f"{npeak:.3f} GiB")
+        lines.append("CPU plain reference (first frame, reset included) "
+                     + ", ".join(f"{k} {v:.2g} m" for k, v in cpu.items()))
+
+        # the new kernel shapes against their plain versions, bit for bit
+        errs = {}
+        fns = self.ref_sweep_fns()
+        for t in (4, T):
+            inp = self.cnn_ref_inputs(self.cnn_state(t),
+                                      self.cnn_depth(1, t))
+            for name, (kfn, pfn) in fns.items():
+                err, _ = self.hold_ref(name, kfn(*inp[name]),
+                                       pfn(*inp[name]))
+                errs[f"{name}_t{t}"] = err
+        lines.append("kernel 8 at N=512 and the row sweep on MultiStepSim's "
+                     "and UnibodyFit's rows vs plain: " + ", ".join(
+                         f"{k} {v:.3g}" for k, v in errs.items()))
+        self.cnn_ref_stats = dict(
+            gt_joint_err_mm_per_frame=gt_mean.tolist(),
+            gt_joint_err_mm_max_per_frame=gt_max.tolist(),
+            reset_joint_err_mm_per_frame=rs_mean.tolist(),
+            reset_joint_err_mm_max_per_frame=rs_max.tolist(),
+            launches=counts, pgs_plans=kinds, golden_dev_m=golden,
+            colored_vs_sequential_m=cerr, colored_vs_sequential_quat=qerr,
+            nopallas_launches=ncounts, nopallas_peak_gib=npeak,
+            nopallas_peak_tracks=Tn, cpu_reference_err_m=cpu,
+            new_shapes_max_abs_err=errs)
+        return "; ".join(lines)
+
+    def cnn_ref_timing(self):
+        """Phase 16: both CNN frames on the reference solvers
+        (use_pallas=True) at T=512: frame time, device busy and idle, the
+        launches of the timed frames; then kernel 8 at N=512 and the row
+        sweep on MultiStepSim's and UnibodyFit's rows timed (CUDA events)
+        beside their plain versions and bounds."""
+        torch = self.torch
+        from hand_tracking_samples_tpu_torch import kernels
+        T, F = CNN_TRACKS, REF_CNN_TIMED_FRAMES
+        self.cnn_ref_speed = {}
+        parts = []
+        for solver in ("sequential", "colored"):
+            cfg = self.cnn_ref_cfg(solver)
+            run = lambda st, fr, t, cfg=cfg: self.cnn_run(st, fr, t, cfg=cfg)
+            run(self.cnn_state(T), 1, T)                          # warm
+            torch.cuda.synchronize()
+            kernels.reset_counts()
+            t0 = time.perf_counter()
+            run(self.cnn_state(T), F, T)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = {k: v for k, v in kernels.counts().items() if v}
+            prof = self.profile(T, 2, run=run, state=self.cnn_state(T))
+            self.cnn_ref_speed[solver] = dict(
+                tracks=T, frames=F, seconds=dt, ms_per_frame=dt / F * 1e3,
+                tracked_fps=T * F / dt, launches=counts, **prof)
+            # idle: the timed frames' host clock less the device's busy
+            # time (the profiled frames' own clock carries the profiler)
+            idle = dt / F * 1e3 - prof.get("device_ms_per_frame", 0.0)
+            self.cnn_ref_speed[solver]["idle_ms_per_frame"] = idle
+            busy = (f"device busy {prof['device_ms_per_frame']:.2f} ms, idle "
+                    f"{idle:.1f} ms ({idle / (dt / F * 1e3):.0%}) (port "
+                    f"kernels {prof['port_kernels_ms_per_frame']:.2f}"
+                    f", {prof['torch_launches_per_frame']:.0f} PyTorch "
+                    f"launches {prof['torch_ops_ms_per_frame']:.2f})"
+                    if "device_ms_per_frame" in prof
+                    else f"profile not measured ({prof['profile_error']})")
+            parts.append(f"{solver} CNN frame {dt / F * 1e3:.1f} ms, "
+                         f"{T * F / dt:.1f} tracked frames/s, {busy}, "
+                         f"launches {counts}")
+        inp = self.cnn_ref_inputs(self.cnn_ref_final,
+                                  self.cnn_depth(CNN_FRAMES - 1, T))
+        self.cnn_ref_shapes = {}
+        for name, (kfn, pfn) in self.ref_sweep_fns().items():
+            args = inp[name]
+            ms, k = self.event_ms(kfn, args, warm=2, reps=5)
+            plain_ms, p = self.event_ms(pfn, args, warm=0, reps=1)
+            err, note = self.hold_ref(name, k, p)
+            rec = {}
+            nbytes, ops = self.work_ref(name, args, rec)
+            tb, to = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_S * 1e3
+            rec.update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       bound_ms=max(tb, to),
+                       bound_by="bytes" if tb >= to else "operations",
+                       bytes=nbytes, operations=ops)
+            if name != "correspondence":
+                note += "; " + self.waves(name, args, rec)
+            key = REF_CNN_SHAPES[name]
+            self.cnn_ref_shapes[key] = rec
+            parts.append(f"{key} {ms:.4f} ms (plain {plain_ms:.1f} ms, bound "
+                         f"{max(tb, to):.4f} ms by {rec['bound_by']}; {note})")
+        parts.append(self.unpacked_reset_subset())
+        return f"T={T}: " + "; ".join(parts)
+
+    def unpacked_reset_subset(self):
+        """Kernel 6 at the shape the CNN frames launch it with: the tracks
+        that reset on the first frame (every 4th, T=128 of 512), at their
+        PoseFromScratch poses; timed beside its plain version and its bound
+        (the hull-plane evaluations its exit makes on these inputs and the
+        row pass), recorded as the kernel's "reset_t128"."""
+        name = "cloud_rows_unpacked"
+        inp = self.cnn_kernel_inputs(self.cnn_state(CNN_TRACKS),
+                                     self.cnn_depth(0, CNN_TRACKS))
+        grp = self.reset_group(CNN_TRACKS)
+        args = tuple(x[grp].contiguous() for x in inp[name])
+        kfn, pfn = self.pairs_of()[name]
+        ms, k = self.event_ms(kfn, args, warm=2, reps=10)
+        plain_ms, p = self.event_ms(pfn, args, warm=0, reps=1)
+        err, note = self.hold(name, k, p)
+        saved = dict(self.results[name])          # scan_exit records here
+        note += "; " + self.scan_exit(name, args)
+        nbytes, ops = self.work(name, args)
+        tb, to = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_S * 1e3
+        rec = {k: self.results[name][k] for k in (
+            "exit_skipped_share", "hull_plane_evals", "exit_issue_floor_ms")}
+        rec.update(tracks=int(grp.sum()), max_abs_err=err, ms=ms,
+                   plain_ms=plain_ms, bound_ms=max(tb, to),
+                   bound_by="bytes" if tb >= to else "operations",
+                   bytes=nbytes, operations=ops)
+        self.results[name] = dict(saved, reset_t128=rec)
+        return (f"{name} on the reset tracks (T={rec['tracks']}) {ms:.4f} "
+                f"ms (plain {plain_ms:.2f} ms, bound {rec['bound_ms']:.4f} "
+                f"ms by {rec['bound_by']}; {note})")
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--json", help="also write every measured number to "
@@ -2203,6 +2581,8 @@ def main(argv=None) -> int:
     phase(12, "kernels 2 and 2.5 vs plain (T=4, T=512)", s.compare_pack)
     phase(13, "voxel and mirror frames", s.cloud_slice)
     phase(14, "voxel and mirror timing", s.cloud_timing)
+    phase(15, "CNN frame on the reference solvers", s.cnn_ref_slice)
+    phase(16, "reference-solver CNN frame timing", s.cnn_ref_timing)
     s.results["row_sweep[colored]"]["launches"] = \
         s.ref_speed["colored"]["launches"]["row_sweep"]
     record["total_s"] = time.perf_counter() - t_all
@@ -2226,7 +2606,10 @@ def main(argv=None) -> int:
                            reference=s.ref_stats,
                            reference_speed=s.ref_speed,
                            clouds=s.cloud_stats, cloud_speed=s.cloud_speed,
-                           pack_err=s.pack_err),
+                           pack_err=s.pack_err,
+                           cnn_reference=s.cnn_ref_stats,
+                           cnn_reference_speed=s.cnn_ref_speed,
+                           cnn_reference_shapes=s.cnn_ref_shapes),
                       f, indent=1, default=str)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

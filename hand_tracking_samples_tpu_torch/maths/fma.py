@@ -11,8 +11,11 @@ computes the same contracted expressions.
 `fma(a, b, c)` is a correctly rounded float32 fused multiply-add (one
 rounding, as fmaf and the CPU's vfmadd compute it).  On the card it is
 PyTorch's addcmul, whose CUDA kernel compiles `c + 1*a*b` to one FFMA
-(chip_smoke.py phase 6 holds it to the CPU form below, bit for bit).  On
-the CPU it is computed exactly in PyTorch operations: the product a*b is
+(chip_smoke.py phase 6 holds it to the exact form below, bit for bit).  On
+the CPU it is addcmul too where this PyTorch build's CPU kernel fuses it
+(checked once a process against the exact form, `_cpu_addcmul_fused`),
+and otherwise `fma_exact`, computed exactly in PyTorch operations: the
+product a*b is
 exact in float64 (two float32 significands have at most 48 bits), the
 float64 sum is rounded to odd (Boldo and Melquiond: the sum and its exact
 error by TwoSum, the last bit set where the sum was inexact), and the
@@ -38,11 +41,45 @@ def _device(*xs):
 def fma(a, b, c):
     """float32(a*b + c) rounded once (see the module note)."""
     dev = _device(a, b, c)
-    if dev.type == "cuda":       # a Python float: a fill, not a copy
-        a, b, c = (x if torch.is_tensor(x) else
+    if dev.type == "cuda" or _cpu_addcmul_fused():
+        a, b, c = (x if torch.is_tensor(x) else  # a fill, not a copy
                    torch.full((), x, dtype=torch.float32, device=dev)
                    for x in (a, b, c))
         return torch.addcmul(c, a, b)
+    return fma_exact(a, b, c)
+
+
+_FUSED: list = []
+
+
+def _cpu_addcmul_fused() -> bool:
+    """Whether the CPU addcmul rounds a*b + c once: it equals fma_exact on
+    inputs where rounding a*b first changes the result (c = -fl(a*b), and
+    a double-rounding case), contiguous with a scalar tail, broadcast,
+    transposed and with a 0-d operand.  Checked once a process."""
+    if not _FUSED:
+        g = torch.Generator().manual_seed(0)
+        a = torch.randn(1031, generator=g)
+        b = torch.randn(1031, generator=g)
+        c = -(a * b)
+        x = torch.tensor(1 + 2 ** -12)
+        a, b = torch.cat([a, x[None]]), torch.cat([b, x[None]])
+        c = torch.cat([c, torch.tensor([2.0 ** -70])])
+        m = torch.randn(33, 1, generator=g)
+        n = torch.randn(1, 9, generator=g)
+        cases = [(a, b, c), (m, n, -(m * n)), (m.expand(33, 9).t(),
+                                               n.expand(33, 9).t(),
+                                               -(m * n).t()),
+                 (a, torch.tensor(0.3), -(a * 0.3))]
+        _FUSED.append(all(torch.equal(torch.addcmul(r, p, q),
+                                      fma_exact(p, q, r))
+                          for p, q, r in cases))
+    return _FUSED[0]
+
+
+def fma_exact(a, b, c):
+    """float32(a*b + c) rounded once, computed exactly on the CPU (see the
+    module note)."""
     p = _d(a) * _d(b)
     cd = _d(c)
     if not torch.is_tensor(p):

@@ -123,10 +123,11 @@ def fit_rows(state: BodyState, model, params: PhysicsParams, points,
              microforce: float = 1.0, origin=(0.0, 0.0, 0.0), rangemin=None,
              rangemax=None, contacts: bool = False, schedule=None,
              single_blocks=(), cloud_slots: int = 128,
-             use_kernel: bool = False):
+             use_kernel: bool = False, angular_pair_blocks=()):
     """fit_point_cloud's rows: (linear rows, angular rows) for the
     sequential solve, (linear blocks, angular blocks) for the colored
-    one."""
+    one, the caller's angular pair blocks before the ranges.  N may be 0:
+    MultiStepSim passes its cloud rows as the caller's rows."""
     from ..physics.colored import pack_single_body_linear
     from ..physics.contacts import contact_rows
     from ..physics.schedule import pair_angular, pair_linear
@@ -148,7 +149,8 @@ def fit_rows(state: BodyState, model, params: PhysicsParams, points,
     lin.append(pair_linear(nailed, schedule.joint_lin))
     if con is not None:
         lin.append(pair_linear(con, schedule.contact))
-    return lin, [pair_angular(ranges, schedule.joint_ang)]
+    return lin, [*angular_pair_blocks,
+                 pair_angular(ranges, schedule.joint_ang)]
 
 
 def fit_point_cloud_kernel(state: BodyState, model, params: PhysicsParams,

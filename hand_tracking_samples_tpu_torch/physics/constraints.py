@@ -1,10 +1,12 @@
 """Constraint-row factories on batched tensors (third_party/physics.h:
 313-414): the port's counterpart of hand_tracking_samples_tpu.physics.
 constraints, cut to the rows of the tracking frames: the single-body rows
-(the boundary-plane chamber, the CNN keypoint dead zones) and the joints'
-nailed and angular-range rows in the reference layout (T, rows).  The pair
-factories of the kernel path live in physics/row_planes.py and share the
-angular-range math (`row_planes.angular_range_rows`).  Every argument
+(the boundary-plane chamber, the CNN keypoint dead zones), the joints'
+nailed and angular-range rows, and the angular drive and cone rows of
+ApplyAngles and HandModelEnhancements, in the reference layout (T, rows).
+The pair factories of the kernel path live in physics/row_planes.py and
+share the angular-range, drive and cone math (`row_planes.
+angular_range_rows`, `drive_rows`, `_cone_rows`).  Every argument
 broadcasts over leading batch dims.
 """
 from __future__ import annotations
@@ -167,3 +169,80 @@ def constrain_angular_range(pose, b0, b1, jointframe, limitmin_deg,
                        targetspin=inter6(spins), mintorque=inter6(mints),
                        maxtorque=torch.full((T, 6 * K), FLT_MAX, device=dev),
                        active=inter6(act))
+
+
+def constrain_angular_drive(pose, b0: int, b1: int, target_q, maxtorque,
+                            params, active=True) -> AngularRows:
+    """physics.h:313-326: 3 rows driving body b1's orientation relative to
+    body b0 (-1 = world) toward target_q (T, 4), [axis, binormal, normal],
+    torque limits +-maxtorque (a Python float).  pose (T, B, 7).  Returns
+    AngularRows (T, 3)."""
+    from .row_planes import drive_rows, p_qmul
+    T = pose.shape[0]
+    dev = pose.device
+    q0, _, _ = _frames(pose, [b0])
+    q1, _, _ = _frames(pose, [b1])
+    tq = [target_q[:, None, c] for c in range(4)]            # (T, 1)
+    target = p_qmul(q0, tq) if b0 >= 0 else tq
+    axes, ang = drive_rows(q1, target)
+    spin0 = -params.biasfactorjoint * ang / params.deltaT       # (T, 1)
+    axis = torch.stack([torch.cat([a[c] for a in axes], dim=1)
+                        for c in range(3)], dim=-1)           # (T, 3, 3)
+    full = lambda v: torch.full((T, 3), float(v), device=dev)
+    return AngularRows(
+        b0=torch.full((T, 3), b0, dtype=torch.int64, device=dev),
+        b1=torch.full((T, 3), b1, dtype=torch.int64, device=dev),
+        axis=axis, targetspin=torch.cat([spin0, torch.zeros(
+            (T, 2), device=dev)], dim=1),
+        mintorque=full(-maxtorque), maxtorque=full(maxtorque),
+        active=torch.as_tensor(active, device=dev).expand(T, 3))
+
+
+def constrain_cone_angle_batch(pose, b0, n0, b1, n1, limitangle_degrees,
+                               params, active=True) -> AngularRows:
+    """physics.h:402-414 for K rows at once: each limits the angle between
+    body b0's axis n0 (world axis where b0 = -1) and body b1's axis n1.
+    pose (T, B, 7); b0/b1 (K,) host ints; n0/n1 (K, 3) or per track
+    (T, K, 3); limitangle_degrees (K,) host floats (0 = equality, with
+    the joint bias).  Returns AngularRows (T, K)."""
+    from ..maths import fma as fq
+    from .row_planes import _cone_rows
+    b0, b1 = np.asarray(b0), np.asarray(b1)
+    T, K = pose.shape[0], b0.shape[0]
+    dev = pose.device
+    q0, _, w0 = _frames(pose, b0)
+    q1, _, _ = _frames(pose, b1)
+    n0c = torch.as_tensor(n0, dtype=torch.float32, device=dev).expand(
+        T, K, 3)
+    n1c = torch.as_tensor(n1, dtype=torch.float32, device=dev).expand(
+        T, K, 3)
+    a0 = torch.where(w0[..., None], fq.qrot(torch.stack(q0, -1), n0c), n0c)
+    a1 = fq.qrot(torch.stack(q1, -1), n1c)
+    a0, a1 = [a0[..., c] for c in range(3)], [a1[..., c] for c in range(3)]
+    lim = np.asarray(limitangle_degrees, np.float64)
+    if (lim > 0).all() and (lim == lim[0]).all():
+        limit = float(lim[0])              # the fused path's form
+    else:
+        limit = torch.as_tensor(lim, device=dev).expand(T, K)
+    axis, spin = _cone_rows(a0, a1, limit, params)
+    mint = torch.as_tensor(np.where(lim > 0, 0.0, -FLT_MAX)
+                           .astype(np.float32), device=dev).expand(T, K)
+    i = lambda b: torch.as_tensor(b, device=dev).expand(T, K)
+    return AngularRows(
+        b0=i(b0), b1=i(b1), axis=torch.stack(axis, dim=-1),
+        targetspin=spin, mintorque=mint,
+        maxtorque=torch.full((T, K), FLT_MAX, device=dev),
+        active=torch.as_tensor(active, device=dev).expand(T, K))
+
+
+def constrain_cone_angle(pose, b0: int, n0, b1: int, n1,
+                         limitangle_degrees: float, params,
+                         active=True) -> AngularRows:
+    """physics.h:402-414: one row limiting the angle between body b0's
+    axis n0 (a world axis where b0 = -1; (3,) or per track (T, 3)) and
+    body b1's axis n1.  Returns AngularRows (T, 1)."""
+    n0 = torch.as_tensor(n0, dtype=torch.float32, device=pose.device)
+    n1 = torch.as_tensor(n1, dtype=torch.float32, device=pose.device)
+    return constrain_cone_angle_batch(pose, [b0], n0[..., None, :], [b1],
+                                      n1[..., None, :],
+                                      [limitangle_degrees], params, active)

@@ -441,32 +441,48 @@ def angular_range_rows(jb0, jf1, rmin, rmax, params):
 # ---------------------------------------------------------------------------
 
 def _cone_rows(a0, a1, limit_deg, params):
-    """constrain_cone_angle's row math on (K, T) planes, limit > 0."""
+    """constrain_cone_angle's row math on planes of any shape: (axis,
+    targetspin).  limit_deg a float > 0 (bias 1), or a tensor of per-row
+    limits broadcasting with the planes, converted to radians in double
+    (as a Python float limit is) and taking the joint bias where 0."""
     axis = p_safenormalize(p_cross(a1, a0))
     rbangle = torch.arccos(torch.clamp(p_dot(a0, a1), 0.0, 1.0))
-    dangle = rbangle - limit_deg * 3.14 / 180.0
-    return axis, dangle / params.deltaT      # bias = 1 (limit > 0)
+    if not torch.is_tensor(limit_deg):
+        dangle = rbangle - limit_deg * 3.14 / 180.0
+        return axis, dangle / params.deltaT      # bias = 1 (limit > 0)
+    rad = (limit_deg.double() * 3.14 / 180.0).float()
+    bias = torch.where(limit_deg == 0.0,
+                       torch.full((), params.biasfactorjoint,
+                                  device=rad.device),
+                       torch.ones((), device=rad.device))
+    return axis, bias * (rbangle - rad) / params.deltaT
 
 
-def apply_angles_drive(P: PosePlanes, palmq, camq, drive_force, params):
-    """The palm angular drive (3 rows, pair (-1, 1)).  palmq/camq: 4-lists
-    of (1, T) planes; drive_force a Python float."""
-    target = p_qmul(camq, palmq)
-    q1 = [P.q[c][1:2] for c in range(4)]
+def drive_rows(q1, target):
+    """constrain_angular_drive's row math on planes of any shape: the
+    driven body's orientation q1 toward the world target (q0 * target_q),
+    4-lists.  Returns the three row axes [axis, binormal, normal] (3-lists)
+    and the first row's spin before its bias and time step."""
     dq = p_qmul(q1, p_qconj(target))
     neg = dq[3] < 0
     dq = [torch.where(neg, -dq[c], dq[c]) for c in range(4)]
     axis = p_safenormalize(dq[0:3])
     binormal = p_orth(axis)
     normal = p_cross(axis, binormal)
-    spin0 = (-params.biasfactorjoint
-             * (torch.arccos(torch.clamp(dq[3], -1.0, 1.0)) * 2.0)
-             / params.deltaT)
+    return [axis, binormal, normal], \
+        torch.arccos(torch.clamp(dq[3], -1.0, 1.0)) * 2.0
+
+
+def apply_angles_drive(P: PosePlanes, palmq, camq, drive_force, params):
+    """The palm angular drive (3 rows, pair (-1, 1)).  palmq/camq: 4-lists
+    of (1, T) planes; drive_force a Python float."""
+    axes, ang = drive_rows([P.q[c][1:2] for c in range(4)],
+                           p_qmul(camq, palmq))
+    spin0 = -params.biasfactorjoint * ang / params.deltaT
     T = P.T
     dev = spin0.device
     zero = torch.zeros((1, T), device=dev)
-    ax = [torch.cat([axis[c], binormal[c], normal[c]], dim=0)
-          for c in range(3)]
+    ax = [torch.cat([a[c] for a in axes], dim=0) for c in range(3)]
     spins = torch.cat([spin0, zero, zero], dim=0)
     mint = torch.full((3, T), -float(drive_force), device=dev)
     maxt = torch.full((3, T), float(drive_force), device=dev)
@@ -474,27 +490,37 @@ def apply_angles_drive(P: PosePlanes, palmq, camq, drive_force, params):
     return ax, spins, mint, maxt, act
 
 
-def apply_angles_cones(P: PosePlanes, clenched, model_np, params,
-                       coneangle=10.0):
-    """The 9 finger cones (pair (1, b1) each, U=1).  clenched: (5, T)."""
+def finger_cone_axes(clenched, model_np, sin=torch.sin, cos=torch.cos):
+    """ApplyAngles' nine finger cones' first axes (body 1's frame) from the
+    net's clench angles clenched (5, ...): (n0, a 3-list of (9, ...)
+    planes, and the cones' second bodies b1s) in emission order, the thumb
+    first, then per finger its knuckle and mid cones.  sin/cos: the
+    float32 sine and cosine to use (maths.libm's for the JAX CPU build's
+    bits)."""
     jf = np.asarray(model_np["joint_frame"], np.float32)
-    T = P.T
-    dev = clenched.device
-    zero = torch.zeros((1, T), device=dev)
+    zero = torch.zeros_like(clenched[0:1])
     a0 = clenched[0:1]
-    n0s = [[torch.cos(a0), zero, torch.sin(a0)]]
+    n0s = [[cos(a0), zero, sin(a0)]]
     b1s = [4]
     for finger in (1, 2, 3, 4):
         a = clenched[finger:finger + 1]
-        n0s.append([zero, -torch.sin(a), torch.cos(a)])
+        n0s.append([zero, -sin(a), cos(a)])
         b1s.append(3 + finger * 3)
-        jfq = [torch.full((1, T), float(jf[1 + finger * 3, c]), device=dev)
+        jfq = [torch.full_like(zero, float(jf[1 + finger * 3, c]))
                for c in range(4)]
-        inner = [zero, -torch.sin(a / 2.0), torch.cos(a / 2.0)]
+        inner = [zero, -sin(a / 2.0), cos(a / 2.0)]
         n0s.append(p_qrot(jfq, p_qrot(jfq, inner)))
         b1s.append(2 + finger * 3)
+    return [torch.cat([n[c] for n in n0s], dim=0) for c in range(3)], b1s
+
+
+def apply_angles_cones(P: PosePlanes, clenched, model_np, params,
+                       coneangle=10.0):
+    """The 9 finger cones (pair (1, b1) each, U=1).  clenched: (5, T)."""
+    T = P.T
+    dev = clenched.device
+    n0, b1s = finger_cone_axes(clenched, model_np)
     K = len(b1s)
-    n0 = [torch.cat([n[c] for n in n0s], dim=0) for c in range(3)]
     q1 = [P.q[c][1:2].expand(K, T) for c in range(4)]
     a0w = p_qrot(q1, n0)
     qb = [take(P.q[c], np.asarray(b1s)) for c in range(4)]

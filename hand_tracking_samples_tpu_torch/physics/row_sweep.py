@@ -31,8 +31,10 @@ soon as the last earlier row on its bodies (and its friction master) has,
 and each body sees the same updates in the same order.
 
 `row_sweep` is the wrapper: CUDA tensors launch the kernel, CPU tensors
-run `row_sweep_plain`, the same operations in row order (the kernel is
-built with -fmad=false, so the two agree bit for bit).  Layouts, tracks
+run `row_sweep_waves`, the plain version in the kernel's wavefront order
+(one step a level), equal to `row_sweep_plain`, the same operations in
+row order, which the kernel is held to (it is built with -fmad=false, so
+the two agree bit for bit).  Layouts, tracks
 leading, a row's fields and its meta word (int32 bits) contiguous:
   mom0   (T, B, 6)      momenta after rbinitvelocity [lin xyz, ang xyz]
   massinv (B,)
@@ -367,13 +369,31 @@ def row_sweep_plain(mom0, massinv, rows: SweepRows, iterations: int,
                       tl(z3, ax, z3, -ax))
     lmpos = ((lm[:, 0] >> 17) - 1).tolist() if T else []
     lft, aft = lf.permute(1, 2, 0), af.permute(1, 2, 0)      # (R, F, T)
-    lfr = [lft[r] for r in range(lft.shape[0])]
-    afr = [aft[r] for r in range(aft.shape[0])]
-    isum = [torch.zeros(T, device=dev) for _ in range(len(lfr))]
-    torq = [torch.zeros(T, device=dev) for _ in range(len(afr))]
-    # an angular row whose target is -FLT_MAX takes no torque
-    amask = [[None if a is None else a[4] & (afr[r][k] != -FLT_MAX)
-              for r, a in enumerate(ang)] for k in (10, 11)]
+    # each row's fields as (T,) tensors, taken once: the linear rows'
+    # [-ts, -ts post], dinv, lo, hi, the friction coefficient; the
+    # angular rows' [ts, ts post], spin-to-torque, lo, hi and the masks of
+    # the rows that take torque (a target of -FLT_MAX takes none)
+    lrows = []
+    for r, row in enumerate(lin):
+        if row is None:
+            lrows.append(None)
+            continue
+        idx, C, D, MI, act, all_act = row
+        f = lft[r]
+        lrows.append((idx, C, D, MI, None if all_act else act,
+                      (-f[16], -f[17]), f[15], f[18], f[19], f[20],
+                      lmpos[r]))
+    arows = []
+    for r, row in enumerate(ang):
+        if row is None:
+            arows.append(None)
+            continue
+        f = aft[r]
+        arows.append((row[0], row[1], row[2], (f[10], f[11]), f[9], f[12],
+                      f[13], tuple(row[4] & (f[k] != -FLT_MAX)
+                                   for k in (10, 11))))
+    isum = [torch.zeros(T, device=dev) for _ in range(len(lrows))]
+    torq = [torch.zeros(T, device=dev) for _ in range(len(arows))]
     out = torch.empty((T, 2, B, 6), device=dev)
     total = iterations + iterations_post
     for s in range(total + 1):
@@ -381,43 +401,175 @@ def row_sweep_plain(mom0, massinv, rows: SweepRows, iterations: int,
             out[:, 0] = mom.view(T, B + 1, 6)[:, :B]
         if s == total:
             break
-        post = s >= iterations
-        tsk = 17 if post else 16
-        for r, row in enumerate(lin):
+        k = 1 if s >= iterations else 0
+        for r, row in enumerate(lrows):
             if row is None:
                 continue
-            idx, C, D, MI, act, all_act = row
-            f = lfr[r]
-            d = _dots4(mom[idx].view(T, 12), C) * MI
-            vn = ((d[:, 0] + d[:, 1]) - d[:, 2]) - d[:, 3]
-            imp = (-f[tsk] - vn) * f[15]
+            idx, C, D, MI, act, nts, dinv, lo, hi, fcoef, mpos = row
+            x, y, z = (mom[idx].view(T, 12) * C).view(T, 4, 3).unbind(-1)
+            d0, d1, d2, d3 = (((x + y) + z) * MI).unbind(-1)
+            vn = ((d0 + d1) - d2) - d3
+            imp = (nts[k] - vn) * dinv
             own = isum[r]
-            if lmpos[r] >= 0:
-                hi = f[20] * isum[lmpos[r]]
+            if mpos >= 0:
+                hi = fcoef * isum[mpos]
                 lo = -hi
-            else:
-                hi, lo = f[19], f[18]
             imp = torch.maximum(torch.minimum(imp, hi - own), lo - own)
-            if not all_act:
+            if act is not None:
                 imp = torch.where(act, imp, zero)
             mom.index_add_(0, idx, (imp[:, None] * D).view(2 * T, 6))
             isum[r] = own + imp
-        k = 1 if post else 0
-        tsk = 11 if post else 10
-        for r, row in enumerate(ang):
+        for r, row in enumerate(arows):
             if row is None:
                 continue
-            idx, C, D = row[0], row[1], row[2]
-            f = afr[r]
-            d = _dots4(mom[idx].view(T, 12), C)
-            ts = f[tsk]
-            dtq = (ts - (d[:, 1] - d[:, 3])) * f[9]
+            idx, C, D, ts, stt, lo, hi, amask = row
+            _, d1, _, d3 = _dots4(mom[idx].view(T, 12), C).unbind(-1)
+            dtq = (ts[k] - (d1 - d3)) * stt
             own = torq[r]
-            dtq = torch.maximum(torch.minimum(dtq, f[13] - own),
-                                f[12] - own)
-            dtq = torch.where(amask[k][r], dtq, zero)
+            dtq = torch.maximum(torch.minimum(dtq, hi - own), lo - own)
+            dtq = torch.where(amask[k], dtq, zero)
             mom.index_add_(0, idx, (dtq[:, None] * D).view(2 * T, 6))
             torq[r] = own + dtq
+    out[:, 1] = mom.view(T, B + 1, 6)[:, :B]
+    return out
+
+
+def _level_steps(level, perm, R):
+    """The level steps of one kind of rows: per level l = 1..L the (T, W_l)
+    positions, in the schedule's order perm, of each track's rows at level
+    l, padded with R (a row that does nothing)."""
+    T = level.shape[0]
+    L = int(level.amax()) if level.numel() else 0
+    if L == 0:
+        return []
+    cnt = torch.zeros((T, L + 1), dtype=torch.int64, device=level.device)
+    cnt.scatter_add_(1, level, torch.ones_like(level))
+    cnt = cnt[:, 1:]                                   # inactive rows last
+    start = torch.cumsum(cnt, 1) - cnt
+    widths = cnt.amax(0).tolist()
+    steps = []
+    for lv, w in enumerate(widths):
+        j = torch.arange(w, device=level.device)
+        steps.append(torch.where(j < cnt[:, lv:lv + 1], start[:, lv:lv + 1] + j,
+                                 torch.full_like(j, R)))
+    return steps
+
+
+def _wave_tables(fields, meta, B, T, base, mi, Cs, Ds):
+    """The rows' tables in the schedule's order, a padding row appended:
+    momentum-table indices (T, R+1, 2) [b1, b0], the dot coefficients and
+    impulse directions (T, R+1, 12) (the world's half zeroed), the inverse
+    masses (T, R+1, 4) [mi1, 1, mi0, 1], the active mask and the fields.
+    Cs/Ds: the coefficient and direction blocks of fields (T, R, 3)."""
+    pad = lambda x: torch.cat([x, torch.zeros_like(x[:, :1])], dim=1)
+    i0, i1, act = _unpack(pad(meta), B)                    # padding: world
+    C = pad(torch.cat(Cs, dim=-1))
+    keep = torch.stack([i1 < B, i0 < B], dim=-1).to(torch.float32)
+    D = pad(torch.cat(Ds, dim=-1)) * keep.repeat_interleave(6, dim=-1)
+    one = torch.ones_like(mi[i1])
+    return dict(idx=torch.stack([i1 + base, i0 + base], dim=-1), C=C, D=D,
+                MI=torch.stack([mi[i1], one, mi[i0], one], dim=-1), act=act,
+                f=pad(fields))
+
+
+def _at(tables, P):
+    """The tables' rows at the level step's positions P (T, W)."""
+    return {k: torch.gather(v, 1, P.reshape(P.shape + (1,) * (v.dim() - 2))
+                            .expand(P.shape + v.shape[2:]))
+            for k, v in tables.items()}
+
+
+@torch.inference_mode()
+def row_sweep_waves(mom0, massinv, rows: SweepRows, iterations: int,
+                    iterations_post: int):
+    """row_sweep_plain in the kernel's wavefront order (wave_schedule): each
+    sweep runs a track's linear rows level by level, then its angular rows,
+    a level's rows (body-disjoint, so they commute exactly) at once; a
+    friction row's master is in an earlier level, or a later one where
+    the row order has it later.  The same operations on every row, so the
+    momenta equal row_sweep_plain's (tests/test_torch_row_waves.py), with
+    one step a level instead of one a row."""
+    T, B = mom0.shape[0], mom0.shape[1]
+    dev = mom0.device
+    mom = torch.zeros((T, B + 1, 6), device=dev)
+    mom[:, :B] = mom0
+    mom = mom.view(T * (B + 1), 6)
+    mi = torch.zeros(B + 1, device=dev)
+    mi[:B] = massinv
+    base = (torch.arange(T, device=dev) * (B + 1))[:, None]
+    zero = torch.zeros((), device=dev)
+    ws = wave_schedule(rows.lm, rows.am)
+    Rl, Ra = rows.lf.shape[1], rows.af.shape[1]
+    lf = torch.gather(rows.lf, 1, ws.lin_perm[..., None].expand(-1, -1, LW))
+    af = torch.gather(rows.af, 1, ws.ang_perm[..., None].expand(-1, -1, AW))
+    n, J0, J1 = lf[..., 0:3], lf[..., 3:6], lf[..., 6:9]
+    K0, K1 = lf[..., 9:12], lf[..., 12:15]
+    lt = _wave_tables(lf[..., :NLF], ws.lm.to(torch.int64), B, T, base, mi,
+                      (n, K1, n, K0), (n, J1, -n, -J0))
+    lt["mpos"] = torch.cat([(ws.lm.to(torch.int64) >> 17) - 1,
+                            torch.full((T, 1), -1, device=dev,
+                                       dtype=torch.int64)], dim=1)
+    ax, aK0, aK1 = af[..., 0:3], af[..., 3:6], af[..., 6:9]
+    z3 = torch.zeros_like(ax)
+    at = _wave_tables(af[..., :NAF], torch.gather(rows.am, 1, ws.ang_perm)
+                      .to(torch.int64), B, T, base, mi, (z3, aK1, z3, aK0),
+                      (z3, ax, z3, -ax))
+    lin = []
+    for P in _level_steps(ws.lin_level, ws.lin_perm, Rl):
+        x = _at(lt, P)
+        f = x["f"].permute(2, 0, 1)                        # (F, T, W)
+        fr = x["mpos"] >= 0
+        act = x["act"]
+        lin.append((P, x["idx"].reshape(-1), x["C"], x["D"], x["MI"],
+                    None if bool(act.all()) else act, (-f[16], -f[17]),
+                    f[15], f[18], f[19], f[20],
+                    fr if bool(fr.any()) else None, x["mpos"].clamp(min=0)))
+    ang = []
+    for P in _level_steps(ws.ang_level, ws.ang_perm, Ra):
+        x = _at(at, P)
+        f = x["f"].permute(2, 0, 1)
+        masks = [x["act"] & (f[k] != -FLT_MAX) for k in (10, 11)]
+        ang.append((P, x["idx"].reshape(-1), x["C"], x["D"], (f[10], f[11]),
+                    f[9], f[12], f[13],
+                    tuple(None if bool(m.all()) else m for m in masks)))
+    isum = torch.zeros((T, Rl + 1), device=dev)
+    torq = torch.zeros((T, Ra + 1), device=dev)
+    out = torch.empty((T, 2, B, 6), device=dev)
+    total = iterations + iterations_post
+    for s in range(total + 1):
+        if s == iterations:
+            out[:, 0] = mom.view(T, B + 1, 6)[:, :B]
+        if s == total:
+            break
+        k = 1 if s >= iterations else 0
+        for (P, idx, C, D, MI, act, nts, dinv, lo, hi, fcoef, fr,
+             mpos) in lin:
+            W = P.shape[1]
+            x, y, z = (mom[idx].view(T, W, 12) * C).view(T, W, 4, 3) \
+                .unbind(-1)
+            d0, d1, d2, d3 = (((x + y) + z) * MI).unbind(-1)
+            vn = ((d0 + d1) - d2) - d3
+            imp = (nts[k] - vn) * dinv
+            own = torch.gather(isum, 1, P)
+            if fr is not None:
+                hf = fcoef * torch.gather(isum, 1, mpos)
+                hi, lo = torch.where(fr, hf, hi), torch.where(fr, -hf, lo)
+            imp = torch.maximum(torch.minimum(imp, hi - own), lo - own)
+            if act is not None:
+                imp = torch.where(act, imp, zero)
+            mom.index_add_(0, idx, (imp[..., None] * D).view(-1, 6))
+            isum.scatter_(1, P, own + imp)
+        for P, idx, C, D, ts, stt, lo, hi, amask in ang:
+            W = P.shape[1]
+            p = (mom[idx].view(T, W, 12) * C).view(T, W, 4, 3)
+            _, d1, _, d3 = ((p[..., 0] + p[..., 1]) + p[..., 2]).unbind(-1)
+            dtq = (ts[k] - (d1 - d3)) * stt
+            own = torch.gather(torq, 1, P)
+            dtq = torch.maximum(torch.minimum(dtq, hi - own), lo - own)
+            if amask[k] is not None:
+                dtq = torch.where(amask[k], dtq, zero)
+            mom.index_add_(0, idx, (dtq[..., None] * D).view(-1, 6))
+            torq.scatter_(1, P, own + dtq)
     out[:, 1] = mom.view(T, B + 1, 6)[:, :B]
     return out
 
@@ -447,7 +599,7 @@ def row_sweep(mom0, massinv, rows: SweepRows, iterations: int,
     an optional (T, 4) int64 CUDA tensor that receives each track's
     clock64 counts [prologue, sweeps, level steps a sweep, active rows]."""
     if mom0.device.type == "cpu":
-        return row_sweep_plain(mom0, massinv, rows, iterations,
+        return row_sweep_waves(mom0, massinv, rows, iterations,
                                iterations_post)
     T, B = mom0.shape[0], mom0.shape[1]
     Rl, Ra = rows.lf.shape[1], rows.af.shape[1]

@@ -18,6 +18,9 @@ class HandSchedule(NamedTuple):
     joint_lin: list       # 3*n_joints nailed rows
     joint_ang: list       # 6*n_joints angular-range rows
     contact: list         # 3*CONTACT_POINTS rows per collide pair
+    apply_angles: list    # the 12 ApplyAngles rows (tracker.runtime.
+    # apply_angles: the palm drive's 3, then the 9 finger cones)
+    enh_cone: list        # the enhancement arm cone: one (world, 0) row
 
 
 def build_hand_schedule(model_np: dict, contacts_mode: str = "exact"):
@@ -44,7 +47,16 @@ def _hand_schedule(model_np: dict, contacts_mode: str) -> HandSchedule:
     else:
         contact = precedence_coloring(list(zip(np.repeat(pairs[:, 0], U),
                                                np.repeat(pairs[:, 1], U))))
-    return HandSchedule(joint_lin, joint_ang, contact)
+    # ApplyAngles' pairs in emission order: the drive (world, 1) x 3, the
+    # thumb cone (1, 4), then per finger (1, knuckle) and (1, mid)
+    aa0, aa1 = [-1, -1, -1, 1], [1, 1, 1, 4]
+    for finger in (1, 2, 3, 4):
+        aa0 += [1, 1]
+        aa1 += [3 + finger * 3, 2 + finger * 3]
+    apply_angles = precedence_coloring(list(zip(aa0, aa1)))
+    enh_cone = precedence_coloring([(-1, 0)])
+    return HandSchedule(joint_lin, joint_ang, contact, apply_angles,
+                        enh_cone)
 
 
 def pair_linear(rows, groups) -> StaticPairLinear:

@@ -187,6 +187,25 @@ def test_libm_matches_jax():
                                   np.asarray(jax.jit(jnp.cos)(a)))
 
 
+def test_fma_forms_match_jax():
+    """maths.fma's CPU form (addcmul where this build fuses it) and
+    fma_exact equal the JAX CPU build's contracted c + a*b bit for bit, on
+    2^16 inputs half of which cancel a*b (where rounding a*b first
+    changes the result) and a double-rounding case."""
+    from hand_tracking_samples_tpu_torch.maths import fma as fq
+    rng = np.random.default_rng(2)
+    n = 1 << 16
+    a, b, c = (rng.standard_normal(n).astype(np.float32) for _ in range(3))
+    c[: n // 2] = -(a[: n // 2].astype(np.float64)
+                    * b[: n // 2]).astype(np.float32)
+    x = np.float32(1 + 2 ** -12)
+    a[0], b[0], c[0] = x, x, np.float32(2 ** -70)
+    ref = np.asarray(jax.jit(lambda a, b, c: c + a * b)(a, b, c))
+    for f in (fq.fma, fq.fma_exact):
+        np.testing.assert_array_equal(
+            f(*(torch.tensor(v) for v in (a, b, c))).numpy(), ref)
+
+
 def test_camera_heatmaps_and_compaction_match_jax():
     """The rest of this slice's host helpers on seeded inputs: the camera
     algebra (fov, deproject_extents, crop, sub, scaled), the heatmap decode

@@ -90,20 +90,10 @@ def test_entry_points_refuse_later_slices():
                                                 use_pallas=True, **cloud))
         for solver in ("sequential", "colored"):
             for pallas in (False, True):
-                runtime._check_config(TrackerConfig(
-                    cnn_every_frame=False, solver=solver, use_pallas=pallas,
-                    **cloud))
-    for solver in ("sequential", "colored"):
-        with pytest.raises(NotImplementedError, match="item 1"):
-            runtime._check_config(TrackerConfig(cnn_every_frame=True,
-                                                solver=solver))
-        with pytest.raises(NotImplementedError, match="item 1"):
-            runtime._check_config(TrackerConfig(cnn_every_frame=False,
-                                                solver=solver), run_cnn=True)
-        with pytest.raises(NotImplementedError, match="item 1"):
-            runtime._check_config(TrackerConfig(
-                cnn_every_frame=True, solver=solver, subsample_voxel=1,
-                subsample_size=0.005))
+                for cnn in (False, True):
+                    runtime._check_config(TrackerConfig(
+                        cnn_every_frame=cnn, solver=solver,
+                        use_pallas=pallas, **cloud))
     for kw in (dict(angles_only=True), dict(use_pallas=False),
                dict(contacts_mode="jacobi")):
         for solver in ("kernel", "sequential"):

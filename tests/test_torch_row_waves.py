@@ -12,7 +12,9 @@ the unchanged plain version (row_sweep_plain), one track at a time, on
     cloud moved onto the palm, contacts on);
 
 and the levels and the order within a level of small hand-made cases are
-asserted."""
+asserted.  row_sweep_waves, the plain version the CPU runs (a level's rows
+at once, all tracks together), gives row_sweep_plain's momenta bit for bit
+on the same rows, signed zeros included."""
 import numpy as np
 import pytest
 import torch
@@ -24,7 +26,8 @@ from hand_tracking_samples_tpu_torch.model.hand import body_params, fit_rows
 from hand_tracking_samples_tpu_torch.physics import colored as pc
 from hand_tracking_samples_tpu_torch.physics import solver as ps
 from hand_tracking_samples_tpu_torch.physics.row_sweep import (
-    NLF, SweepRows, row_sweep_plain, synthetic_rows, wave_schedule)
+    NLF, SweepRows, row_sweep_plain, row_sweep_waves, synthetic_rows,
+    wave_schedule)
 from hand_tracking_samples_tpu_torch.physics.schedule import (
     build_hand_schedule)
 
@@ -48,6 +51,8 @@ def _assert_waves_exact(mom0, massinv, rows: SweepRows):
         wave = row_sweep_plain(mom0[t:t + 1], massinv, _permuted(rows, ws, t),
                                ITERS, POST)
         assert torch.equal(wave[0], ref[t]), t
+    waves = row_sweep_waves(mom0, massinv, rows, ITERS, POST)
+    assert torch.equal(waves.view(torch.int32), ref.view(torch.int32))
     return ws
 
 
