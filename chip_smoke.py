@@ -128,6 +128,20 @@ Phases, each printing one line with its elapsed seconds:
  16. both reference-solver CNN frames' time at T=512 (use_pallas=True):
      host clock, device busy and idle, launches; and phase 15's new kernel
      shapes timed beside their plain versions and their bounds
+ 17. slowfit, the annotation-grade fit (tracker.runtime.slowfit,
+     use_pallas=True, 6 solves) at T=512 on phase 4's dyn30 renders, each
+     track started from the animbank pose of its render's frame before,
+     the cloud as the annotate CLI builds it (apps.annotate.points_of):
+     plain, hold=2 toward the start pose, and a nail dragging bone 16
+     12 mm along x (within 4 mm of its target), the plain fit no further
+     from the renders' poses than its start, every kernel of its path
+     launched and no other; a 2-track CPU re-run of each variant
+     (< 1e-4 m); use_pallas=False at T=64 (no correspondence launch) and
+     its peak memory; kernel 3, kernel 8 (N=2048, rays from the world
+     origin) and the row sweep (the first solve's rows with the hold rows,
+     and the last solve's rows: no cloud, no caller rows) bit for bit with
+     their plain versions at T=512, timed beside their bounds; the plain
+     call's host clock, device busy and idle, and launches
 
 Each phase drives its path with the launch counts set to 0 just before it
 and reads them just after.  The line before the last is the kernels' JSON
@@ -135,7 +149,8 @@ record (launches: the dynamics path's for the first four kernels, the CNN
 frame's for kernels 6-7 and the plans, the sequential frame's (phase 10)
 for the correspondence kernel and the row sweep, the colored frame's
 (phase 11) for the row sweep on colored rows, the far-mirror dynamics
-frame's (phase 13) for kernel 2.5); the last line is
+frame's (phase 13) for kernel 2.5, and slowfit's hold call (phase 17) for
+the rows of its four shapes); the last line is
 {"ok": true, "device": {...}}.  Exits non-zero, printing no result, when a
 phase fails, when there is no CUDA device, or when run outside the
 repository.  --json PATH writes every measured number to PATH.  Every
@@ -265,6 +280,29 @@ CLOUD_TIMED_FRAMES = dict(dyn=5, cnn=2, seq=5)    # frames timed (phase 14)
 VOXEL_BAND_MM = dict(before=0.02, any=2.0)
 
 
+# slowfit, the annotation-grade fit (phase 17): T=512 tracks on phase 4's
+# dyn30 renders, track t on render f = 1 + t % 29, started from the animbank
+# pose of frame f - 1 (a one-frame-old annotation, what the fixer refines);
+# the cloud as the annotate CLI builds it; use_pallas, 6 solves, three
+# variants: plain, hold=2 toward the start pose, and a nail dragging bone
+# 16 12 mm along x (tests/test_annotate_edits.py), which must end within
+# 4 mm of its target (that test's bound)
+SLOWFIT_TRACKS, SLOWFIT_STEPS = 512, 6
+SLOWFIT_NAIL = (16, 0.012)               # bone, metres along x
+SLOWFIT_NAIL_M = 0.004
+SLOWFIT_VARIANTS = ("plain", "hold", "nail")
+SLOWFIT_TIMED_CALLS = 3                  # plain calls timed (host clock)
+SLOWFIT_PATH = ("contact_fields", "correspondence", "row_sweep")
+# its kernels at slowfit's shapes: kernel 3 on a fitted state, kernel 8 on
+# the annotator's cloud (N=2048, rays from the world origin), the row sweep
+# on the first solve's rows with the hold rows and on the last solve's
+# rows (no cloud, no caller rows)
+SLOWFIT_SHAPES = {"contact_fields": "contact_fields[slowfit]",
+                  "correspondence": "correspondence[slowfit]",
+                  "row_sweep": "row_sweep[slowfit, hold]",
+                  "row_sweep[last]": "row_sweep[slowfit, last]"}
+
+
 class PhaseError(RuntimeError):
     pass
 
@@ -290,6 +328,16 @@ def near_pairs(args):
     dc = [aux[:, a, 6 + c] - aux[:, b, 6 + c] for c in range(3)]
     rs = aux[:, a, 9] + aux[:, b, 9]
     return dc[0] * dc[0] + dc[1] * dc[1] + dc[2] * dc[2] <= rs * rs
+
+
+def _first(x, n, device=None):
+    """The first n tracks of every tensor in x (nested tuples of
+    tensors with the tracks leading), moved to device when given."""
+    if isinstance(x, tuple):
+        return type(x)(*[_first(f, n, device) for f in x]) \
+            if hasattr(x, "_fields") else tuple(_first(f, n, device)
+                                                 for f in x)
+    return x[:n] if device is None else x[:n].to(device)
 
 
 class Smoke:
@@ -2487,6 +2535,247 @@ class Smoke:
                 f"ms (plain {plain_ms:.2f} ms, bound {rec['bound_ms']:.4f} "
                 f"ms by {rec['bound_by']}; {note})")
 
+    # ---- slowfit: phase 17 ---------------------------------------------
+    def slowfit_inputs(self, T):
+        """(state, points, mask, start poses, render poses) at T tracks:
+        track t on the dyn30 render f = 1 + t % 29, from bank[f - 1]; the
+        annotate CLI's cloud (apps.annotate.points_of)."""
+        torch = self.torch
+        from hand_tracking_samples_tpu_torch.apps.annotate import points_of
+        from hand_tracking_samples_tpu_torch.parallel.tracks import (
+            batched_tracker_state)
+        fr = 1 + torch.arange(T, device=self.dev) % 29
+        bank = torch.tensor(self.bank, device=self.dev)
+        pts, mask = points_of(self.dyn[fr], self.cam)
+        st = batched_tracker_state(self.model, T)
+        st = st._replace(body=st.body._replace(pose=bank[fr - 1].clone()))
+        return st, pts, mask, bank[fr - 1], bank[fr]
+
+    def slowfit_kw(self, variant, start):
+        torch = self.torch
+        if variant == "hold":
+            return dict(hold=2, refpose=start)
+        if variant == "nail":
+            bone, dx = SLOWFIT_NAIL
+            return dict(select_bone=bone, spoint=start[:, bone, :3]
+                        + torch.tensor([dx, 0.0, 0.0], device=start.device),
+                        rbpoint=torch.zeros_like(start[:, 0, :3]))
+        return {}
+
+    def slowfit_call(self, variant, inp, use_pallas=True, model=None):
+        from hand_tracking_samples_tpu_torch.tracker.config import (
+            TrackerConfig)
+        from hand_tracking_samples_tpu_torch.tracker.runtime import slowfit
+        st, pts, mask, start, _ = inp
+        cfg = TrackerConfig(point_budget=2048, solver="sequential",
+                            use_pallas=use_pallas)
+        return slowfit(st, model or self.model, pts, mask, cfg, self.params,
+                       steps=SLOWFIT_STEPS, **self.slowfit_kw(variant, start))
+
+    def slowfit_kernel_inputs(self, inp, fitted):
+        """The kernels' inputs at slowfit's shapes (SLOWFIT_SHAPES), from
+        the fitted states of the hold and plain variants."""
+        from hand_tracking_samples_tpu_torch.model.hand import body_params
+        from hand_tracking_samples_tpu_torch.ops import correspondence as oc
+        from hand_tracking_samples_tpu_torch.physics.contact_kernel import (
+            contact_inputs)
+        from hand_tracking_samples_tpu_torch.physics.solver import (
+            sweep_inputs)
+        from hand_tracking_samples_tpu_torch.tracker.config import (
+            TrackerConfig)
+        from hand_tracking_samples_tpu_torch.tracker.runtime import (
+            slowfit_rows)
+        torch, m = self.torch, self.model
+        _, pts, mask, start, _ = inp
+        cfg = TrackerConfig(point_budget=2048, solver="sequential",
+                            use_pallas=True)
+        hold, plain = fitted["hold"].body, fitted["plain"].body
+        pw = oc.world_planes(plain.pose, m)
+        out = {"correspondence": (oc.points_h(pts), pw,
+                                  oc.origin_dots(pw, m, (0.0, 0.0, 0.0))),
+               "contact_fields": contact_inputs(
+                   hold.pose, hold.linear_momentum, hold.angular_momentum,
+                   m) + (torch.as_tensor(m.np["collide_pairs"],
+                                         device=self.dev), 4, 3,
+                         self.params.driftmax)}
+        it, ip = cfg.physics_iterations, cfg.physics_iterations_post
+        for name, body, st, kw in (
+                ("row_sweep", hold, 0, self.slowfit_kw("hold", start)),
+                ("row_sweep[last]", plain, SLOWFIT_STEPS - 1, {})):
+            lin, ang = slowfit_rows(body, m, pts, mask, cfg, self.params,
+                                    st, SLOWFIT_STEPS, **kw)
+            mom0, rows = sweep_inputs(body, body_params(m), lin, ang,
+                                      self.params)
+            out[name] = (mom0, m.massinv, rows, it, ip)
+        return out
+
+    def slowfit_phase(self):
+        """Phase 17: slowfit (use_pallas, 6 solves) at T=512 in its three
+        variants, every kernel of its path launched; the plain fit no
+        further from the renders' poses than its start, the nail within
+        4 mm; a 2-track CPU re-run of each variant (< 1e-4 m);
+        use_pallas=False at T=64 with its peak memory; kernels 3 and 8 and
+        the row sweep bit for bit with their plain versions at slowfit's
+        shapes, timed beside their bounds; the plain call's host clock,
+        device busy time and launches."""
+        torch, np = self.torch, self.np
+        from hand_tracking_samples_tpu_torch import kernels
+        from hand_tracking_samples_tpu_torch.model.bake import (
+            from_numpy_model)
+        T = SLOWFIT_TRACKS
+        inp = self.slowfit_inputs(T)
+        st0, _, mask, start, truth = inp
+        je = lambda p: (p[..., :3] - truth[..., :3]).norm(dim=-1).mean(-1)
+        self.slowfit_call("plain", inp)                          # warm
+        torch.cuda.synchronize()
+        fitted, stats, lines = {}, {}, []
+        for variant in SLOWFIT_VARIANTS:
+            kernels.reset_counts()
+            t0 = time.perf_counter()
+            res = self.slowfit_call(variant, inp)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = {k: v for k, v in kernels.counts().items() if v}
+            check(set(counts) == set(SLOWFIT_PATH),
+                  f"slowfit {variant}: launches {counts}, its path is "
+                  f"{SLOWFIT_PATH}")
+            pose = res.body.pose
+            check(bool(torch.isfinite(pose).all()),
+                  f"slowfit {variant}: non-finite poses")
+            fitted[variant] = res
+            rec = dict(seconds=dt, launches=counts,
+                       joint_dev_mm=je(pose).mean().item() * 1e3,
+                       start_joint_dev_mm=je(start).mean().item() * 1e3)
+            note = ""
+            if variant == "nail":
+                bone, _ = SLOWFIT_NAIL
+                d = (pose[:, bone, :3]
+                     - self.slowfit_kw("nail", start)["spoint"]).norm(dim=-1)
+                rec.update(nail_mm_max=d.max().item() * 1e3,
+                           nail_mm_mean=d.mean().item() * 1e3)
+                check(d.max().item() < SLOWFIT_NAIL_M,
+                      f"nailed bone up to {d.max().item() * 1e3:.2f} mm "
+                      f"from its target")
+                note = (f", bone {bone} {rec['nail_mm_mean']:.2f} mm from "
+                        f"its target (largest {rec['nail_mm_max']:.2f})")
+            if variant == "plain":
+                check(rec["joint_dev_mm"] <= rec["start_joint_dev_mm"],
+                      f"slowfit moved the tracks away from the renders: "
+                      f"{rec['joint_dev_mm']:.3f} mm, start "
+                      f"{rec['start_joint_dev_mm']:.3f} mm")
+            stats[variant] = rec
+            lines.append(f"{variant} {dt * 1e3:.1f} ms, joint dev "
+                         f"{rec['joint_dev_mm']:.3f} mm (start "
+                         f"{rec['start_joint_dev_mm']:.3f}){note}, launches "
+                         f"{counts}")
+
+        # tracks 0 and 1 through the plain versions on the CPU
+        cpu_model = from_numpy_model(self.model.np, "cpu")
+        two = _first(inp, 2, "cpu")
+        cpu = {}
+        for variant in SLOWFIT_VARIANTS:
+            ref = self.slowfit_call(variant, two, model=cpu_model).body.pose
+            err = (fitted[variant].body.pose[:2, :, :3].cpu()
+                   - ref[..., :3]).abs().max().item()
+            check(err < 1e-4, f"slowfit {variant}: the CPU plain versions "
+                  f"differ by {err} m")
+            cpu[variant] = err
+        lines.append("CPU plain reference (2 tracks) " + ", ".join(
+            f"{k} {v:.2g} m" for k, v in cpu.items()))
+
+        # use_pallas=False: the plane dots at T=64, its peak memory
+        Tn = NOPALLAS_MEM_TRACKS
+        small = _first(inp, Tn)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        m0 = torch.cuda.memory_allocated()
+        kernels.reset_counts()
+        nres = self.slowfit_call("plain", small, use_pallas=False)
+        torch.cuda.synchronize()
+        npeak = (torch.cuda.max_memory_allocated() - m0) / 2**30
+        ncounts = {k: v for k, v in kernels.counts().items() if v}
+        check(set(ncounts) == {"contact_fields", "row_sweep"},
+              f"slowfit use_pallas=False launched {ncounts}")
+        ndiff = (nres.body.pose[..., :3]
+                 - fitted["plain"].body.pose[:Tn, :, :3]).abs().max().item()
+        lines.append(f"use_pallas=False at T={Tn}: peak {npeak:.3f} GiB, "
+                     f"launches {ncounts}, {ndiff:.3g} m from use_pallas")
+
+        # the kernels at slowfit's shapes, bit for bit, timed
+        kin = self.slowfit_kernel_inputs(inp, fitted)
+        pairs = self.pairs_of()
+        fns = dict(self.ref_sweep_fns(),
+                   contact_fields=pairs["contact_fields"])
+        fns["row_sweep[last]"] = fns["row_sweep"]
+        self.slowfit_shapes = {}
+        for name, key in SLOWFIT_SHAPES.items():
+            kfn, pfn = fns[name]
+            args = kin[name]
+            ms, k = self.event_ms(kfn, args, warm=2, reps=5)
+            plain_ms, p = self.event_ms(pfn, args, warm=0, reps=1)
+            rec = {}
+            if name == "contact_fields":
+                err, note = self.hold(name, k, p)
+                nbytes, ops = self.work(name, args)
+                note += "; " + self.contact_floor(args, rec)
+            else:
+                base = "row_sweep" if name.startswith("row_sweep") else name
+                err, note = self.hold_ref(base, k, p)
+                nbytes, ops = self.work_ref(base, args, rec)
+                if base == "row_sweep":
+                    note += "; " + self.waves(base, args, rec)
+            tb, to = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_S * 1e3
+            rec.update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       bound_ms=max(tb, to),
+                       bound_by="bytes" if tb >= to else "operations",
+                       bytes=nbytes, operations=ops,
+                       launches=stats["hold"]["launches"][
+                           name.split("[")[0]])
+            self.slowfit_shapes[key] = rec
+            lines.append(f"{key} {ms:.4f} ms (plain {plain_ms:.1f} ms, "
+                         f"bound {max(tb, to):.4f} ms by {rec['bound_by']}; "
+                         f"{note})")
+
+        # the plain call's host clock, device busy time and launches
+        secs = []
+        for _ in range(SLOWFIT_TIMED_CALLS):
+            t0 = time.perf_counter()
+            self.slowfit_call("plain", inp)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+
+        def run(st, calls, t):
+            for _ in range(calls):
+                st = self.slowfit_call("plain", (st,) + inp[1:])
+            return st, None
+        prof = self.profile(T, 1, run=run, state=st0)
+        ms = float(np.mean(secs)) * 1e3
+        self.slowfit_speed = dict(tracks=T, calls=len(secs),
+                                  ms_per_call=ms,
+                                  ms_each=[x * 1e3 for x in secs], **prof)
+        if "device_ms_per_frame" in prof:
+            busy = prof["device_ms_per_frame"]
+            idle = ms - busy
+            self.slowfit_speed["idle_ms_per_call"] = idle
+            lines.append(
+                f"plain call {ms:.1f} ms host ({', '.join(f'{x * 1e3:.1f}' for x in secs)}), "
+                f"device busy {busy:.2f} ms, idle {idle:.1f} ms "
+                f"({idle / ms:.0%}) (port kernels "
+                f"{prof['port_kernels_ms_per_frame']:.2f} ms, "
+                f"{prof['launches_per_frame']:.0f} launches, of them "
+                f"{prof['torch_launches_per_frame']:.0f} PyTorch "
+                f"{prof['torch_ops_ms_per_frame']:.2f} ms)")
+        else:
+            lines.append(f"plain call {ms:.1f} ms host; profile not "
+                         f"measured ({prof['profile_error']})")
+        self.slowfit_stats = dict(
+            variants=stats, cpu_reference_err_m=cpu,
+            nopallas_peak_gib=npeak, nopallas_tracks=Tn,
+            nopallas_launches=ncounts, nopallas_vs_pallas_m=ndiff,
+            points_mean=mask.sum(1).float().mean().item())
+        return f"T={T}: " + "; ".join(lines)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--json", help="also write every measured number to "
@@ -2583,6 +2872,7 @@ def main(argv=None) -> int:
     phase(14, "voxel and mirror timing", s.cloud_timing)
     phase(15, "CNN frame on the reference solvers", s.cnn_ref_slice)
     phase(16, "reference-solver CNN frame timing", s.cnn_ref_timing)
+    phase(17, "slowfit", s.slowfit_phase)
     s.results["row_sweep[colored]"]["launches"] = \
         s.ref_speed["colored"]["launches"]["row_sweep"]
     record["total_s"] = time.perf_counter() - t_all
@@ -2592,6 +2882,14 @@ def main(argv=None) -> int:
     for name, (src, rep) in src_of.items():
         r = s.results[name]
         rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": rep, "launches": r["launches"],
+                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                     "bound_by": r["bound_by"], "library_ms": None})
+    for name, key in SLOWFIT_SHAPES.items():   # phase 17's run and shapes
+        src, rep = KERNELS[name.split("[")[0]]
+        r = s.slowfit_shapes[key]
+        rows.append({"name": key, "route": "cuda", "source": src,
                      "replaces": rep, "launches": r["launches"],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -2609,7 +2907,10 @@ def main(argv=None) -> int:
                            pack_err=s.pack_err,
                            cnn_reference=s.cnn_ref_stats,
                            cnn_reference_speed=s.cnn_ref_speed,
-                           cnn_reference_shapes=s.cnn_ref_shapes),
+                           cnn_reference_shapes=s.cnn_ref_shapes,
+                           slowfit=s.slowfit_stats,
+                           slowfit_speed=s.slowfit_speed,
+                           slowfit_shapes=s.slowfit_shapes),
                       f, indent=1, default=str)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -180,3 +180,19 @@ def qmul(a, b):
         fma(az, bw, fma(-ay, bx, fma(aw, bz, ax * by))),
         fma(-az, bz, fma(-ay, by, fma(aw, bw, -(ax * bx)))),
     ], dim=-1)
+
+
+def qdirs(q):
+    """The rows qxdir, qydir, qzdir of q (..., 4) -> (..., 3, 3), each
+    term contracted from the left as the JAX CPU build runs them (a sum of
+    squares as fma(-z, z, fma(-y, y, fma(w, w, x*x))))."""
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack([
+        torch.stack([fma(-z, z, fma(-y, y, fma(w, w, x * x))),
+                     fma(x, y, z * w) * 2, sub_prod(z, x, y, w) * 2], -1),
+        torch.stack([sub_prod(x, y, z, w) * 2,
+                     fma(-z, z, fma(y, y, fma(w, w, -(x * x)))),
+                     fma(y, z, x * w) * 2], -1),
+        torch.stack([fma(z, x, y * w) * 2, sub_prod(y, z, x, w) * 2,
+                     fma(z, z, fma(-y, y, fma(w, w, -(x * x))))], -1),
+    ], dim=-2)

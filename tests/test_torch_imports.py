@@ -106,6 +106,16 @@ def test_entry_points_refuse_later_slices():
                 runtime._check_config(TrackerConfig(**cfg))
     with pytest.raises(NotImplementedError, match="item 4"):
         runtime.kickstart_multi()
+    # slowfit solves sequentially whatever the solver: both use_pallas
+    # settings, exact contacts only
+    for solver in ("kernel", "sequential", "colored"):
+        for pallas in (False, True):
+            runtime._check_config(TrackerConfig(solver=solver,
+                                                use_pallas=pallas),
+                                  slowfit=True)
+    with pytest.raises(NotImplementedError, match="item 3"):
+        runtime._check_config(TrackerConfig(contacts_mode="jacobi"),
+                              slowfit=True)
 
 
 def test_every_port_module_imports():
@@ -120,7 +130,9 @@ def test_every_port_module_imports():
     for name in ("cnn.model", "cnn.labels", "segment.handsegment",
                  "imaging.heatmaps", "imaging.image_ops", "maths.fma",
                  "maths.libm", "ops.correspondence", "physics.row_sweep",
-                 "physics.colored", "physics.contacts", "physics.solver"):
+                 "physics.colored", "physics.contacts", "physics.solver",
+                 "data.dataset", "utils.viz", "utils.report",
+                 "apps.annotate", "apps.replay_track"):
         assert f"{pkg.__name__}.{name}" in names, name
     for name in names:
         importlib.import_module(name)
