@@ -142,6 +142,26 @@ Phases, each printing one line with its elapsed seconds:
      and the last solve's rows: no cloud, no caller rows) bit for bit with
      their plain versions at T=512, timed beside their bounds; the plain
      call's host clock, device busy and idle, and launches
+ 18. jacobi contacts (contacts_mode="jacobi"): the PGS kernel's jacobi
+     class (dynamics and multistep plans) and the row sweep's jacobi
+     levels (the colored jacobi rows) bit for bit with their plain
+     versions at T=4 and T=512 on the contact poses' rows, with their
+     active contact rows counted (> 0), timed beside their bounds; the
+     jacobi dynamics frame on the kernel solver (30 frames) and the
+     colored one (10) on phase 4's renders, each frame's largest distance
+     from the exact-contacts frame and the dyn30 golden errors, timed, and
+     3 frames at the contact poses on their renders (where the jacobi
+     class and levels run: their launches); two jacobi CNN frames (the
+     multistep plan's jacobi class); the angles-only CNN frame (every
+     track resets, no main pass) for 8 frames on phase 7's renders, timed,
+     with kernels 6 and 7 on its second frame's inputs (T=512: every
+     track resets) bit for bit and timed; kickstart_multi at 128 tracks x 4 hypotheses from the rest
+     pose (the mean joint error before and after, the time); the kernel
+     solver with use_pallas=False at T=64 for 10 frames (its peak memory,
+     its distance from use_pallas=True); 2-track CPU re-runs of each
+     (< 1e-4 m; the jacobi frames' at the contact poses, on the two tracks
+     with the most active contact rows, each frame with some); the synthetic-track CLI as two subprocesses on the card
+     (--tracks 64 --frames 8, with and without --dynamics-only)
 
 Each phase drives its path with the launch counts set to 0 just before it
 and reads them just after.  The line before the last is the kernels' JSON
@@ -149,8 +169,10 @@ record (launches: the dynamics path's for the first four kernels, the CNN
 frame's for kernels 6-7 and the plans, the sequential frame's (phase 10)
 for the correspondence kernel and the row sweep, the colored frame's
 (phase 11) for the row sweep on colored rows, the far-mirror dynamics
-frame's (phase 13) for kernel 2.5, and slowfit's hold call (phase 17) for
-the rows of its four shapes); the last line is
+frame's (phase 13) for kernel 2.5, slowfit's hold call (phase 17) for
+the rows of its four shapes, and phase 18's runs for its five rows: the
+jacobi frames at the contact poses, the jacobi CNN frames, the angles-only
+frames); the last line is
 {"ok": true, "device": {...}}.  Exits non-zero, printing no result, when a
 phase fails, when there is no CUDA device, or when run outside the
 repository.  --json PATH writes every measured number to PATH.  Every
@@ -303,6 +325,39 @@ SLOWFIT_SHAPES = {"contact_fields": "contact_fields[slowfit]",
                   "row_sweep[last]": "row_sweep[slowfit, last]"}
 
 
+# jacobi contacts, the angles-only frame, kickstart_multi, the kernel
+# solver without use_pallas and the synthetic-track CLI (phase 18), T=512
+# unless named: jacobi frames on phase 4's renders (30 on the kernel
+# solver, 10 on the colored one) beside the exact ones on the same renders,
+# two CNN frames with jacobi contacts on phase 7's renders (the multistep
+# plan's jacobi class), the angles-only CNN frame (8 frames on phase 7's
+# renders), kickstart_multi (128 tracks x 4 hypotheses from the rest pose),
+# the kernel solver without use_pallas (64 tracks, 10 frames: the plane
+# dots' (T, 17, 2048, 96) tensor bounds it), the CLI as a subprocess
+JACOBI_FRAMES = dict(kernel=30, colored=10)
+JACOBI_CONTACT_FRAMES = 3     # frames at the contact poses (their renders)
+JACOBI_CNN_FRAMES = 2
+ANGLES_FRAMES = 8
+KICK_TRACKS, KICK_HYP = 128, 4
+NOPALLAS_TRACKS, NOPALLAS_FRAMES = 64, 10
+CLI_ARGS = ("--tracks", "64", "--frames", "8")
+# the rows of phase 18's kernels in the kernels line: name -> (source, the
+# TPU kernel it replaces); the jacobi classes and levels, and kernels 6
+# and 7 on the angles-only resets (every track, T=512)
+P18_ROWS = {
+    "pgs_solve[jacobi]": (f"{PORT}/csrc/pgs_kernel.cu",
+                          f"{JAXPKG}/physics/pgs_kernel.py:185"),
+    "pgs_solve[jacobi, multistep]": (f"{PORT}/csrc/pgs_kernel.cu",
+                                     f"{JAXPKG}/physics/pgs_kernel.py:185"),
+    "row_sweep[colored, jacobi]": (f"{PORT}/csrc/row_sweep.cu",
+                                   f"{JAXPKG}/physics/colored.py:300"),
+    "cloud_rows_unpacked[angles-only]": (f"{PORT}/csrc/cloud_rows.cu",
+                                         f"{JAXPKG}/ops/cloud_rows.py:34"),
+    "cloud_vals[angles-only]": (f"{PORT}/csrc/cloud_rows.cu",
+                                f"{JAXPKG}/ops/cloud_rows.py:34"),
+}
+
+
 class PhaseError(RuntimeError):
     pass
 
@@ -414,7 +469,7 @@ class Smoke:
                 hist.append(keep(st))
         return st, hist
 
-    def kernel_inputs(self, st, depth):
+    def kernel_inputs(self, st, depth, contacts_mode="exact"):
         """The four kernels' inputs for one frame of state st."""
         torch = self.torch
         from hand_tracking_samples_tpu_torch.fitting.cloud import (
@@ -452,7 +507,8 @@ class Smoke:
                                      BOUNDARY_OUTDIRS, (0.0, 0.0, 0.0),
                                      (0.0, 0.0, 1.0), CHAMBER_MAXFORCE,
                                      active=mask.sum(-1) > cfg.min_point_num)
-        plan = build_dynamics_plan(m.np, cfg.cloud_rows_per_body + 5)
+        plan = build_dynamics_plan(m.np, cfg.cloud_rows_per_body + 5,
+                                   contacts_mode)
         x = solve_inputs(body, body_params(m),
                          rows_to_single_block(chamber, (5, B)), plan,
                          self.params, m, (ph, (0.0, 0.0, 0.0), scale_b),
@@ -1027,7 +1083,7 @@ class Smoke:
                 hist.append(keep(st))
         return st, hist
 
-    def cnn_kernel_inputs(self, st, depth):
+    def cnn_kernel_inputs(self, st, depth, contacts_mode="exact"):
         """The CNN frame's kernel inputs for state st and depth (T, H, W):
         vals (FitError at st), unpacked rows and the unibody solve (at the
         PoseFromScratch pose, as the reset runs them), and the multistep
@@ -1061,7 +1117,8 @@ class Smoke:
                               cfg.unibody_force)
         uni = (x["plan"], it, ip, x["mom0"], x["mi"], x["singles"], [], [])
         blk = rt._keypoint_block(body, m, an, cam, cfg)
-        plan = build_multistep_plan(m.np, 4 + cfg.cloud_rows_per_body, True)
+        plan = build_multistep_plan(m.np, 4 + cfg.cloud_rows_per_body, True,
+                                    contacts_mode)
         xs = solve_inputs(body, body_params(m), blk, plan, self.params, m,
                           rt.multistep_cloud(ph, cam, cfg, B),
                           cfg.cloud_rows_per_body, "ms_angles",
@@ -1276,7 +1333,7 @@ class Smoke:
         return TrackerConfig(cnn_every_frame=False, solver=solver,
                              use_pallas=use_pallas, point_budget=2048, **kw)
 
-    def ref_inputs(self, body, depth):
+    def ref_inputs(self, body, depth, contacts_mode="exact"):
         """The new kernels' inputs for one reference frame of bodies body:
         the correspondence kernel's, and the row sweep's for one sequential
         and one colored solve (the frame's rows: chamber, cloud, joints,
@@ -1304,7 +1361,8 @@ class Smoke:
         it, ip = cfg.physics_iterations, cfg.physics_iterations_post
         for name, sched, fn in (
                 ("row_sweep", None, sweep_inputs),
-                ("row_sweep[colored]", build_hand_schedule(m.np),
+                ("row_sweep[colored]",
+                 build_hand_schedule(m.np, contacts_mode),
                  colored_sweep_inputs)):
             lin, ang = reference_frame_rows(body, m, self.params, pts, mask,
                                             cfg, sched)
@@ -1476,6 +1534,18 @@ class Smoke:
                                  f32(rng.randn(TRACKS, 17, 3) * 1e-3),
                                  f32(rng.randn(TRACKS, 17, 3) * 1e-4))
 
+    def contact_depth(self, frames):
+        """The contact poses' own fake_depth renders (T=512)."""
+        if getattr(self, "_contact_depth", None) is None:
+            torch = self.torch
+            from hand_tracking_samples_tpu_torch.data.synth import fake_depth
+            uniq = sorted(set(frames))
+            d = fake_depth(torch.tensor(self.bank[uniq], device=self.dev),
+                           self.model, self.cam, chunk=8)
+            self._contact_depth = d[torch.tensor(
+                [uniq.index(f) for f in frames], device=self.dev)]
+        return self._contact_depth
+
     def contacts_active_t512(self):
         """The reference-layout contact rows (contacts.contact_rows_from_
         fields) at T=512 on the contact poses: the kernel's fields and rows
@@ -1523,16 +1593,10 @@ class Smoke:
         renders) and seeded synthetic rows (T=4, row_sweep.synthetic_rows:
         masters after their readers, inactive masters)."""
         torch = self.torch
-        from hand_tracking_samples_tpu_torch.data.synth import fake_depth
         from hand_tracking_samples_tpu_torch.physics.row_sweep import (
             row_sweep, row_sweep_plain, synthetic_rows)
         frames, body = self.contact_poses()
-        uniq = sorted(set(frames))
-        depth = fake_depth(torch.tensor(self.bank[uniq], device=self.dev),
-                           self.model, self.cam, chunk=8)
-        depth = depth[torch.tensor([uniq.index(f) for f in frames],
-                                   device=self.dev)]
-        inp = self.ref_inputs(body, depth)
+        inp = self.ref_inputs(body, self.contact_depth(frames))
         cases = [(f"T={TRACKS} contact poses {n}", inp[n])
                  for n in ("row_sweep", "row_sweep[colored]")]
         cases += [(f"T=4 synthetic seed {k}",
@@ -2775,6 +2839,483 @@ class Smoke:
             points_mean=mask.sum(1).float().mean().item())
         return f"T={T}: " + "; ".join(lines)
 
+    # ---- phase 18: jacobi contacts, angles-only, kickstart_multi, the
+    # kernel solver without use_pallas, the synthetic-track CLI ---------------
+    def jacobi_kernels(self):
+        """The PGS kernel's jacobi class (dynamics and multistep plans) and
+        the row sweep's jacobi levels (the colored solve's jacobi rows) on
+        the contact poses' rows: bit for bit with their plain versions at
+        T=4 and T=512, timed at T=512 beside their bounds; the count of
+        active contact rows (it must be > 0)."""
+        from types import SimpleNamespace
+        from hand_tracking_samples_tpu_torch.physics.row_sweep import (
+            jacobi_phases)
+        torch = self.torch
+        frames, body = self.contact_poses()
+        depth = self.contact_depth(frames)
+        st = SimpleNamespace(body=body)
+        dyn = self.kernel_inputs(st, depth, "jacobi")
+        cnn = self.cnn_kernel_inputs(st, depth, "jacobi")
+        ref = self.ref_inputs(body, depth, "jacobi")
+        cases = {"pgs_solve[jacobi]": (dyn["pgs_solve"], dyn["P"]),
+                 "pgs_solve[jacobi, multistep]": (
+                     cnn["pgs_solve[multistep]"],
+                     cnn["P"]["pgs_solve[multistep]"]),
+                 "row_sweep[colored, jacobi]": (ref["row_sweep[colored]"],
+                                                None)}
+        pairs = dict(self.pairs_of(), **self.ref_sweep_fns())
+        lines = []
+        for name, (args, P) in cases.items():
+            pgs = name.startswith("pgs")
+            kfn, pfn = pairs["pgs_solve" if pgs else "row_sweep"]
+            if pgs:
+                plan, lin = args[0], args[6]
+                k = [i for i, c in enumerate(plan.lin_classes) if c.jacobi]
+                check(len(k) == 1, f"{name}: no jacobi class in the plan")
+                nact = int((lin[k[0]][:, :, 15] != 0).sum())
+                n = 4
+                small = args[:3] + (args[3][:n], args[4],
+                                    args[5][:n] if args[5] is not None
+                                    else None,
+                                    [r[:n] for r in args[6]],
+                                    [r[:n] for r in args[7]])
+            else:
+                lm = args[2].lm
+                nact = int(((((lm >> 16) & 1) == 1)
+                            & (jacobi_phases(lm) >= 0)).sum())
+                rows = args[2]
+                small = (args[0][:4], args[1], rows._replace(
+                    lf=rows.lf[:4].contiguous(),
+                    af=rows.af[:4].contiguous())) + args[3:]
+            check(nact > 0, f"{name}: no active contact row")
+            e4 = (kfn(*small) - pfn(*small)).abs().max().item()
+            check(e4 == 0.0, f"{name} at T=4 differs from its plain "
+                  f"version: {e4}")
+            ms, kout = self.event_ms(kfn, args, warm=2, reps=10)
+            plain_ms, pout = self.event_ms(pfn, args, warm=0, reps=1)
+            rec = self.results[name]
+            if pgs:
+                err, note = self.hold("pgs_solve", kout, pout, P)
+                nbytes, ops = self.work("pgs_solve", args)
+            else:
+                err, note = self.hold_ref("row_sweep", kout, pout)
+                nbytes, ops = self.work_ref("row_sweep", args, rec)
+                note += "; " + self.waves("row_sweep", args, rec)
+            tb, to = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_S * 1e3
+            rec.update(max_abs_err=err, max_abs_err_t4=e4, ms=ms,
+                       plain_ms=plain_ms, bound_ms=max(tb, to),
+                       bound_by="bytes" if tb >= to else "operations",
+                       library_ms=None, bytes=nbytes, operations=ops,
+                       active_contact_rows=nact)
+            note += "; " + self.cycles(name, args)
+            lines.append(f"{name} {ms:.4f} ms (plain {plain_ms:.1f} ms, "
+                         f"bound {max(tb, to):.4f} ms by {rec['bound_by']}; "
+                         f"{nact} active contact rows; T=4 {e4:.3g}; "
+                         f"{note})")
+        return "; ".join(lines)
+
+    def frames_of(self, cfg, frames, T, cnn=False, state=None):
+        """(seconds, launch counts, the PGS and row sweep kinds, per-frame
+        poses) of `frames` frames of cfg at T tracks from state (default
+        phase 4's or phase 7's start)."""
+        torch = self.torch
+        from hand_tracking_samples_tpu_torch import kernels
+        from hand_tracking_samples_tpu_torch.physics.pgs_kernel import (
+            pgs_solve)
+        from hand_tracking_samples_tpu_torch.physics.row_sweep import (
+            row_sweep)
+        run = self.cnn_run if cnn else self.run
+        st0 = state if state is not None else (
+            self.cnn_state(T) if cnn else self.init_state(T))
+        kernels.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, hist = run(st0, frames, T, keep=lambda s: s.body.pose.clone(),
+                      cfg=cfg)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        return (dt, {k: v for k, v in kernels.counts().items() if v},
+                dict(pgs_solve.kinds), dict(row_sweep.kinds), hist)
+
+    def contact_run(self, st, depth, frames, cfg):
+        """`frames` dynamics frames of cfg from st on the fixed renders
+        depth: (launch counts, the PGS and row sweep kinds, per-frame
+        poses)."""
+        torch = self.torch
+        from hand_tracking_samples_tpu_torch import kernels
+        from hand_tracking_samples_tpu_torch.parallel.tracks import (
+            batched_update)
+        from hand_tracking_samples_tpu_torch.physics.pgs_kernel import (
+            pgs_solve)
+        from hand_tracking_samples_tpu_torch.physics.row_sweep import (
+            row_sweep)
+        kernels.reset_counts()
+        hist = []
+        for _ in range(frames):
+            st, _ = batched_update(st, self.model, None, depth, self.cam,
+                                   cfg, self.params)
+            hist.append(st.body.pose)
+        check(bool(torch.isfinite(st.body.pose).all()),
+              "contact-pose frames: non-finite poses")
+        return ({k: v for k, v in kernels.counts().items() if v},
+                dict(pgs_solve.kinds), dict(row_sweep.kinds), hist)
+
+    def contact_cpu_reference(self, body, depth, poses, cfg):
+        """The two tracks with the most active contact rows at body (T, ..)
+        through the plain versions on the CPU, len(poses) frames of cfg on
+        the renders depth from the contact state: (the largest position
+        difference from the card's per-frame poses, the two tracks, the
+        active contact rows of the two at each frame's start, each > 0)."""
+        from hand_tracking_samples_tpu_torch.model.bake import from_numpy_model
+        from hand_tracking_samples_tpu_torch.parallel.tracks import (
+            batched_tracker_state, batched_update)
+        from hand_tracking_samples_tpu_torch.physics.contacts import (
+            contact_rows)
+        model = from_numpy_model(self.model.np, "cpu")
+        act = contact_rows(body, self.model, self.params).active.sum(-1)
+        idx = act.topk(2).indices.sort().values
+        st = batched_tracker_state(model, 2)
+        st = st._replace(body=type(body)(*[x[idx].cpu() for x in body]))
+        d = depth[idx].cpu()
+        err, nact = 0.0, []
+        for ref in poses:
+            nact.append(int(contact_rows(st.body, model, self.params)
+                            .active.sum()))
+            st, _ = batched_update(st, model, None, d, self.cam, cfg,
+                                   self.params)
+            err = max(err, (st.body.pose[..., :3] - ref[idx][..., :3].cpu())
+                      .abs().max().item())
+        check(min(nact) > 0, f"contact-pose CPU re-run: a frame with no "
+              f"active contact row ({nact})")
+        check(err < 1e-4, f"contact-pose frames: CPU plain reference "
+              f"differs: {err} m")
+        return err, idx.tolist(), nact
+
+    def speed_of(self, cfg, T, cnn=False, state=None):
+        """Device busy time and launches a frame of cfg (profile)."""
+        run = self.cnn_run if cnn else self.run
+        return self.profile(T, 2, run=lambda st, fr, t: run(st, fr, t,
+                                                             cfg=cfg),
+                            state=state)
+
+    def busy_note(self, prof, ms):
+        if "device_ms_per_frame" not in prof:
+            return f"profile not measured ({prof['profile_error']})"
+        busy = prof["device_ms_per_frame"]
+        return (f"device busy {busy:.2f} ms, idle {ms - busy:.1f} ms "
+                f"({(ms - busy) / ms:.0%}), port kernels "
+                f"{prof['port_kernels_ms_per_frame']:.2f} ms, "
+                f"{prof['launches_per_frame']:.0f} launches")
+
+    def jacobi_frames(self):
+        """The dynamics frame with jacobi contacts on the kernel solver (30
+        frames) and the colored one (10) on phase 4's renders: each
+        frame's largest distance from the exact-contacts frame on the same
+        renders, the even tracks' dyntrack golden errors, the time; the
+        same frames at the contact poses on their renders (3 frames), where
+        contact rows are active, so the PGS kernel's jacobi class and the
+        row sweep's jacobi levels run in the frame (their launches are
+        counted there), and the gap between the two solvers' poses there
+        with jacobi and with exact contacts; a 2-track CPU re-run of each
+        solver's jacobi frames at the contact poses (the two tracks with
+        the most active contact rows; each frame has some); two CNN frames
+        with jacobi contacts (the multistep plan's jacobi class)."""
+        import dataclasses
+        torch, np = self.torch, self.np
+        T = TRACKS
+        even = torch.arange(0, T, 2, device=self.dev)
+        lines, stats, finals = [], {}, {}
+        for solver, F in JACOBI_FRAMES.items():
+            exact = self.cfg if solver == "kernel" else self.ref_cfg(solver)
+            cfg = dataclasses.replace(exact, contacts_mode="jacobi")
+            self.run(self.init_state(T), 1, T, cfg=cfg)             # warm
+            dt, counts, pk, rk, hist = self.frames_of(cfg, F, T)
+            check(solver != "kernel" or (pk.get("dyn_jacobi", 0) == F
+                                         and "dyn" not in pk),
+                  f"jacobi kernel frames: PGS plans {pk}")
+            # at the contact poses: the jacobi class and levels in use
+            Fc = JACOBI_CONTACT_FRAMES
+            frames, body = self.contact_poses()
+            depth = self.contact_depth(frames)
+            st = self.init_state(T)._replace(body=body)
+            c_counts, c_pk, c_rk, chist = self.contact_run(st, depth, Fc,
+                                                           cfg)
+            finals[solver, "jacobi"] = chist[-1]
+            finals[solver, "exact"] = self.contact_run(st, depth, Fc,
+                                                       exact)[3][-1]
+            if solver == "kernel":
+                check(c_pk.get("dyn_jacobi", 0) == Fc,
+                      f"jacobi kernel frames at the contact poses: PGS "
+                      f"plans {c_pk}")
+                self.results["pgs_solve[jacobi]"]["launches"] = \
+                    c_pk["dyn_jacobi"]
+            else:
+                check(c_rk.get("jacobi", 0) == Fc,
+                      f"jacobi colored frames at the contact poses: row "
+                      f"sweep {c_rk}")
+                self.results["row_sweep[colored, jacobi]"]["launches"] = \
+                    c_rk["jacobi"]
+            _, _, _, _, ehist = self.frames_of(exact, F, T)
+            dist = [(a[..., :3] - b[..., :3]).abs().max().item()
+                    for a, b in zip(hist, ehist)]
+            gold = [(h[even, :, :3] - self.ref[f][:, :3]).norm(dim=-1)
+                    .mean(-1).max().item() * 1e3 for f, h in enumerate(hist)]
+            check(all(bool(torch.isfinite(h).all()) for h in hist),
+                  f"jacobi {solver} frames: non-finite poses")
+            cpu, cpu_tracks, cpu_act = self.contact_cpu_reference(
+                body, depth, chist, cfg)
+            ms = dt / F * 1e3
+            prof = self.speed_of(cfg, T)
+            stats[solver] = dict(frames=F, ms_per_frame=ms, launches=counts,
+                                 pgs_kinds=pk, sweep_kinds=rk,
+                                 contact_launches=c_counts,
+                                 contact_pgs_kinds=c_pk,
+                                 contact_sweep_kinds=c_rk,
+                                 from_exact_m=dist, golden_mm=gold,
+                                 cpu_reference_err_m=cpu,
+                                 cpu_reference_tracks=cpu_tracks,
+                                 cpu_reference_active_contact_rows=cpu_act,
+                                 **prof)
+            lines.append(
+                f"{solver}: {ms:.1f} ms a frame ({self.busy_note(prof, ms)}"
+                f"); from the exact frame max {max(dist) * 1e3:.4f} mm "
+                f"(per frame " + " ".join(f"{d * 1e3:.3f}" for d in dist)
+                + f"); dyn30 golden max {max(gold):.3f} mm, mean "
+                f"{np.mean(gold):.3f} mm; launches {counts}; at the contact "
+                f"poses {Fc} frames, launches {c_counts}, PGS plans {c_pk}, "
+                f"row sweep {c_rk}, CPU re-run of tracks {cpu_tracks} "
+                f"{cpu:.2g} m (active contact rows a frame {cpu_act})")
+        # the kernel solver against the colored one at the contact poses
+        gap = {m: (finals["kernel", m][..., :3] - finals["colored", m]
+                   [..., :3]).abs().max().item() for m in ("jacobi", "exact")}
+        stats["kernel_vs_colored_m"] = gap
+        lines.append(f"kernel against colored at the contact poses after "
+                     f"{JACOBI_CONTACT_FRAMES} frames: jacobi "
+                     f"{gap['jacobi']:.3g} m, exact {gap['exact']:.3g} m")
+        # the CNN frame with jacobi contacts: the multistep plan's class
+        cfg = dataclasses.replace(self.cnn_cfg, contacts_mode="jacobi")
+        dt, counts, pk, _, hist = self.frames_of(cfg, JACOBI_CNN_FRAMES,
+                                                 CNN_TRACKS, cnn=True)
+        check(pk.get("ms_jacobi", 0) > 0 and pk.get("dyn_jacobi", 0) > 0,
+              f"jacobi CNN frames: PGS plans {pk}")
+        check(all(bool(torch.isfinite(h).all()) for h in hist),
+              "jacobi CNN frames: non-finite poses")
+        self.results["pgs_solve[jacobi, multistep]"]["launches"] = \
+            pk["ms_jacobi"]
+        stats["cnn"] = dict(frames=JACOBI_CNN_FRAMES, seconds=dt,
+                            launches=counts, pgs_kinds=pk)
+        lines.append(f"CNN frame: {dt / JACOBI_CNN_FRAMES * 1e3:.1f} ms a "
+                     f"frame, PGS plans {pk}")
+        self.p18["jacobi"] = stats
+        return "; ".join(lines)
+
+    def angles_only(self):
+        """The angles-only CNN frame on the kernel solver, 8 frames at
+        T=512 on phase 7's renders: every track resets and takes the
+        refit, no main-thread pass; timed; kernels 6 and 7 bit for bit on
+        the second frame's own inputs (T=512: the FitError at the state
+        after the first frame, the first UnibodyFit step of every track's
+        reset), timed beside their bounds; a 2-track CPU re-run of its first
+        frame."""
+        import dataclasses
+        torch, np = self.torch, self.np
+        T, F = CNN_TRACKS, ANGLES_FRAMES
+        cfg = dataclasses.replace(self.cnn_cfg, angles_only=True)
+        st1, _ = self.cnn_run(self.cnn_state(T), 1, T, cfg=cfg)     # warm
+        dt, counts, pk, _, hist = self.frames_of(cfg, F, T, cnn=True)
+        need = dict(cloud_rows_unpacked=3 * F, cloud_vals=2 * F)
+        check(all(counts.get(k) == v for k, v in need.items())
+              and pk.get("uni") == 3 * F and pk.get("ms") == 5 * F
+              and "dyn" not in pk,
+              f"angles-only launches {counts}, PGS plans {pk}")
+        truth = torch.tensor(self.bank[30:30 + F], device=self.dev)
+        je = [(h[..., :3] - truth[f][:, :3]).norm(dim=-1).mean().item()
+              * 1e3 for f, h in enumerate(hist)]
+        check(all(bool(torch.isfinite(h).all()) for h in hist),
+              "angles-only: non-finite poses")
+        ms = dt / F * 1e3
+        prof = self.speed_of(cfg, T, cnn=True, state=self.cnn_state(T))
+        cpu = self.cnn_cpu_reference([hist[0][[0, 3]]], cfg)
+        # kernels 6 and 7 on the second frame's inputs: every track resets
+        inp = self.cnn_kernel_inputs(st1, self.cnn_depth(1, T))
+        parts = []
+        for name in ("cloud_rows_unpacked", "cloud_vals"):
+            key = f"{name}[angles-only]"
+            kfn, pfn = self.pairs_of()[name]
+            args = inp[name]
+            kms, k = self.event_ms(kfn, args, warm=2, reps=10)
+            plain_ms, p = self.event_ms(pfn, args, warm=0, reps=1)
+            err, note = self.hold(name, k, p)
+            saved = dict(self.results[name])     # scan_exit records there
+            note += "; " + self.scan_exit(name, args)
+            nbytes, ops = self.work(name, args)
+            tb, to = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_S * 1e3
+            rec = {x: self.results[name][x] for x in (
+                "exit_skipped_share", "hull_plane_evals",
+                "exit_issue_floor_ms", "issue_floor_ms")}
+            self.results[name] = saved
+            rec.update(max_abs_err=err, ms=kms, plain_ms=plain_ms,
+                       bound_ms=max(tb, to),
+                       bound_by="bytes" if tb >= to else "operations",
+                       library_ms=None, bytes=nbytes, operations=ops,
+                       launches=counts[name])
+            self.results[key].update(rec)
+            parts.append(f"{key} {kms:.4f} ms (plain {plain_ms:.2f} ms, "
+                         f"bound {rec['bound_ms']:.4f} ms by "
+                         f"{rec['bound_by']}; {note})")
+        self.p18["angles_only"] = dict(
+            frames=F, ms_per_frame=ms, launches=counts, pgs_kinds=pk,
+            joint_err_mm=je, cpu_reference_err_m=cpu, **prof)
+        return (f"{ms:.1f} ms a frame ({self.busy_note(prof, ms)}); mean "
+                f"joint error per frame " + " ".join(f"{x:.2f}" for x in je)
+                + f" mm; CPU re-run {cpu:.2g} m; launches {counts}; "
+                + "; ".join(parts))
+
+    def kickstart(self):
+        """kickstart_multi at 128 tracks x 4 hypotheses (512 fits) from the
+        rest pose on phase 7's renders: the mean joint error to the ground
+        truth before and after, the time, the launches; two tracks'
+        hypotheses re-run on the CPU."""
+        torch = self.torch
+        from hand_tracking_samples_tpu_torch import kernels
+        from hand_tracking_samples_tpu_torch.cnn.model import from_numpy
+        from hand_tracking_samples_tpu_torch.model.bake import (
+            from_numpy_model)
+        from hand_tracking_samples_tpu_torch.parallel.tracks import (
+            batched_tracker_state)
+        from hand_tracking_samples_tpu_torch.tracker.runtime import (
+            kickstart_hypotheses, kickstart_multi)
+        T, H, cfg = KICK_TRACKS, KICK_HYP, self.cnn_cfg
+        f = torch.arange(T, device=self.dev) % 8
+        depth = self.fake[f]
+        truth = torch.tensor(self.bank[30:38], device=self.dev)[f]
+        st = batched_tracker_state(self.model, T)
+        je = lambda p: (p[..., :3] - truth[..., :3]).norm(dim=-1).mean()
+        kickstart_multi(st, self.model, self.cnn, depth, self.cam, cfg,
+                        self.params, n_hyp=H)                      # warm
+        kernels.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new, _ = kickstart_multi(st, self.model, self.cnn, depth, self.cam,
+                                 cfg, self.params, n_hyp=H)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = {k: v for k, v in kernels.counts().items() if v}
+        pose = new.body.pose
+        check(bool(torch.isfinite(pose).all()), "kickstart: non-finite")
+        before, after = je(st.body.pose).item(), je(pose).item()
+        check(after < before, f"kickstart_multi moved the tracks away: "
+              f"{after * 1e3:.2f} mm, before {before * 1e3:.2f} mm")
+        check(counts.get("cloud_rows_unpacked") == cfg.steps_unibody
+              and counts.get("cloud_vals") == 1,
+              f"kickstart_multi launches {counts}")
+        # tracks 0 and 1 on the CPU: every hypothesis and its score
+        bodies, score, _ = kickstart_hypotheses(
+            st, self.model, self.cnn, depth, self.cam, cfg, self.params,
+            n_hyp=H)
+        cm = from_numpy_model(self.model.np, "cpu")
+        cc = from_numpy({k: {kk: vv.cpu().numpy() for kk, vv in v.items()}
+                         for k, v in self.cnn.items()}, "cpu")
+        two = batched_tracker_state(cm, 2)
+        cb, cs, _ = kickstart_hypotheses(two, cm, cc, depth[:2].cpu(),
+                                         self.cam, cfg, self.params,
+                                         n_hyp=H)
+        cpu = (bodies.pose[:2, ..., :3].cpu() - cb.pose[..., :3]).abs() \
+            .max().item()
+        check(cpu < 1e-4, f"kickstart_multi: the CPU re-run differs by "
+              f"{cpu} m")
+        srel = ((score[:2].cpu() - cs).abs() / cs.abs()).max().item()
+        self.p18["kickstart"] = dict(
+            tracks=T, hypotheses=H, seconds=dt, launches=counts,
+            joint_err_before_mm=before * 1e3, joint_err_after_mm=after * 1e3,
+            cpu_reference_err_m=cpu, cpu_score_rel=srel,
+            chosen=torch.bincount(score.argmin(1), minlength=H).tolist())
+        return (f"T={T} x {H} hypotheses: {dt * 1e3:.1f} ms; mean joint "
+                f"error {before * 1e3:.2f} -> {after * 1e3:.2f} mm; chosen "
+                f"{self.p18['kickstart']['chosen']}; CPU re-run {cpu:.2g} "
+                f"m, scores {srel:.2g} relative; launches {counts}")
+
+    def kernel_nopallas(self):
+        """The dynamics frame on the kernel solver with use_pallas=False at
+        T=64 for 10 frames: its peak memory, its distance from the
+        use_pallas=True frames, no cloud-rows kernel launched; a 2-track
+        CPU re-run."""
+        import dataclasses
+        torch = self.torch
+        T, F = NOPALLAS_TRACKS, NOPALLAS_FRAMES
+        cfg = dataclasses.replace(self.cfg, use_pallas=False)
+        _, _, _, _, ref = self.frames_of(self.cfg, F, T)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        m0 = torch.cuda.memory_allocated()
+        dt, counts, pk, _, hist = self.frames_of(cfg, F, T)
+        peak = (torch.cuda.max_memory_allocated() - m0) / 2**30
+        check(not any(k.startswith("cloud_rows") for k in counts)
+              and pk.get("dyn") == F,
+              f"use_pallas=False launches {counts}, PGS plans {pk}")
+        dist = max((a[..., :3] - b[..., :3]).abs().max().item()
+                   for a, b in zip(hist, ref))
+        check(all(bool(torch.isfinite(h).all()) for h in hist),
+              "use_pallas=False: non-finite poses")
+        cpu = self.cpu_reference([h[:2] for h in hist[:REF_CPU_FRAMES]], cfg)
+        self.p18["nopallas"] = dict(tracks=T, frames=F, seconds=dt,
+                                    peak_gib=peak, from_pallas_m=dist,
+                                    launches=counts,
+                                    cpu_reference_err_m=cpu)
+        return (f"T={T}: {dt / F * 1e3:.1f} ms a frame, peak {peak:.3f} "
+                f"GiB, {dist:.3g} m from use_pallas; CPU re-run {cpu:.2g} "
+                f"m; launches {counts}")
+
+    def synthetic_cli(self):
+        """The synthetic-track CLI as two subprocesses on the card, run
+        together, with and without --dynamics-only: each exits 0 and
+        prints its error lines."""
+        np = self.np
+        t0 = time.perf_counter()
+        procs = {("dynamics-only" if extra else "CNN"): subprocess.Popen(
+            [sys.executable, "-m", f"{PORT}.apps.synthetic_track",
+             *CLI_ARGS, *extra], cwd=REPO, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+            for extra in ((), ("--dynamics-only",))}
+        out = {}
+        for label, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=600)
+            check(proc.returncode == 0, f"synthetic_track {label}: exit "
+                  f"{proc.returncode}: {stderr[-400:]}")
+            errs = [float(x.split("err")[1].split()[0])
+                    for x in stdout.splitlines() if x.startswith("frame")]
+            check(len(errs) == 2 and all(np.isfinite(errs)),
+                  f"synthetic_track {label}: {stdout[-400:]}")
+            out[label] = dict(seconds=time.perf_counter() - t0,
+                              frame_err_mm=errs,
+                              last_line=stdout.strip().splitlines()[-1])
+        self.p18["cli"] = out
+        return "; ".join(f"{k} {v['seconds']:.1f} s, frames "
+                         f"{v['frame_err_mm']} mm, {v['last_line']}"
+                         for k, v in out.items())
+
+    def phase18(self):
+        """Phase 18: jacobi contacts, the angles-only frame,
+        kickstart_multi, the kernel solver without use_pallas and the
+        synthetic-track CLI."""
+        self.p18 = {}
+        for k in P18_ROWS:
+            self.results.setdefault(k, {})
+        if getattr(self, "cnn", None) is None:
+            self.cnn_setup()
+        parts = []
+        for label, fn in (("kernels", self.jacobi_kernels),
+                          ("jacobi frames", self.jacobi_frames),
+                          ("angles-only", self.angles_only),
+                          ("kickstart_multi", self.kickstart),
+                          ("use_pallas=False", self.kernel_nopallas),
+                          ("CLI", self.synthetic_cli)):
+            t0 = time.perf_counter()
+            msg = fn()
+            parts.append(f"[{label}, {time.perf_counter() - t0:.1f} s]")
+            print(f"  phase 18 {parts[-1]} {msg}", flush=True)
+        return " ".join(parts)
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2873,6 +3414,8 @@ def main(argv=None) -> int:
     phase(15, "CNN frame on the reference solvers", s.cnn_ref_slice)
     phase(16, "reference-solver CNN frame timing", s.cnn_ref_timing)
     phase(17, "slowfit", s.slowfit_phase)
+    phase(18, "jacobi, angles-only, kickstart_multi, use_pallas=False, CLI",
+          s.phase18)
     s.results["row_sweep[colored]"]["launches"] = \
         s.ref_speed["colored"]["launches"]["row_sweep"]
     record["total_s"] = time.perf_counter() - t_all
@@ -2894,6 +3437,13 @@ def main(argv=None) -> int:
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": None})
+    for name, (src, rep) in P18_ROWS.items():  # phase 18's runs and shapes
+        r = s.results[name]
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": rep, "launches": r["launches"],
+                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                     "bound_by": r["bound_by"], "library_ms": None})
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
                     exist_ok=True)
@@ -2910,7 +3460,8 @@ def main(argv=None) -> int:
                            cnn_reference_shapes=s.cnn_ref_shapes,
                            slowfit=s.slowfit_stats,
                            slowfit_speed=s.slowfit_speed,
-                           slowfit_shapes=s.slowfit_shapes),
+                           slowfit_shapes=s.slowfit_shapes,
+                           phase18=s.p18),
                       f, indent=1, default=str)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,6 +6,7 @@ ASSETS = os.path.join(_REPO, "assets")
 
 DEFAULT_MODEL_JSON = os.path.join(ASSETS, "model_hand.json")
 DEFAULT_ANIMBANK = os.path.join(ASSETS, "animbank.pose")
+DEFAULT_VANITY_BONES = os.path.join(ASSETS, "vanity_bones.json")
 # the trained pose-initialiser nets, best first (the JAX package's order:
 # assets_paths.py:20-28); HTS_CNNB overrides
 _PREFERRED = ("handposedd_synth_v4.cnnb", "handposedd_synth_v3.cnnb",

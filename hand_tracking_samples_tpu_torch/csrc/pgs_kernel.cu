@@ -8,14 +8,22 @@
 // accumulated impulse), bias-free target speeds in the post sweeps, the
 // slot loop cut at the last slot with an active row, and contact groups
 // whose rows are all inactive skipped.  Every skipped step is an exact
-// no-op (a zero impulse), so the cuts change no value.
+// no-op (a zero impulse), so the cuts change no value.  A jacobi class
+// (contacts_mode="jacobi", JAX pgs_kernel.py:109) is one group of units
+// that share bodies: every unit runs its U phases on the momenta of the
+// group's start, carrying its own impulses from phase to phase, and each
+// body then adds its units' deltas in unit order and applies the sum once.
 //
 // Design: one warp (block of 32 threads) per track.  The momenta (6 x BP)
 // live in shared memory.  In a slot step lane b owns body b (its momenta
 // held in registers across the slot loop), so slot steps need no
 // synchronisation of their own.  In a pair group lane w owns unit w; the
 // units of a group touch disjoint bodies, so their gathers and scatters
-// never meet, and __syncwarp() orders one group after the next.  Sums run
+// never meet, and __syncwarp() orders one group after the next.  A jacobi
+// group (at most 96 units) gives lane l the units l, l + 32 and l + 64:
+// after their phases each unit's three sums (dl, da0, da1) go to shared
+// memory, and lane b adds body b's from a per-body list of (unit, side)
+// that the plan builds on the host; no atomics.  Sums run
 // in a fixed order and nothing is atomic: Gauss-Seidel rows keep their
 // order.  The accumulated impulses (a column per lane) and the classes'
 // unit body ids live in shared memory.
@@ -53,7 +61,9 @@ struct PgsClass {
   const float* rows;  // (T, n_groups*U, nch, W)
   const int* ub0;     // (n_groups, W)
   const int* ub1;
-  int U, W, n_groups, friction;
+  const int* boff;    // jacobi: (BP + 1,) offsets into bent
+  const int* bent;    // jacobi: (n_ent,) unit << 1 | side, by body
+  int U, W, n_groups, friction, jacobi, n_ent;
 };
 
 struct PgsArgs {
@@ -68,20 +78,29 @@ struct PgsArgs {
 };
 
 // What the launch derives from the plan: the step stride (the largest
-// step block), the steps a stage (SI) and the stages of the ring (NS), the
-// accumulators' and the stage table's sizes, the shared bytes.
+// step block but a jacobi phase's), the steps a stage (SI), the bytes of a
+// ring slot (SI steps, or one jacobi phase) and the stages of the ring
+// (NS), the accumulators' and the stage table's sizes, the jacobi sums'
+// and lists' sizes, the shared bytes.
 struct PgsLayout {
-  int stride, SI, NS, acc_floats, max_stages, unit_ids;
+  int stride, SI, slot, NS, acc_floats, max_stages, unit_ids, jd_floats,
+      jl_ints;
   size_t smem;
 };
 
 static PgsLayout pgs_layout(const PgsArgs& a) {
   PgsLayout L;
-  int stride = a.CS ? 14 * a.BP * 4 : 16;
-  int acc = a.CS * a.BP, items = a.CS, ids = 0;
+  int stride = a.CS ? 14 * a.BP * 4 : 16, jstride = 0;
+  int acc = a.CS * a.BP, items = a.CS, ids = 0, jd = 0, jl = 0;
   for (int k = 0; k < a.n_lin; ++k) {
     const PgsClass& c = a.lin[k];
-    stride = stride > 23 * c.W * 4 ? stride : 23 * c.W * 4;
+    if (c.jacobi) {
+      jstride = jstride > 23 * c.W * 4 ? jstride : 23 * c.W * 4;
+      jd = jd > 9 * c.W ? jd : 9 * c.W;
+      jl += a.BP + 1 + c.n_ent;
+    } else {
+      stride = stride > 23 * c.W * 4 ? stride : 23 * c.W * 4;
+    }
     acc += c.n_groups * c.U * c.W;
     items += c.n_groups * c.U;
     ids += 2 * c.n_groups * c.W;
@@ -95,19 +114,24 @@ static PgsLayout pgs_layout(const PgsArgs& a) {
   }
   int SI = PGS_STAGE_BYTES / stride;
   SI = SI < 1 ? 1 : (SI > 15 ? 15 : SI);
-  int NS = PGS_RING_BYTES / (SI * stride);
+  const int slot = SI * stride > jstride ? SI * stride : jstride;
+  int NS = PGS_RING_BYTES / slot;
   NS = NS < 2 ? 2 : (NS > PGS_MAXST ? PGS_MAXST : NS);
   L.stride = stride;
   L.SI = SI;
+  L.slot = slot;
   L.NS = NS;
   L.acc_floats = acc + 1;              // and a slot idle lanes write to
   L.max_stages = items;
   L.unit_ids = ids;
+  L.jd_floats = jd;
+  L.jl_ints = jl;
   // bars, ring, mom (6 x 32), mi (32), the accumulators, the stage table,
-  // the classes' unit body ids
-  L.smem = PGS_MAXST * 8 + (size_t)NS * SI * stride + (6 * 32 + 32) * 4
+  // the classes' unit body ids, the jacobi sums and per-body lists
+  L.smem = PGS_MAXST * 8 + (size_t)NS * slot + (6 * 32 + 32) * 4
            + (((size_t)L.acc_floats * 4 + 15) & ~(size_t)15)
-           + (size_t)items * 4 + (size_t)ids * 4;
+           + (size_t)items * 4 + (size_t)ids * 4 + (size_t)jd * 4
+           + (size_t)jl * 4;
   return L;
 }
 
@@ -118,15 +142,17 @@ __global__ void __launch_bounds__(32)
   __shared__ const float* src_base[1 + 2 * PGS_MAXC];
   __shared__ int src_floats[1 + 2 * PGS_MAXC];
   const int t = blockIdx.x, lane = threadIdx.x;
-  const int BP = a.BP, SI = Lo.SI, NS = Lo.NS, stride = Lo.stride;
+  const int BP = a.BP, SI = Lo.SI, NS = Lo.NS, slot = Lo.slot;
   const unsigned FULL = 0xffffffffu;
   uint64_t* bars = (uint64_t*)sm;
   unsigned char* ring = sm + PGS_MAXST * 8;
-  float* mom = (float*)(ring + (size_t)NS * SI * stride);
+  float* mom = (float*)(ring + (size_t)NS * slot);
   float* mis = mom + 6 * 32;
   float* acc = mis + 32;
   unsigned* stab = (unsigned*)(acc + ((Lo.acc_floats + 3) & ~3));
   int* uid = (int*)(stab + Lo.max_stages);   // per class: b0s, then b1s
+  float* jd = (float*)(uid + Lo.unit_ids);    // a jacobi group's sums
+  int* jl = (int*)(jd + Lo.jd_floats);        // per jacobi class: lists
   float* trash = acc + Lo.acc_floats - 1;
   const long long c0 = clock64();
   for (int i = lane; i < 6 * BP; i += 32)
@@ -138,9 +164,11 @@ __global__ void __launch_bounds__(32)
   float* ang_torq[PGS_MAXC];
   const int* lin_ids[PGS_MAXC];
   const int* ang_ids[PGS_MAXC];
+  const int* jac_lists[PGS_MAXC];   // boff (BP + 1), then bent
   {
     float* p = acc + a.CS * BP;
     int* q = uid;
+    int* jq = jl;
     for (int k = 0; k < a.n_lin + a.n_ang; ++k) {
       const bool lin = k < a.n_lin;
       const PgsClass& c = lin ? a.lin[k] : a.ang[k - a.n_lin];
@@ -153,6 +181,12 @@ __global__ void __launch_bounds__(32)
       }
       p += c.n_groups * c.U * c.W;
       q += 2 * n;
+      if (lin && c.jacobi) {
+        jac_lists[k] = jq;
+        for (int i = lane; i < BP + 1; i += 32) jq[i] = c.boff[i];
+        for (int i = lane; i < c.n_ent; i += 32) jq[BP + 1 + i] = c.bent[i];
+        jq += BP + 1 + c.n_ent;
+      }
     }
   }
   const float* S =
@@ -191,7 +225,8 @@ __global__ void __launch_bounds__(32)
     int cur_id = -1, cur_n = 0, cur_end = 0;
     auto add = [&](int id, int off) {
       ++n_steps;
-      if (id == cur_id && off == cur_end && cur_n < SI) {
+      if (id == cur_id && off == cur_end && cur_n < SI
+          && (cur_n + 1) * src_floats[id] * 4 <= slot) {
         stab[n_st - 1] += 1u << 24;
         ++cur_n;
       } else {
@@ -231,7 +266,7 @@ __global__ void __launch_bounds__(32)
   auto fill_next = [&]() {
     const unsigned e = stab[pi];
     const int id = e >> 28;
-    hts_bulk_load(ring + (size_t)ps * SI * stride,
+    hts_bulk_load(ring + (size_t)ps * slot,
                   src_base[id] + (e & 0xFFFFFFu),
                   ((e >> 24) & 15) * src_floats[id] * 4, &bars[ps]);
     if (++pi == n_st) pi = 0;
@@ -258,7 +293,7 @@ __global__ void __launch_bounds__(32)
       const unsigned e = stab[rsi];
       rn = (e >> 24) & 15;
       rstep = src_floats[e >> 28] * 4;   // the stage's steps, back to back
-      rbase = ring + (size_t)rslot * SI * stride;
+      rbase = ring + (size_t)rslot * slot;
       ri = 0;
       if (++rsi == n_st) rsi = 0;
       if (++rslot == NS) {
@@ -335,6 +370,115 @@ __global__ void __launch_bounds__(32)
       const PgsClass& c = a.lin[k];
       const int U = c.U, W = c.W;
       float* isum = lin_isum[k];
+      if (c.jacobi) {
+        // ---- a jacobi group: lane l solves units l, l + 32, l + 64 on
+        // the momenta of the group's start; then each body's sums ----
+        if (c.friction && !gact[k][0]) continue;
+        float l0m[3][3], a0[3][3], l1m[3][3], a1[3][3];
+        float sdl[3][3], sa0[3][3], sa1[3][3];
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          const int wr = lane + 32 * j;
+          const int b0 = wr < W ? lin_ids[k][wr] : -1;
+          const int b1 = wr < W ? lin_ids[k][W + wr] : -1;
+#pragma unroll
+          for (int jx = 0; jx < 3; ++jx) {
+            l0m[j][jx] = b0 >= 0 ? mom[jx * BP + b0] * mis[b0] : 0.0f;
+            a0[j][jx] = b0 >= 0 ? mom[(3 + jx) * BP + b0] : 0.0f;
+            l1m[j][jx] = b1 >= 0 ? mom[jx * BP + b1] * mis[b1] : 0.0f;
+            a1[j][jx] = b1 >= 0 ? mom[(3 + jx) * BP + b1] : 0.0f;
+            sdl[j][jx] = sa0[j][jx] = sa1[j][jx] = 0.0f;
+          }
+        }
+        for (int u = 0; u < U; ++u) {
+          const float* blk = next_block();
+#pragma unroll
+          for (int j = 0; j < 3; ++j) {
+            const bool on = lane + 32 * j < W;
+            const int w = on ? lane + 32 * j : 0;
+#define CH(i) blk[(i) * W + w]
+            float v3[3];
+#pragma unroll
+            for (int jx = 0; jx < 3; ++jx)
+              v3[jx] = (l1m[j][jx] - l0m[j][jx]) * CH(jx)
+                       + a1[j][jx] * CH(12 + jx) - a0[j][jx] * CH(9 + jx);
+            const float vn = v3[0] + v3[1] + v3[2];
+            float imp = (-CH(post ? 17 : 16) - vn) * CH(15);
+            const float isc = isum[u * W + w];
+            const float mst = (c.friction && (u % 3) != 0)
+                                  ? isum[((u / 3) * 3) * W + w]
+                                  : isc;
+            const float hi = CH(19) + CH(20) * mst;
+            const float lo = CH(18) - CH(20) * mst;
+            imp = fminf(imp, hi - isc);
+            imp = fmaxf(imp, lo - isc);
+            *(on ? &isum[u * W + w] : trash) = isc + imp;
+#pragma unroll
+            for (int jx = 0; jx < 3; ++jx) {
+              const float dl = CH(jx) * imp;
+              const float d0 = CH(3 + jx) * imp;
+              const float d1 = CH(6 + jx) * imp;
+              if (u == 0) {
+                sdl[j][jx] = dl; sa0[j][jx] = d0; sa1[j][jx] = d1;
+              } else {
+                sdl[j][jx] = sdl[j][jx] + dl;
+                sa0[j][jx] = sa0[j][jx] + d0;
+                sa1[j][jx] = sa1[j][jx] + d1;
+              }
+              if (u + 1 < U) {
+                l0m[j][jx] = l0m[j][jx] - CH(21) * dl;
+                l1m[j][jx] = l1m[j][jx] + CH(22) * dl;
+                a0[j][jx] = a0[j][jx] - d0;
+                a1[j][jx] = a1[j][jx] + d1;
+              }
+            }
+#undef CH
+          }
+          step_done();
+        }
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          const int w = lane + 32 * j;
+          if (w < W) {
+#pragma unroll
+            for (int jx = 0; jx < 3; ++jx) {
+              jd[jx * W + w] = sdl[j][jx];
+              jd[(3 + jx) * W + w] = sa0[j][jx];
+              jd[(6 + jx) * W + w] = sa1[j][jx];
+            }
+          }
+        }
+        __syncwarp();
+        // lane b: body b's (unit, side) in unit order; side 0 takes -dl,
+        // -da0, side 1 dl, da1; the sum applied once
+        if (lane < BP) {
+          const int* lst = jac_lists[k];
+          const int e0 = lst[lane], e1 = lst[lane + 1];
+          if (e1 > e0) {
+            float dl[3], da[3];
+            for (int e = e0; e < e1; ++e) {
+              const int x = lst[BP + 1 + e], u = x >> 1;
+              const bool s1 = x & 1;
+#pragma unroll
+              for (int jx = 0; jx < 3; ++jx) {
+                const float vl = jd[jx * W + u];
+                const float dlv = s1 ? vl : -vl;
+                const float dav = s1 ? jd[(6 + jx) * W + u]
+                                     : -jd[(3 + jx) * W + u];
+                dl[jx] = e == e0 ? dlv : dl[jx] + dlv;
+                da[jx] = e == e0 ? dav : da[jx] + dav;
+              }
+            }
+#pragma unroll
+            for (int jx = 0; jx < 3; ++jx) {
+              mom[jx * BP + lane] = mom[jx * BP + lane] + dl[jx];
+              mom[(3 + jx) * BP + lane] = mom[(3 + jx) * BP + lane] + da[jx];
+            }
+          }
+        }
+        __syncwarp();
+        continue;
+      }
       for (int g = 0; g < c.n_groups; ++g) {
         if (c.friction && !gact[k][g]) continue;
         const int w = lane < W ? lane : 0;
@@ -477,8 +621,10 @@ static PgsLayout pgs_prepare(const PgsArgs& a) {
             && L.smem <= 232448;
   for (int k = 0; ok && k < a.n_lin + a.n_ang; ++k) {
     const PgsClass& c = k < a.n_lin ? a.lin[k] : a.ang[k - a.n_lin];
-    ok = c.W <= 32 && c.W % 4 == 0 && c.n_groups <= PGS_MAXG
-         && (long long)c.n_groups * c.U * 23 * c.W < (1 << 24);
+    ok = c.W <= (c.jacobi ? 96 : 32) && c.W % 4 == 0
+         && c.n_groups <= PGS_MAXG
+         && (long long)c.n_groups * c.U * 23 * c.W < (1 << 24)
+         && (!c.jacobi || (k < a.n_lin && c.n_groups == 1));
   }
   if (!ok
       || cudaFuncSetAttribute(pgs_kernel,

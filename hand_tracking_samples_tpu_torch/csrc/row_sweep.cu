@@ -15,7 +15,11 @@
 //   angular: dtq = clamp((ts - (a1.K1 - a0.K0)) stt, lo - torq,
 //   hi - torq), ang[b0] -= axis dtq, ang[b1] += axis dtq, torq += dtq
 // Inactive rows, and angular rows whose target is -FLT_MAX, are skipped
-// (their impulse is 0).  `iters` sweeps with ts, then the momenta are
+// (their impulse is 0).  A jacobi phase (a run of linear rows linked by
+// bit 31 of their meta words: contacts_mode="jacobi" on the colored
+// solver, JAX colored.py:339-372) runs at once: every row of it reads the
+// momenta of the phase's start, and each body adds its rows' deltas in
+// row order and applies the sum once.  `iters` sweeps with ts, then the momenta are
 // written (the pose integration reads them), then `iters_post` sweeps with
 // the bias-free targets.
 //
@@ -33,13 +37,19 @@
 // fall into ~626 levels (the palm's ~530 cloud rows are one chain); the
 // colored order's groups are body-disjoint, so its levels are its groups.
 //
-// Two kinds of level.  A single-body level (every row on one body, the
+// Three kinds of level.  A single-body level (every row on one body, the
 // world its other side, no master: the cloud and chamber rows) runs its
 // rows on their bodies' lanes, in body order, each lane's body's momenta
 // held in registers from one such level to the next, with no barrier.  A
 // mixed level runs row i on lane i against the momenta in shared memory
 // (idle lanes and world sides read a zero body and write to a spare one,
-// so the step has no branch on the row's shape), then __syncwarp().
+// so the step has no branch on the row's shape), then __syncwarp().  A
+// jacobi level holds the active rows of one jacobi phase and nothing else
+// (one level above every earlier row's; every later row goes above it);
+// it runs as mixed steps of 32 rows that leave the momenta as they are and
+// write each row's deltas (its two sides' 12 floats and its bodies) to
+// shared memory, and after its last step lane b adds body b's deltas in
+// row order and applies the sum.
 //
 // The prologue (all lanes: the levels walk every row in order, a shuffle
 // a body; the counting and placement in parallel) writes the track's
@@ -74,6 +84,9 @@
 #define RS_NST 4          // stages in the ring (RS_SR x RS_NST = 256)
 #define RS_MAXR 13000     // rows of one solve, linear and angular together
 #define RS_MIXED 0x80000000u   // a level's body mask: not single-body
+#define RS_JAC 0x40000000u     // a level's body mask: a jacobi phase
+#define RS_JREC 13             // floats a jacobi row's deltas take
+#define RS_MAXJ 256            // rows of a jacobi phase, at most
 
 struct RowSweepArgs {
   const float* mom0;     // (T, B, 6)
@@ -85,6 +98,7 @@ struct RowSweepArgs {
   float* out;            // (T, 2, B, 6)
   long long* cycles;     // (T, 4) clock64 counters, or null
   int T, B, n_lin, n_ang, iters, iters_post;
+  int jmax;              // rows of the largest jacobi phase (0: none)
 };
 
 // Shared memory, in bytes, in this order (16-byte aligned pieces):
@@ -98,6 +112,7 @@ struct RowSweepArgs {
 //          of the lanes and sides that write nothing
 //   acc    Rl + Ra + 2 floats: isum by position, a zero slot, torq, and a
 //          slot for the writes of the idle lanes
+//   jd     jmax x RS_JREC floats: a jacobi level's deltas
 __host__ __device__ __forceinline__ size_t rs_al16(size_t n) {
   return (n + 15) & ~(size_t)15;
 }
@@ -106,8 +121,9 @@ __host__ __device__ __forceinline__ size_t rs_ring_bytes(int R) {
   const size_t pro = (size_t)R * 12;
   return rs_al16(ring > pro ? ring : pro);
 }
-__host__ __device__ __forceinline__ size_t rs_smem_bytes(int R) {
-  return 64 + rs_ring_bytes(R) + 1024 + rs_al16((size_t)(R + 2) * 4);
+__host__ __device__ __forceinline__ size_t rs_smem_bytes(int R, int jmax) {
+  return 64 + rs_ring_bytes(R) + 1024 + rs_al16((size_t)(R + 2) * 4)
+         + (size_t)jmax * RS_JREC * 4;
 }
 
 // torch.minimum / torch.maximum: NaN propagates from either side
@@ -118,16 +134,29 @@ __device__ __forceinline__ float rs_max(float a, float b) {
   return (a > b || a != a) ? a : b;
 }
 
+// The master row position of meta word m, -1 none (bit 31, a jacobi link,
+// is masked off where rows may carry it).
+template <bool JAC>
+__device__ __forceinline__ int rs_master(int m) {
+  return (JAC ? (m >> 17) & 0x3FFF : m >> 17) - 1;
+}
+
 // All lanes, the same walk: the level of each of n rows (0: inactive) from
 // their meta words; returns the number of levels.  Lane b holds the level
 // of the last row on body b.  lvl is zero on entry and holds the floor an
 // earlier reader sets on a later master; a row's meta word and floor are
-// read one row ahead.  Every lane writes the same values (the warp
-// converges at each row's shuffles), so no barrier is needed.
+// read one row ahead.  The active rows of a jacobi phase (a row whose
+// meta word's bit 31 is set continues the phase of the row before it)
+// take one level, nlev + 1, and every later row goes above it (floor);
+// JAC false compiles that out, for rows with no jacobi phase.  Every lane
+// writes the same values (the warp converges at each row's shuffles), so
+// no barrier is needed.
+template <bool JAC>
 __device__ int rs_levels(const int* meta, short* lvl, int n, bool friction,
                          int lane) {
   if (n == 0) return 0;
   int last = 0, nlev = 0, prev = 0;     // prev: the level of row r - 1
+  int floor_l = 0, phase = 0;           // phase: the open phase's level
   int mine = lane < n ? meta[lane] : 0;
   int m = __shfl_sync(0xffffffffu, mine, 0), fl = lvl[0];
   for (int r = 0; r < n; ++r) {
@@ -139,13 +168,18 @@ __device__ int rs_levels(const int* meta, short* lvl, int n, bool friction,
     const int v0 = __shfl_sync(0xffffffffu, last, b0 & 31);
     const int v1 = __shfl_sync(0xffffffffu, last, b1 & 31);
     int l = 0;
+    if (JAC && m >= 0) phase = 0;       // not linked: a new phase or none
     if ((m >> 16) & 1) {
-      l = fl;
+      l = JAC ? max(fl, floor_l) : fl;
       if (b0 >= 0) l = max(l, v0);
       if (b1 >= 0) l = max(l, v1);
-      const int mp = friction ? (m >> 17) - 1 : -1;
+      const int mp = friction ? rs_master<JAC>(m) : -1;
       if (mp >= 0 && mp < r) l = max(l, mp == r - 1 ? prev : (int)lvl[mp]);
       ++l;
+      if (JAC && (m < 0 || mn < 0)) {   // a jacobi row
+        l = phase > 0 ? phase : nlev + 1;
+        phase = floor_l = l;
+      }
       if (mp > r) {
         lvl[mp] = (short)max((int)lvl[mp], l);
         if (mp == r1) fln = max(fln, l);
@@ -198,8 +232,9 @@ __device__ int rs_place(const short* lvl, short* pos, int* ends, int n,
 // All lanes: the steps of nlev levels (ends as rs_place leaves them; mask
 // the linear levels' body masks, or null), positions offset by `off`,
 // written from steps[0]: (start | rows << 16 | stages to wait for before
-// it << 22 | stages done after it << 24, the body mask of a single-body
-// level, else 0).  A sweep's ntot records sit in RS_SR-record stages;
+// it << 22 | stages done after it << 24 | a jacobi level's step << 26 |
+// its last step << 27, the body mask of a single-body level, else 0).
+// A sweep's ntot records sit in RS_SR-record stages;
 // returns the number of steps.
 __device__ int rs_steps(const int* ends, const unsigned* mask, int2* steps,
                         int nlev, int off, int ntot, int lane) {
@@ -217,8 +252,9 @@ __device__ int rs_steps(const int* ends, const unsigned* mask, int2* steps,
       const int nwait = ((s0 + n - 1) >> 6) - ((s0 - 1) >> 6);
       const int nfree =
           (s0 + n == ntot ? spp : (s0 + n) / RS_SR) - s0 / RS_SR;
+      const int jac = mk & RS_JAC ? 1 << 26 | (i + 1 == c) << 27 : 0;
       steps[base + inc - c + i] = make_int2(
-          s0 | (n << 16) | (nwait << 22) | (nfree << 24),
+          s0 | (n << 16) | (nwait << 22) | (nfree << 24) | jac,
           mk & RS_MIXED ? 0 : mk);
     }
     base += __shfl_sync(0xffffffffu, inc, 31);
@@ -226,6 +262,9 @@ __device__ int rs_steps(const int* ends, const unsigned* mask, int2* steps,
   return base;
 }
 
+// JAC: the rows may hold jacobi phases (a.jmax > 0); without, the kernel
+// compiles as it did before the jacobi level existed.
+template <bool JAC>
 __global__ void __launch_bounds__(32) row_sweep_kernel(RowSweepArgs a) {
   extern __shared__ __align__(16) unsigned char sm[];
   const int lane = threadIdx.x, t = blockIdx.x;
@@ -236,6 +275,7 @@ __global__ void __launch_bounds__(32) row_sweep_kernel(RowSweepArgs a) {
   float* mom = (float*)(sm + 64 + rs_ring_bytes(R));   // [body * 6 + c]
   float* mi = mom + (RS_MAXB + 2) * 6 + 4;
   float* acc = mom + 256;
+  float* jd = acc + ((R + 2 + 3) & ~3);     // a jacobi level's deltas
   int* meta = (int*)ring;                   // the prologue's
   int* ends = meta;                         //   (after the levelling)
   short* lvl = (short*)(meta + R);
@@ -256,8 +296,8 @@ __global__ void __launch_bounds__(32) row_sweep_kernel(RowSweepArgs a) {
     mom[i] = i < B * 6 ? a.mom0[(size_t)t * B * 6 + i] : 0.0f;
   for (int b = lane; b < B + 2; b += 32) mi[b] = b < B ? a.massinv[b] : 0.0f;
   __syncwarp();
-  const int nlev_l = rs_levels(meta, lvl, nl, true, lane);
-  const int nlev_a = rs_levels(meta + nl, lvl + nl, na, false, lane);
+  const int nlev_l = rs_levels<JAC>(meta, lvl, nl, true, lane);
+  const int nlev_a = rs_levels<JAC>(meta + nl, lvl + nl, na, false, lane);
   // a linear level is single-body when each of its rows is on one body
   // (b0 the world, b1 < 31) with no master: its rows then run on their
   // bodies' lanes, the momenta in registers
@@ -267,8 +307,10 @@ __global__ void __launch_bounds__(32) row_sweep_kernel(RowSweepArgs a) {
     const int m = meta[r];
     if (lvl[r] == 0) continue;
     const int b0 = (m & 0xFF) - 1, b1 = ((m >> 8) & 0xFF) - 1;
+    const bool jac = JAC && (m < 0 || (r + 1 < nl && meta[r + 1] < 0));
     const bool single = b0 < 0 && b1 >= 0 && b1 < 31 && (m >> 17) == 0;
-    atomicOr(&lmask[lvl[r] - 1], single ? 1u << b1 : RS_MIXED);
+    atomicOr(&lmask[lvl[r] - 1],
+             jac ? RS_MIXED | RS_JAC : single ? 1u << b1 : RS_MIXED);
   }
   __syncwarp();
   const int nla = rs_place(lvl, pos, ends, nl, nlev_l, lane);
@@ -298,10 +340,10 @@ __global__ void __launch_bounds__(32) row_sweep_kernel(RowSweepArgs a) {
 #pragma unroll
     for (int i = 0; i < 6; ++i) v[i] = src[i];
     int m = __float_as_int(v[5].y);    // field 21: the master's position
-    const int mp = (m >> 17) - 1;
+    const int mp = rs_master<JAC>(m);
     if (mp >= 0) {
       const int q = pos[mp] >= 0 ? pos[mp] : nla;    // nla: always 0
-      m = (m & 0x1FFFF) | ((q + 1) << 17);
+      m = (m & (JAC ? (int)0x8001FFFFu : 0x1FFFF)) | ((q + 1) << 17);
       v[5].y = __int_as_float(m);
     }
     float4* dst = (float4*)(S + (size_t)p * RS_REC);
@@ -380,6 +422,7 @@ __global__ void __launch_bounds__(32) row_sweep_kernel(RowSweepArgs a) {
   const int2 ck0 = nsteps ? SP[lane % nsteps] : make_int2(0, 0);
   const int2 ck1 = nsteps ? SP[(32 + lane) % nsteps] : make_int2(0, 0);
   int rdy = 0, fr = 0;                  // stages waited for, freed
+  int jn = 0;                           // rows of the open jacobi level
   for (int s = 0; s < total && nsteps > 0; ++s) {
     if (s == a.iters) {
       if (regs) from_regs();
@@ -497,7 +540,7 @@ __global__ void __launch_bounds__(32) row_sweep_kernel(RowSweepArgs a) {
           const float l1x = MOM(r1, 0), l1y = MOM(r1, 1), l1z = MOM(r1, 2);
           const float a1x = MOM(r1, 3), a1y = MOM(r1, 4), a1z = MOM(r1, 5);
           const float mi0 = mi[r0], mi1 = mi[r1];
-          const int mp = (m >> 17) - 1;            // master, -1 none
+          const int mp = rs_master<JAC>(m);        // master, -1 none
           const float own = isum[on ? q : idle];
           const float mst = isum[mp >= 0 ? mp : idle];
           const float d1 = (l1x * nx + l1y * ny) + l1z * nz;
@@ -512,6 +555,50 @@ __global__ void __launch_bounds__(32) row_sweep_kernel(RowSweepArgs a) {
           const float lo = mp >= 0 ? -hm : f[18];
           imp = rs_min(imp, hi - own);
           imp = rs_max(imp, lo - own);
+          if (JAC && (e.x & (1 << 26))) {
+            // a jacobi level: the row's deltas (side 1, then side 0) and
+            // its bodies; the momenta are left as they are
+            if (on) {
+              float* d = jd + (size_t)(jn + lane) * RS_JREC;
+              d[0] = imp * nx; d[1] = imp * ny; d[2] = imp * nz;
+              d[3] = imp * f[6]; d[4] = imp * f[7]; d[5] = imp * f[8];
+              d[6] = imp * -nx; d[7] = imp * -ny; d[8] = imp * -nz;
+              d[9] = imp * -f[3]; d[10] = imp * -f[4]; d[11] = imp * -f[5];
+              d[12] = __int_as_float(m & 0xFFFF);
+            }
+            isum[on ? q : idle] = own + imp;
+            jn += cnt;
+            if (e.x & (1 << 27)) {
+              // the level's last step: lane b adds body b's deltas in
+              // row order and applies the sum once
+              __syncwarp();
+              if (lane < B) {
+                float s6[6];
+                bool any = false;
+                for (int i = 0; i < jn; ++i) {
+                  const float* d = jd + (size_t)i * RS_JREC;
+                  const int mb = __float_as_int(d[12]);
+                  const int side = ((mb >> 8) & 0xFF) - 1 == lane ? 0
+                                   : (mb & 0xFF) - 1 == lane ? 6 : -1;
+                  if (side < 0) continue;
+#pragma unroll
+                  for (int c = 0; c < 6; ++c)
+                    s6[c] = any ? s6[c] + d[side + c] : d[side + c];
+                  any = true;
+                }
+                if (any) {
+#pragma unroll
+                  for (int c = 0; c < 6; ++c)
+                    MOM(lane, c) = MOM(lane, c) + s6[c];
+                }
+              }
+              jn = 0;
+            }
+            __syncwarp();
+            free_after(e.x);
+            next_chunk();
+            continue;
+          }
           MOM(w1, 0) = l1x + imp * nx;
           MOM(w1, 1) = l1y + imp * ny;
           MOM(w1, 2) = l1z + imp * nz;
@@ -572,36 +659,42 @@ __global__ void __launch_bounds__(32) row_sweep_kernel(RowSweepArgs a) {
   }
 }
 
-// Shared memory for these rows, the attributes set; 0 if it cannot hold
-// them.
-static size_t rs_prepare(const RowSweepArgs& a) {
-  if (a.B > RS_MAXB || a.n_lin + a.n_ang > RS_MAXR) return 0;
-  const size_t smem = rs_smem_bytes(a.n_lin + a.n_ang);
-  if (cudaFuncSetAttribute(row_sweep_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem) != cudaSuccess
-      || cudaFuncSetAttribute(row_sweep_kernel,
+typedef void (*RowSweepKernel)(RowSweepArgs);
+
+// The kernel for these rows (with the jacobi level where they hold a
+// jacobi phase), its shared memory and attributes set; smem 0 if it
+// cannot hold them.
+static RowSweepKernel rs_prepare(const RowSweepArgs& a, size_t* smem) {
+  const RowSweepKernel k =
+      a.jmax > 0 ? row_sweep_kernel<true> : row_sweep_kernel<false>;
+  *smem = 0;
+  if (a.B > RS_MAXB || a.n_lin + a.n_ang > RS_MAXR || a.jmax < 0
+      || a.jmax > RS_MAXJ)
+    return k;
+  const size_t n = rs_smem_bytes(a.n_lin + a.n_ang, a.jmax);
+  if (cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)n) == cudaSuccess
+      && cudaFuncSetAttribute(k,
                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                              100) != cudaSuccess)
-    return 0;
-  return smem;
+                              100) == cudaSuccess)
+    *smem = n;
+  return k;
 }
 
 // Tracks (blocks) an SM holds at once for these rows; 0 if none.
 HTS_EXPORT int hts_row_sweep_occupancy(const void* args) {
-  const size_t smem = rs_prepare(*(const RowSweepArgs*)args);
+  size_t smem;
+  const RowSweepKernel k = rs_prepare(*(const RowSweepArgs*)args, &smem);
   int n = 0;
-  if (smem)
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, row_sweep_kernel, 32,
-                                                  smem);
+  if (smem) cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, k, 32, smem);
   return n;
 }
 
 HTS_EXPORT int hts_row_sweep(const void* args, void* stream) {
   const RowSweepArgs a = *(const RowSweepArgs*)args;
-  const size_t smem = rs_prepare(a);
+  size_t smem;
+  const RowSweepKernel k = rs_prepare(a, &smem);
   if (!smem) return (int)cudaErrorInvalidValue;
-  if (a.T > 0)
-    row_sweep_kernel<<<a.T, 32, smem, (cudaStream_t)stream>>>(a);
+  if (a.T > 0) k<<<a.T, 32, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

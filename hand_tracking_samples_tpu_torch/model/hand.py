@@ -2,7 +2,10 @@
 port's counterpart of hand_tracking_samples_tpu.model.hand.  FitPointCloud
 runs on the reference-shaped solvers (`fit_point_cloud`: sequential, or
 colored with a schedule) or on the kernel solver (`fit_point_cloud_kernel`,
-`fit_fused`).  State tensors carry the tracks first."""
+`fit_fused`); the pose API (GetPose(User), SetPose(User), Reset,
+DrivePose, DriveBasePose, GenericUpdate, FixOrientations,
+SetBonePoseHierarchyW, FixPositions) works on every track at once.  State
+tensors carry the tracks first."""
 from __future__ import annotations
 
 import torch
@@ -158,8 +161,8 @@ def fit_point_cloud_kernel(state: BodyState, model, params: PhysicsParams,
                            microforce: float = 1.0,
                            origin=(0.0, 0.0, 0.0), iterations: int = 16,
                            iterations_post: int = 4, cloud_slots: int = 128,
-                           pgs_plan=None,
-                           planes_path: bool = True) -> BodyState:
+                           pgs_plan=None, planes_path: bool = True,
+                           use_pallas: bool = True) -> BodyState:
     """FitPointCloud (physmodel.h:345-356) of the main-thread fit, all
     tracks at once, on the kernel solver: the cloud's rows (planes carrier
     points_ph (T, 8, N)) go behind the caller's single-body blocks, and the
@@ -169,13 +172,27 @@ def fit_point_cloud_kernel(state: BodyState, model, params: PhysicsParams,
     planes_path: the cloud kernel's own cloud, packed by kernel 2 straight
     into the solve's channels.  Otherwise (an (N, 3) cloud: the voxel and
     mirror clouds; JAX model/hand.py:194-202) kernel 2.5 packs it into one
-    more single-body block, prepped with the caller's."""
+    more single-body block, prepped with the caller's.  Without use_pallas
+    that block holds the reference-shaped rows (the plane dots, the weak
+    force, colored.pack_single_body_linear; JAX model/hand.py:203-211)."""
     B = model.n_bodies
     dev = state.pose.device
     scale_b = torch.where(torch.arange(B, device=dev) <= 2,
                           torch.full((), PHYSICS_WEAK_FORCE, device=dev),
                           torch.ones((), device=dev)) * microforce
     cloud_limits = (-microforce, microforce)       # +-scale, scale >= 0
+    if not use_pallas:
+        from ..ops.cloud_kernel import planes_points
+        from ..physics.colored import pack_single_body_linear
+        points, mask = planes_points(points_ph)
+        rows = _scaled_cloud(state, model, points, mask, microforce,
+                             origin, use_kernel=False)
+        return fit_fused(state, model, params, pgs_plan,
+                         (*single_blocks,
+                          pack_single_body_linear(rows, B, cloud_slots)),
+                         (*single_limits, cloud_limits),
+                         iterations=iterations,
+                         iterations_post=iterations_post)
     if not planes_path:
         from ..ops.cloud_rows import cloud_rows_packed_ph
         blk, _ = cloud_rows_packed_ph(state.pose, model, points_ph, origin,
@@ -217,3 +234,118 @@ def get_pose_user(state: BodyState, model):
     """Rig-space poses: position - qrot(q, com) (physics.h:142-143)."""
     pos = state.position - qrot(state.orientation, model.com)
     return torch.cat([pos, state.orientation], dim=-1)
+
+
+def set_pose_user(state: BodyState, model, poses_user) -> BodyState:
+    """SetPoseUser: rig-space poses (T, 17, 7) -> physics poses (position
+    + qrot(q, com))."""
+    pos = poses_user[..., :3] + qrot(poses_user[..., 3:7], model.com)
+    return state._replace(pose=torch.cat([pos, poses_user[..., 3:7]], -1))
+
+
+def set_pose(state: BodyState, poses) -> BodyState:
+    return state._replace(pose=poses)
+
+
+def reset_state(model) -> BodyState:
+    """Reset: the model's start pose, at rest (one track)."""
+    return initial_state(model)
+
+
+def _joint_drives(state: BodyState, model, targets, params, maxtorque):
+    from ..physics.constraints import constrain_angular_drive
+    from ..physics.solver import concat_angular
+    j0, j1 = model.np["joint_rbi0"], model.np["joint_rbi1"]
+    return concat_angular(*[constrain_angular_drive(
+        state.pose, int(j0[j]), int(j1[j]), targets(j), maxtorque, params)
+        for j in range(len(j0))])
+
+
+def drive_pose_rows(state: BodyState, model, target_poses, params,
+                    maxtorque: float = 1.0):
+    """DrivePose (physmodel.h:368-374): angular drives toward the relative
+    orientations of target_poses (T, 17, 7), 3 rows a joint in joint
+    order, AngularRows (T, 48)."""
+    from ..maths.quat import qconj, qmul
+    j0, j1 = model.np["joint_rbi0"], model.np["joint_rbi1"]
+    return _joint_drives(state, model, lambda j: qmul(
+        qconj(target_poses[:, int(j0[j]), 3:7]),
+        target_poses[:, int(j1[j]), 3:7]), params, maxtorque)
+
+
+def drive_base_pose_rows(state: BodyState, model, params,
+                         maxtorque: float = 1.0):
+    """DriveBasePose (physmodel.h:375-381): the joints driven to their
+    frames, AngularRows (T, 48)."""
+    T = state.pose.shape[0]
+    return _joint_drives(state, model,
+                         lambda j: model.joint_frame[j].expand(T, 4),
+                         params, maxtorque)
+
+
+def generic_update(state: BodyState, model, params) -> BodyState:
+    """GenericUpdate (physmodel.h:335-341): a step of the joint rows alone
+    (the sequential solve, the row-sweep kernel)."""
+    from ..physics.solver import physics_update
+    bp = body_params(model)
+    return sanity_check(physics_update(
+        state, bp, joint_linear_rows(state, model),
+        joint_angular_rows(state, model, params), params), bp)
+
+
+def fix_orientations(state: BodyState, model, params) -> BodyState:
+    """FixOrientations (physmodel.h:394-403): joint by joint, each violated
+    range row's correction applied to the child's orientation directly."""
+    from ..maths.quat import qmul, qnormalize, quat_from_axis_angle
+    from ..physics.constraints import constrain_angular_range
+    m = model.np
+    pose = state.pose.clone()
+    for j in range(len(m["joint_rbi0"])):
+        b1 = int(m["joint_rbi1"][j])
+        sl = slice(j, j + 1)
+        rows = constrain_angular_range(
+            pose, m["joint_rbi0"][sl], m["joint_rbi1"][sl],
+            m["joint_frame"][sl], m["joint_rangemin"][sl],
+            m["joint_rangemax"][sl], params)
+        for a in range(6):
+            ts = rows.targetspin[:, a]
+            viol = (((ts * rows.maxtorque[:, a] > 0)
+                     | (ts * rows.mintorque[:, a] > 0)) & rows.active[:, a])
+            dq = quat_from_axis_angle(rows.axis[:, a], ts * params.deltaT)
+            newq = qnormalize(qmul(dq, pose[:, b1, 3:7]))
+            pose[:, b1, 3:7] = torch.where(viol[:, None], newq,
+                                           pose[:, b1, 3:7])
+    return state._replace(pose=pose)
+
+
+def set_bone_pose_hierarchy_w(state: BodyState, model, params, bid: int,
+                              qw) -> BodyState:
+    """SetBonePoseHierarchyW (physmodel.h:357-367): bone bid's world
+    orientation set to qw ((4,) or (T, 4)) and the same turn applied to
+    its descendants (the joint tree's, found on the host), then the ranges
+    and positions repaired."""
+    from ..maths.quat import qconj, qmul
+    j0 = [int(x) for x in model.np["joint_rbi0"]]
+    j1 = [int(x) for x in model.np["joint_rbi1"]]
+
+    def parent(i):
+        p = i
+        for a, b in zip(j0, j1):
+            if a == i or b == i:
+                p = min(p, min(a, b))
+        return -1 if p == i else p
+    desc, changed = [bid], True
+    while changed:
+        changed = False
+        for c in range(model.n_bodies):
+            if c not in desc and parent(c) in desc:
+                desc.append(c)
+                changed = True
+    pose = state.pose.clone()
+    qw = torch.as_tensor(qw, dtype=torch.float32,
+                         device=pose.device).expand(pose.shape[0], 4)
+    dq = qmul(qw, qconj(pose[:, bid, 3:7]))
+    for c in desc:
+        pose[:, c, 3:7] = qmul(dq, pose[:, c, 3:7])
+    out = fix_orientations(state._replace(pose=pose), model, params)
+    return fix_positions(out, model)

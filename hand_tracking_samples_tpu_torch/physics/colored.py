@@ -10,9 +10,14 @@ precedence-colored on the host into groups.  `physics_update_colored`
 computes each block's row constants with the JAX colored solver's own
 expressions and runs the sweeps in the row-sweep kernel
 (physics/row_sweep.py) with the rows in colored order: single-body blocks
-slot-major then body, pair blocks group by group.  Within a group the rows
-touch disjoint bodies, so one after another they give the JAX package's
-one-hot group update exactly.
+slot-major then body, pair blocks group by group.  Within an exact group
+the rows touch disjoint bodies, so one after another they give the JAX
+package's one-hot group update exactly.  A block of jacobi phases
+(`JacobiPhases`: the contact rows with contacts_mode="jacobi") is not
+exact: the rows of a phase share bodies, and the row sweep runs each phase
+as a jacobi level, every row on the momenta of the phase's start and each
+body's deltas summed in row order (JAX colored.py:339-372, whose one-hot
+product sums them in XLA's order).
 """
 from __future__ import annotations
 
@@ -116,22 +121,31 @@ class SingleBodyAngular(NamedTuple):
 
 class StaticPairLinear(NamedTuple):
     """Rows (T, R) with static body pairs and their group schedule:
-    gidx (G, W) row indices, gmask (G, W) (host arrays)."""
+    gidx (G, W) row indices, gmask (G, W) (host arrays); jacobi: the
+    groups are jacobi phases."""
     rows: LinearRows
     gidx: np.ndarray
     gmask: np.ndarray
+    jacobi: bool = False
 
 
 class StaticPairAngular(NamedTuple):
     rows: AngularRows
     gidx: np.ndarray
     gmask: np.ndarray
+    jacobi: bool = False
+
+
+class JacobiPhases(list):
+    """Row groups whose rows apply their impulses at once (a phase of the
+    jacobi contact schedule) rather than body-disjoint groups."""
 
 
 def pad_groups(groups):
     """A group schedule padded to uniform width: (gidx (G, W) int,
-    gmask (G, W) bool).  (The JAX package's one-hot application matrices
-    are a TPU device: the row sweep applies each row by its index.)"""
+    gmask (G, W) bool, jacobi: the groups are JacobiPhases).  (The JAX
+    package's one-hot application matrices are a TPU device: the row
+    sweep applies each row by its index.)"""
     G = len(groups)
     W = max(len(g) for g in groups) if groups else 1
     gidx = np.zeros((G, W), np.int64)
@@ -139,7 +153,7 @@ def pad_groups(groups):
     for gi, g in enumerate(groups):
         gidx[gi, :len(g)] = g
         gmask[gi, :len(g)] = True
-    return gidx, gmask
+    return gidx, gmask, isinstance(groups, JacobiPhases)
 
 
 def make_static_pair_linear(rows: LinearRows, b0, b1) -> StaticPairLinear:
@@ -264,7 +278,9 @@ def colored_sweep_inputs(state: BodyState, bodies: BodyParams,
                        J0, J1, K0, K1, dinv, ts, tsp, r.fmin * dt,
                        r.fmax * dt, r.friction_coef.expand_as(dinv),
                        r.active.expand_as(dinv)]
-            lins.append(linear_block(*[x[:, oi] for x in per_row], mpos))
+            phase = (np.nonzero(blk.gmask)[0] if blk.jacobi else None)
+            lins.append(linear_block(*[x[:, oi] for x in per_row], mpos,
+                                     phase))
     angs = []
     for blk in angular_blocks:
         if isinstance(blk, SingleBodyAngular):
@@ -281,6 +297,8 @@ def colored_sweep_inputs(state: BodyState, bodies: BodyParams,
                 blk.axis, z, K1, stt, spin, spinp, blk.mintorque * dt,
                 blk.maxtorque * dt, blk.active)]))
         else:
+            if blk.jacobi:
+                raise ValueError("angular rows have no jacobi phases")
             r = blk.rows
             oi = torch.as_tensor(_order(blk.gidx, blk.gmask), device=dev)
             K0, K1, stt = angular_consts(iinv, r.b0, r.b1, r.axis, r.active)

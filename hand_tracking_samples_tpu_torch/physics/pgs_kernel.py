@@ -11,6 +11,13 @@ one kernel:
     static body pair, precedence-colored into groups of body-disjoint units;
     friction rows read the accumulated impulse of their contact's normal
     row;
+  * with contacts_mode="jacobi" the contact class is one group of every
+    collide pair (JAX pgs_kernel.py:109): each unit runs its U rows on the
+    momenta of the group's start (its own impulses carried from row to
+    row), and each body then adds its units' deltas in unit order
+    (`body_off` / `body_ent`, the plan's per-body lists) and applies the
+    sum once: the Pallas kernel's scatter matmul (:126), summed in a
+    fixed order;
   * the last iterations_post sweeps use the bias-free target speeds.
 
 `pgs_solve` is the wrapper: on CUDA tensors it launches csrc/pgs_kernel.cu
@@ -46,6 +53,7 @@ from .colored import precedence_coloring
 BP = 24          # body slots (17 padded; at most 32, one warp)
 MAX_CLASSES = 4
 MAX_GROUPS = 256
+MAX_JACOBI_W = 96    # a jacobi class's units: three a lane of one warp
 
 
 def _batched_world_iinv(q, tinv, massinv):
@@ -91,6 +99,10 @@ class PairClassPlan(NamedTuple):
     friction: bool
     b0: np.ndarray         # (R,) static per-row body ids (prep gathers)
     b1: np.ndarray
+    jacobi: bool = False   # one group whose units share bodies
+    body_off: np.ndarray = None   # jacobi: (BP + 1,) int32 offsets into
+    body_ent: np.ndarray = None   # (entries,) int32 unit << 1 | side, each
+    # body's (unit, side) in unit order (side 0: b0, 1: b1)
 
 
 class SolvePlan(NamedTuple):
@@ -105,17 +117,23 @@ class SolvePlan(NamedTuple):
 def build_pair_class(kind: str, unit_b0, unit_b1, U: int,
                      friction: bool = False,
                      mode: str = "exact") -> PairClassPlan:
-    """Schedule a class of n_units*U rows (row i*U+u belongs to unit i) by
-    precedence coloring over units: the concatenated phases are an exact
-    reordering of the sequential sweep (conflicting units keep order) and
-    every group's units touch disjoint bodies."""
-    if mode != "exact":
-        raise NotImplementedError(
-            f"contacts_mode={mode!r}: the port's solve runs the exact "
-            "schedule only (the jacobi schedule is a later slice)")
+    """Schedule a class of n_units*U rows (row i*U+u belongs to unit i).
+
+    mode="exact": precedence coloring over units; the concatenated phases
+    are an exact reordering of the sequential sweep (conflicting units keep
+    order) and every group's units touch disjoint bodies.  mode="jacobi"
+    (linear classes): all units in one group, their impulses applied at
+    once through the per-body lists (JAX pgs_kernel.py:109)."""
+    if mode not in ("exact", "jacobi") or (mode == "jacobi"
+                                           and kind != "lin"):
+        raise ValueError(f"pair class mode {mode!r} for kind {kind!r}")
     unit_b0 = np.asarray(unit_b0, np.int32)
     unit_b1 = np.asarray(unit_b1, np.int32)
-    groups = precedence_coloring(list(zip(unit_b0, unit_b1)))
+    n_units = len(unit_b0)
+    if mode == "jacobi":
+        groups = [list(range(n_units))]
+    else:
+        groups = precedence_coloring(list(zip(unit_b0, unit_b1)))
     G = len(groups)
     W = max(8, -(-max(len(g) for g in groups) // 8) * 8)
     row_index = np.full((G, U, W), -1, np.int32)
@@ -127,10 +145,19 @@ def build_pair_class(kind: str, unit_b0, unit_b1, U: int,
             ub1[g, w] = unit_b1[u]
             for uu in range(U):
                 row_index[g, uu, w] = u * U + uu
+    off = ent = None
+    if mode == "jacobi":
+        lists = [[(w << 1) | side for w in range(W)
+                  for side, ub in ((0, ub0), (1, ub1)) if ub[0, w] == b]
+                 for b in range(BP)]
+        off = np.cumsum([0] + [len(x) for x in lists]).astype(np.int32)
+        ent = np.asarray(sum(lists, []), np.int32)
     return PairClassPlan(kind=kind, U=U, W=W, n_groups=G, n_phases=G * U,
                          row_index=row_index.reshape(-1), unit_b0=ub0,
                          unit_b1=ub1, friction=friction,
-                         b0=np.repeat(unit_b0, U), b1=np.repeat(unit_b1, U))
+                         b0=np.repeat(unit_b0, U), b1=np.repeat(unit_b1, U),
+                         jacobi=mode == "jacobi", body_off=off,
+                         body_ent=ent)
 
 
 _PLANS: dict = {}
@@ -316,6 +343,26 @@ def pgs_solve_plain(plan: SolvePlan, iterations: int, iterations_post: int,
                              for x in (w0, b0[w0], w1, b1[w1])))
         units.append(per)
     mi0_full = mi                                           # (bp,)
+    jacobi_tables = {}
+    for cls in plan.lin_classes:
+        if not cls.jacobi:
+            continue
+        off, ent = cls.body_off, cls.body_ent
+        cnt = np.diff(off)[:bp]
+        K = int(cnt.max()) if len(cnt) else 0
+        if K == 0:
+            jacobi_tables[id(cls)] = None
+            continue
+        ju = np.zeros((bp, K), np.int64)
+        side1 = np.zeros((bp, K), bool)
+        for b in range(bp):
+            e = ent[off[b]:off[b + 1]]
+            ju[b, :len(e)] = e >> 1
+            side1[b, :len(e)] = (e & 1) == 1
+        valid = np.arange(K)[None] < cnt[:, None]
+        jacobi_tables[id(cls)] = tuple(
+            torch.as_tensor(x, device=dev) for x in (ju, side1, valid,
+                                                     cnt > 0))
 
     def gather(cols, w_idx, b_idx, W, scale):
         out = torch.zeros((T, 3, W), device=dev)
@@ -380,12 +427,37 @@ def pgs_solve_plain(plan: SolvePlan, iterations: int, iterations_post: int,
                 l1m = l1m + blk[:, 22:23] * dl
                 a0 = a0 - da0
                 a1 = a1 + da1
+        if cls.jacobi:
+            jacobi_scatter(cls, sv)
+            return
         if len(w0):
             mom[:, 0:3, b0] = mom[:, 0:3, b0] - sv[:, 0:3][:, :, w0]
             mom[:, 3:6, b0] = mom[:, 3:6, b0] - sv[:, 3:6][:, :, w0]
         if len(w1):
             mom[:, 0:3, b1] = mom[:, 0:3, b1] + sv[:, 0:3][:, :, w1]
             mom[:, 3:6, b1] = mom[:, 3:6, b1] + sv[:, 6:9][:, :, w1]
+
+    def jacobi_scatter(cls, sv):
+        """Each body's deltas (side 0: -dl, -da0; side 1: dl, da1) added
+        in unit order, then applied once: the kernel's order."""
+        tab = jacobi_tables[id(cls)]
+        if tab is None:
+            return
+        units, side1, valid, has = tab
+        dl_all, da0_all, da1_all = sv[:, 0:3], sv[:, 3:6], sv[:, 6:9]
+        for k in range(units.shape[1]):
+            u, s1 = units[:, k], side1[:, k]
+            dl = torch.where(s1, dl_all[:, :, u], -dl_all[:, :, u])
+            da = torch.where(s1, da1_all[:, :, u], -da0_all[:, :, u])
+            if k == 0:
+                Dl, Da = dl, da
+            else:
+                Dl = torch.where(valid[:, k], Dl + dl, Dl)
+                Da = torch.where(valid[:, k], Da + da, Da)
+        mom[:, 0:3, :] = torch.where(has, mom[:, 0:3, :] + Dl,
+                                     mom[:, 0:3, :])
+        mom[:, 3:6, :] = torch.where(has, mom[:, 3:6, :] + Da,
+                                     mom[:, 3:6, :])
 
     def ang_group(cls, rows, torq, unit, g, post):
         U, W = cls.U, cls.W
@@ -443,9 +515,16 @@ def pgs_solve_plain(plan: SolvePlan, iterations: int, iterations_post: int,
 
 class _Class(ctypes.Structure):
     _fields_ = [("rows", ctypes.c_void_p), ("ub0", ctypes.c_void_p),
-                ("ub1", ctypes.c_void_p), ("U", ctypes.c_int),
+                ("ub1", ctypes.c_void_p), ("boff", ctypes.c_void_p),
+                ("bent", ctypes.c_void_p), ("U", ctypes.c_int),
                 ("W", ctypes.c_int), ("n_groups", ctypes.c_int),
-                ("friction", ctypes.c_int)]
+                ("friction", ctypes.c_int), ("jacobi", ctypes.c_int),
+                ("n_ent", ctypes.c_int)]
+
+
+def _class(c, rows=None, ids=(None, None, None, None)):
+    return _Class(rows, *ids, c.U, c.W, c.n_groups, int(c.friction),
+                  int(c.jacobi), len(c.body_ent) if c.jacobi else 0)
 
 
 class _Args(ctypes.Structure):
@@ -462,14 +541,21 @@ _UNIT_IDS: dict = {}
 
 
 def _unit_ids(plan, device):
+    """Per class the device copies of the unit body ids and, for a jacobi
+    class, its per-body lists; their pointers (4 a class)."""
     key = (plan.key, str(device))
     if key not in _UNIT_IDS:
-        _UNIT_IDS[key] = [
-            tuple(torch.as_tensor(np.ascontiguousarray(x), dtype=torch.int32,
-                                  device=device)
-                  for x in (c.unit_b0, c.unit_b1))
-            for c in plan.lin_classes + plan.ang_classes]
-    return _UNIT_IDS[key]
+        out = []
+        for c in plan.lin_classes + plan.ang_classes:
+            xs = (c.unit_b0, c.unit_b1) + ((c.body_off, c.body_ent)
+                                           if c.jacobi else ())
+            ts = [torch.as_tensor(np.ascontiguousarray(x),
+                                  dtype=torch.int32, device=device)
+                  for x in xs]
+            ptrs = [t.data_ptr() for t in ts]
+            out.append((ts, ptrs + [None] * (4 - len(ptrs))))
+        _UNIT_IDS[key] = out
+    return [ptrs for _, ptrs in _UNIT_IDS[key]]
 
 
 def _aligned(x):
@@ -493,10 +579,12 @@ def pgs_solve(plan: SolvePlan, iterations: int, iterations_post: int, mom0,
         raise ValueError("pgs kernel: at most 32 body slots (an even "
                          "count) and 4 classes of each kind")
     for c in plan.lin_classes + plan.ang_classes:
-        if c.W > 32 or c.W % 4 or c.n_groups > MAX_GROUPS:
-            raise ValueError(f"pgs kernel: class W={c.W} > 32 or not a "
-                             f"multiple of 4, or {c.n_groups} groups > "
-                             f"{MAX_GROUPS}")
+        wmax = MAX_JACOBI_W if c.jacobi else 32
+        if c.W > wmax or c.W % 4 or c.n_groups > MAX_GROUPS \
+                or (c.jacobi and c.n_groups != 1):
+            raise ValueError(f"pgs kernel: class W={c.W} > {wmax} or not "
+                             f"a multiple of 4, or {c.n_groups} groups "
+                             f"(at most {MAX_GROUPS}; a jacobi class one)")
     mom0, mi = mom0.contiguous(), mi.contiguous()
     lin_rows = [_aligned(r.contiguous()) for r in lin_rows]
     ang_rows = [_aligned(r.contiguous()) for r in ang_rows]
@@ -518,17 +606,16 @@ def pgs_solve(plan: SolvePlan, iterations: int, iterations_post: int, mom0,
     a.n_lin, a.n_ang = len(plan.lin_classes), len(plan.ang_classes)
     nl = len(plan.lin_classes)
     for k, (c, r) in enumerate(zip(plan.lin_classes, lin_rows)):
-        a.lin[k] = _Class(r.data_ptr(), ids[k][0].data_ptr(),
-                          ids[k][1].data_ptr(), c.U, c.W, c.n_groups,
-                          int(c.friction))
+        a.lin[k] = _class(c, r.data_ptr(), ids[k])
     for k, (c, r) in enumerate(zip(plan.ang_classes, ang_rows)):
-        a.ang[k] = _Class(r.data_ptr(), ids[nl + k][0].data_ptr(),
-                          ids[nl + k][1].data_ptr(), c.U, c.W, c.n_groups, 0)
+        a.ang[k] = _class(c, r.data_ptr(), ids[nl + k])
     err = kernels.library().hts_pgs_solve(ctypes.byref(a),
                                           kernels.stream_ptr(dev))
     kernels.check(err, "pgs_solve")
     pgs_solve.launches += 1
     kind = plan.key.split(":")[0]              # dyn, ms or uni
+    if any(c.jacobi for c in plan.lin_classes):
+        kind += "_jacobi"
     pgs_solve.kinds[kind] = pgs_solve.kinds.get(kind, 0) + 1
     return out
 
@@ -539,8 +626,7 @@ def occupancy(plan: SolvePlan, bp: int) -> int:
     a = _Args(CS=plan.CS, BP=bp, n_lin=len(plan.lin_classes),
               n_ang=len(plan.ang_classes))
     for k, c in enumerate(plan.lin_classes):
-        a.lin[k] = _Class(None, None, None, c.U, c.W, c.n_groups,
-                          int(c.friction))
+        a.lin[k] = _class(c)
     for k, c in enumerate(plan.ang_classes):
-        a.ang[k] = _Class(None, None, None, c.U, c.W, c.n_groups, 0)
+        a.ang[k] = _class(c)
     return kernels.library().hts_pgs_occupancy(ctypes.byref(a))

@@ -12,7 +12,13 @@ of those loops (it has no Pallas counterpart).  Both solvers feed it:
 `physics.colored.physics_update_colored` its rows in colored order
 (single-body blocks slot-major then body, pair blocks group by group: the
 rows of one group touch disjoint bodies, so applying them one after
-another equals the JAX package's one-hot group update).
+another equals the JAX package's one-hot group update).  A jacobi phase
+(contacts_mode="jacobi": the colored schedule's contact phases, JAX
+colored.py:339-372) is a run of linear rows whose impulses apply at once:
+every row of it reads the momenta as they stood at the phase's start, and
+each body then adds its rows' deltas in row order and applies the sum
+once (the JAX package's one-hot product `O0 @ dl`, summed in a fixed
+order).  A jacobi row's friction master lies in an earlier phase.
 
 A sweep runs the linear rows in order, then the angular rows in order
 (solver.py:232-284 lin_step / ang_step): world rows (b = -1) read zero
@@ -28,7 +34,9 @@ track's inactive rows.
 The kernel runs each track's rows as a wavefront (`wave_schedule` states
 its schedule): rows on disjoint bodies commute exactly, so a row runs as
 soon as the last earlier row on its bodies (and its friction master) has,
-and each body sees the same updates in the same order.
+and each body sees the same updates in the same order.  A jacobi phase's
+active rows make one level of their own, above every earlier row's, and
+every later row goes above it.
 
 `row_sweep` is the wrapper: CUDA tensors launch the kernel, CPU tensors
 run `row_sweep_waves`, the plain version in the kernel's wavefront order
@@ -43,6 +51,8 @@ leading, a row's fields and its meta word (int32 bits) contiguous:
                         bounds x dt
   meta   int32          (b0 + 1) | (b1 + 1) << 8 | active << 16
                         | (master row position + 1) << 17 (0: none)
+                        | link << 31 (the row continues the previous
+                        row's jacobi phase)
   af     (T, Ra, 16)    angular rows [axis(3) K0(3) K1(3) stt ts tspost lo
                         hi meta 0]
   out    (T, 2, B, 6)   momenta after the main and after the post sweeps
@@ -62,12 +72,16 @@ LW, AW = 24, 16          # a row's floats: fields, meta, zero padding
 MAX_B = 32
 MAX_LIN = 16382          # a master position + 1 fits bits 17-30 of the meta
 MAX_ROWS = 13000         # rows (linear + angular) the kernel holds a track
+MAX_JACOBI_ROWS = 256    # rows of a jacobi phase the kernel holds
 FLT_MAX = float(np.float32(3.4028235e38))
+LINK = -2 ** 31          # the meta word's bit 31 (int32)
+MASTER = 0x3FFF          # the master position + 1, bits 17-30
 
 
 class SweepRows(NamedTuple):
     lf: torch.Tensor      # (T, Rl, LW)
     af: torch.Tensor      # (T, Ra, AW)
+    jmax: int = 0         # rows of the largest jacobi phase (0: none)
 
     @property
     def lm(self):
@@ -100,14 +114,18 @@ def _fields(parts, T, R):
 
 
 def linear_block(b0, b1, n, J0, J1, K0, K1, dinv, ts, tspost, lo, hi,
-                 fcoef, active, mpos):
+                 fcoef, active, mpos, phase=None):
     """One block of linear rows in sweep order: fields (T, R[, 3]),
     b0/b1 (R,) or (T, R), mpos (R,) master positions within the block
-    (-1 none).  Returns (fields, meta, mpos) pieces for `sweep_rows`."""
+    (-1 none), phase (R,) the jacobi phase of each row (-1: none; a
+    phase's rows consecutive).  Returns (fields, meta, mpos, phase)
+    pieces for `sweep_rows`."""
     T, R = dinv.shape
     lf = _fields([n, J0, J1, K0, K1, dinv, ts, tspost, lo, hi, fcoef], T, R)
+    ph = np.full(R, -1, np.int64) if phase is None else \
+        np.asarray(phase, np.int64)
     return lf, _meta(b0, b1, active, T, R, dinv.device), \
-        np.asarray(mpos, np.int64)
+        np.asarray(mpos, np.int64), ph
 
 
 def angular_block(b0, b1, axis, K0, K1, stt, ts, tspost, lo, hi, active):
@@ -132,36 +150,67 @@ def _with_meta(fields, meta, width):
 def sweep_rows(lin_blocks, ang_blocks, T, device) -> SweepRows:
     """Concatenate blocks (in sweep order) into the kernel's layout.  Rows
     inactive on every track are dropped (they take no impulse), unless a
-    kept friction row reads their accumulated impulse."""
-    lfs, lms, pos = [], [], []
+    kept friction row reads their accumulated impulse.  A kept jacobi row
+    links to the kept row before it when both are of one phase."""
+    lfs, lms, pos, phs = [], [], [], []
     off = 0
-    for lf, lm, mp in lin_blocks:
+    for k, (lf, lm, mp, ph) in enumerate(lin_blocks):
         lfs.append(lf)
         lms.append(lm)
         pos.append(np.where(mp >= 0, mp + off, -1))
+        phs.append(np.where(ph >= 0, ph * len(lin_blocks) + k, -1))
         off += lf.shape[1]
     lf = torch.cat(lfs, dim=1) if lfs else \
         torch.zeros((T, 0, NLF), device=device)
     lm = torch.cat(lms, dim=1) if lms else \
         torch.zeros((T, 0), dtype=torch.int32, device=device)
     mp = np.concatenate(pos) if pos else np.zeros(0, np.int64)
+    ph = np.concatenate(phs) if phs else np.zeros(0, np.int64)
     keep = _live(lm)
     keep[mp[keep & (mp >= 0)]] = True
     new = np.cumsum(keep) - 1                  # old position -> new one
+    bad = (ph >= 0) & (mp >= 0) & (ph == ph[np.maximum(mp, 0)])
+    if bad.any():
+        raise ValueError("row sweep: a jacobi row's friction master lies "
+                         "in its own phase")
     mp = np.where(mp >= 0, new[np.maximum(mp, 0)], -1)[keep]
+    ph = ph[keep]
+    link = np.zeros(len(ph), bool)
+    link[1:] = (ph[1:] >= 0) & (ph[1:] == ph[:-1])
     idx = torch.as_tensor(np.nonzero(keep)[0], device=device)
     lf, lm = lf[:, idx], lm[:, idx]
     if lf.shape[1] > MAX_LIN:
         raise ValueError(f"row sweep: at most {MAX_LIN} linear rows")
     lm = lm | (torch.as_tensor(mp, dtype=torch.int32, device=device)
                + 1) << 17
+    lm = lm | torch.where(torch.as_tensor(link, device=device),
+                          LINK, 0).to(torch.int32)
+    _, sizes = np.unique(ph[ph >= 0], return_counts=True)
     af = torch.cat([a for a, _ in ang_blocks], dim=1) if ang_blocks else \
         torch.zeros((T, 0, NAF), device=device)
     am = torch.cat([m for _, m in ang_blocks], dim=1) if ang_blocks else \
         torch.zeros((T, 0), dtype=torch.int32, device=device)
     aidx = torch.as_tensor(np.nonzero(_live(am))[0], device=device)
     return SweepRows(_with_meta(lf, lm, LW),
-                     _with_meta(af[:, aidx], am[:, aidx], AW))
+                     _with_meta(af[:, aidx], am[:, aidx], AW),
+                     int(sizes.max()) if len(sizes) else 0)
+
+
+def jacobi_phases(lm):
+    """(T, R) int64: each linear row's jacobi phase (numbered from 0 in
+    row order; -1 for a row of no phase), from the meta words' links."""
+    link = ((lm.to(torch.int64) >> 31) & 1) == 1
+    nxt = torch.zeros_like(link)
+    nxt[:, :-1] = link[:, 1:]
+    jac = link | nxt
+    start = jac & ~link
+    num = torch.cumsum(start.to(torch.int64), dim=1) - 1
+    return torch.where(jac, num, torch.full_like(num, -1))
+
+
+def _master(meta):
+    """The master position of each row, -1 none (int64)."""
+    return ((meta.to(torch.int64) >> 17) & MASTER) - 1
 
 
 # ---------------------------------------------------------------------------
@@ -176,51 +225,66 @@ class WaveSchedule(NamedTuple):
     ang_perm: torch.Tensor    #   inactive rows in row order
     lm: torch.Tensor          # (T, Rl) int32 lm[t, lin_perm[t]], master
                               #   positions remapped to that order
+    lin_jac: torch.Tensor     # (T, Rl) bool: a jacobi row, in that order
 
 
 def _levels(meta, friction):
     """(T, R) levels of the rows of meta (T, R), as the kernel's prologue
     computes them: 1 + the largest level of the earlier active rows on the
     row's bodies and of its master; a master after its reader is placed
-    above the reader."""
+    above the reader.  The active rows of a jacobi phase share one level,
+    one above every earlier row's, and every later row goes above it."""
     T, R = meta.shape
     dev = meta.device
+    jac = jacobi_phases(meta) >= 0
+    link = ((meta.to(torch.int64) >> 31) & 1) == 1
     meta = meta.to(torch.int64)
     act = ((meta >> 16) & 1) == 1
     b0 = (meta & 0xFF) - 1
     b1 = ((meta >> 8) & 0xFF) - 1
-    mp = (meta >> 17) - 1 if friction else torch.full_like(meta, -1)
+    mp = _master(meta) if friction else torch.full_like(meta, -1)
     c0 = torch.where(b0 >= 0, b0, MAX_B)      # column MAX_B: the world
     c1 = torch.where(b1 >= 0, b1, MAX_B)
     last = torch.zeros((T, MAX_B + 1), dtype=torch.int64, device=dev)
     lvl = torch.zeros((T, R), dtype=torch.int64, device=dev)
     tt = torch.arange(T, device=dev)
+    zero = torch.zeros(T, dtype=torch.int64, device=dev)
+    floor, nlev, phase = zero, zero, zero    # phase: the open phase's level
     for r in range(R):
         a, m = act[:, r], mp[:, r]
-        l = torch.maximum(lvl[:, r], torch.maximum(last[tt, c0[:, r]],
-                                                   last[tt, c1[:, r]]))
+        phase = torch.where(link[:, r], phase, zero)
+        l = torch.maximum(torch.maximum(lvl[:, r], floor),
+                          torch.maximum(last[tt, c0[:, r]],
+                                        last[tt, c1[:, r]]))
         mc = m.clamp(0, max(R - 1, 0))
         l = torch.where((m >= 0) & (m < r),
                         torch.maximum(l, lvl[tt, mc]), l) + 1
+        j = jac[:, r]
+        l = torch.where(j, torch.where(phase > 0, phase, nlev + 1), l)
+        phase = torch.where(j & a, l, phase)
+        floor = torch.where(j & a, l, floor)
         cur = lvl[tt, mc]
         lvl[tt, mc] = torch.where(a & (m > r), torch.maximum(cur, l), cur)
         l = torch.where(a, l, 0)
         last[tt, c0[:, r]] = torch.where(a, l, last[tt, c0[:, r]])
         last[tt, c1[:, r]] = torch.where(a, l, last[tt, c1[:, r]])
         last[:, MAX_B] = 0
+        nlev = torch.maximum(nlev, l)
         lvl[:, r] = l
     return lvl
 
 
 def _single_levels(meta, lvl):
     """(T, R) bool: the row's level is single-body (every row of it has the
-    world as b0, a body b1 < 31 and no master): the kernel runs such a
-    level's rows on their bodies' lanes, in body order."""
+    world as b0, a body b1 < 31, no master and no jacobi phase): the
+    kernel runs such a level's rows on their bodies' lanes, in body
+    order."""
+    jac = jacobi_phases(meta) >= 0
     meta = meta.to(torch.int64)
     T, R = lvl.shape
     b0 = (meta & 0xFF) - 1
     b1 = ((meta >> 8) & 0xFF) - 1
-    single = (b0 < 0) & (b1 >= 0) & (b1 < 31) & ((meta >> 17) == 0)
+    single = (b0 < 0) & (b1 >= 0) & (b1 < 31) & (_master(meta) < 0) & ~jac
     ok = torch.ones((T, R + 1), dtype=torch.int64, device=lvl.device)
     ok.scatter_reduce_(1, lvl, single.to(torch.int64), "amin")
     return (torch.gather(ok, 1, lvl) == 1) & (lvl > 0)
@@ -251,19 +315,24 @@ def wave_schedule(lm, am) -> WaveSchedule:
     inv = torch.empty_like(perm_l)
     inv.scatter_(1, perm_l, torch.arange(R, device=lm.device).expand(T, R))
     meta = torch.gather(lm, 1, perm_l)
-    m = (meta >> 17).to(torch.int64) - 1
+    m = _master(meta)
     nm = torch.where(m >= 0, torch.gather(inv, 1, m.clamp(min=0)), -1)
     meta = (meta & 0x1FFFF) | ((nm + 1) << 17).to(torch.int32)
-    return WaveSchedule(lvl_l, lvl_a, perm_l, perm_a, meta)
+    jac = torch.gather(jacobi_phases(lm) >= 0, 1, perm_l)
+    return WaveSchedule(lvl_l, lvl_a, perm_l, perm_a, meta, jac)
 
 
 def synthetic_rows(T: int, Rl: int, Ra: int, B: int, seed: int,
-                   device="cpu"):
+                   device="cpu", jacobi: int = 0):
     """(mom0, massinv, rows): seeded rows with the schedule's hard cases.
     B bodies with ~27% of the rows on body 1 (as a hand's palm has), half
     the rows on one body, 3% on no body; friction rows whose master is one
     or two rows before them, 15% of those a later row; 15% of the rows
-    inactive on each track; 10% of the angular targets -FLT_MAX."""
+    inactive on each track; 10% of the angular targets -FLT_MAX.  jacobi:
+    that many units of 3 rows (normal, then two friction rows whose master
+    is the normal row) behind the others, on random body pairs that share
+    bodies (a fifth with the world as b0), in 3 jacobi phases (the units'
+    normal rows, then their first and second friction rows)."""
     rng = np.random.default_rng(seed)
     f = lambda *s: torch.tensor(rng.standard_normal(s).astype(np.float32))
     u = lambda lo, hi, *s: torch.tensor(rng.uniform(lo, hi, s)
@@ -282,12 +351,25 @@ def synthetic_rows(T: int, Rl: int, Ra: int, B: int, seed: int,
     mpos[fr] = np.maximum(fr - rng.integers(1, 3, len(fr)), 0)
     late = fr[rng.random(len(fr)) < 0.15]
     mpos[late] = np.minimum(late + rng.integers(1, 9, len(late)), Rl - 1)
+    phase = np.full(Rl, -1)
+    if jacobi:
+        n = jacobi
+        jb1 = rng.integers(1, B, n)
+        jb0 = np.where(rng.random(n) < 0.2, -1, rng.integers(0, B, n))
+        jb0 = np.where(jb0 == jb1, 0, jb0)
+        b0 = np.concatenate([b0, np.tile(jb0, 3)])
+        b1 = np.concatenate([b1, np.tile(jb1, 3)])
+        jm = np.concatenate([np.full(n, -1), Rl + np.arange(n),
+                             Rl + np.arange(n)])
+        mpos = np.concatenate([mpos, jm])
+        phase = np.concatenate([phase, np.repeat(np.arange(3), n)])
+        Rl += 3 * n
     lo, hi = -u(0.1, 1.0, T, Rl), u(0.1, 1.0, T, Rl)
     lin = linear_block(
         b0, b1, f(T, Rl, 3), f(T, Rl, 3) * 0.1, f(T, Rl, 3) * 0.1,
         f(T, Rl, 3) * 0.1, f(T, Rl, 3) * 0.1, u(0.2, 1.0, T, Rl),
         f(T, Rl), f(T, Rl), lo, hi, u(0.1, 1.0, T, Rl),
-        torch.tensor(rng.random((T, Rl)) < 0.85), mpos)
+        torch.tensor(rng.random((T, Rl)) < 0.85), mpos, phase)
     ab0, ab1 = bodies(Ra)
     ts = f(T, Ra)
     ts[torch.tensor(rng.random((T, Ra)) < 0.1)] = -FLT_MAX
@@ -299,12 +381,39 @@ def synthetic_rows(T: int, Rl: int, Ra: int, B: int, seed: int,
                         torch.tensor(rng.random((T, Ra)) < 0.85))
     rows = sweep_rows([lin], [ang], T, "cpu")
     return ((f(T, B, 6) * 0.1).to(device), u(0.5, 2.0, B).to(device),
-            SweepRows(*(x.to(device) for x in rows)))
+            rows._replace(lf=rows.lf.to(device), af=rows.af.to(device)))
 
 
 # ---------------------------------------------------------------------------
 # the sweeps: plain PyTorch version
 # ---------------------------------------------------------------------------
+
+def _ordered_add(mom, slots, deltas, ok, B):
+    """Add each body's deltas in entry order and apply the sum once (a
+    jacobi phase, as the kernel adds them): mom (T * (B + 1), 6) the
+    momentum table, slots (T, E) its indices, deltas (T, E, 6), ok (T, E)
+    the entries that count (active rows, real bodies)."""
+    T, E = slots.shape
+    dev = slots.device
+    local = slots - (torch.arange(T, device=dev) * (B + 1))[:, None]
+    oh = (local[..., None] == torch.arange(B + 1, device=dev)) \
+        & ok[..., None]                                     # (T, E, B+1)
+    cnt = oh.sum(1)                                         # (T, B+1)
+    K = int(cnt.max()) if cnt.numel() else 0
+    if K == 0:
+        return
+    rank = torch.cumsum(oh.to(torch.int64), dim=1) - 1
+    t_i, e_i, b_i = torch.nonzero(oh, as_tuple=True)
+    ent = torch.full((T, B + 1, K), E, dtype=torch.int64, device=dev)
+    ent[t_i, b_i, rank[t_i, e_i, b_i]] = e_i
+    dpad = torch.cat([deltas, deltas.new_zeros((T, 1, 6))], dim=1)
+    for k in range(K):
+        dk = torch.gather(dpad, 1, ent[:, :, k, None].expand(T, B + 1, 6))
+        acc = dk if k == 0 else torch.where((k < cnt)[..., None], acc + dk,
+                                            acc)
+    m = mom.view(T, B + 1, 6)
+    m.copy_(torch.where((cnt > 0)[..., None], m + acc, m))
+
 
 def _unpack(meta, B):
     b0 = (meta & 0xFF) - 1
@@ -367,7 +476,10 @@ def row_sweep_plain(mom0, massinv, rows: SweepRows, iterations: int,
     ax, aK0, aK1 = af[..., 0:3], af[..., 3:6], af[..., 6:9]
     ang = _row_tables(am, B, T, base, mi, tl(z3, aK1, z3, aK0),
                       tl(z3, ax, z3, -ax))
-    lmpos = ((lm[:, 0] >> 17) - 1).tolist() if T else []
+    lmpos = _master(lm[:, 0]).tolist() if T else []
+    ph = jacobi_phases(rows.lm[:1])[0].tolist() if T else []
+    jac_end = [p >= 0 and (r + 1 == len(ph) or ph[r + 1] != p)
+               for r, p in enumerate(ph)]
     lft, aft = lf.permute(1, 2, 0), af.permute(1, 2, 0)      # (R, F, T)
     # each row's fields as (T,) tensors, taken once: the linear rows'
     # [-ts, -ts post], dinv, lo, hi, the friction coefficient; the
@@ -402,8 +514,12 @@ def row_sweep_plain(mom0, massinv, rows: SweepRows, iterations: int,
         if s == total:
             break
         k = 1 if s >= iterations else 0
+        pend = []                       # the open jacobi phase's rows
         for r, row in enumerate(lrows):
             if row is None:
+                if jac_end and jac_end[r] and pend:
+                    _jacobi_apply(mom, pend, T, B)
+                    pend = []
                 continue
             idx, C, D, MI, act, nts, dinv, lo, hi, fcoef, mpos = row
             x, y, z = (mom[idx].view(T, 12) * C).view(T, 4, 3).unbind(-1)
@@ -417,8 +533,14 @@ def row_sweep_plain(mom0, massinv, rows: SweepRows, iterations: int,
             imp = torch.maximum(torch.minimum(imp, hi - own), lo - own)
             if act is not None:
                 imp = torch.where(act, imp, zero)
-            mom.index_add_(0, idx, (imp[:, None] * D).view(2 * T, 6))
             isum[r] = own + imp
+            if ph[r] >= 0:
+                pend.append((idx, (imp[:, None] * D).view(T, 2, 6), act))
+                if jac_end[r]:
+                    _jacobi_apply(mom, pend, T, B)
+                    pend = []
+                continue
+            mom.index_add_(0, idx, (imp[:, None] * D).view(2 * T, 6))
         for r, row in enumerate(arows):
             if row is None:
                 continue
@@ -432,6 +554,21 @@ def row_sweep_plain(mom0, massinv, rows: SweepRows, iterations: int,
             torq[r] = own + dtq
     out[:, 1] = mom.view(T, B + 1, 6)[:, :B]
     return out
+
+
+def _jacobi_apply(mom, pend, T, B):
+    """A jacobi phase's rows (idx (2T,), deltas (T, 2, 6), act (T,) or
+    None each, in row order) applied: _ordered_add over their real
+    bodies' sides."""
+    slots = torch.stack([i.view(T, 2) for i, _, _ in pend], dim=1)
+    deltas = torch.stack([d for _, d, _ in pend], dim=1)   # (T, W, 2, 6)
+    ok = torch.stack([torch.ones(T, dtype=torch.bool, device=mom.device)
+                      if a is None else a for _, _, a in pend], dim=1)
+    base = (torch.arange(T, device=mom.device) * (B + 1))[:, None, None]
+    ok = ok[..., None] & (slots - base != B)
+    W = len(pend)
+    _ordered_add(mom, slots.reshape(T, 2 * W), deltas.reshape(T, 2 * W, 6),
+                 ok.reshape(T, 2 * W), B)
 
 
 def _level_steps(level, perm, R):
@@ -506,9 +643,11 @@ def row_sweep_waves(mom0, massinv, rows: SweepRows, iterations: int,
     K0, K1 = lf[..., 9:12], lf[..., 12:15]
     lt = _wave_tables(lf[..., :NLF], ws.lm.to(torch.int64), B, T, base, mi,
                       (n, K1, n, K0), (n, J1, -n, -J0))
-    lt["mpos"] = torch.cat([(ws.lm.to(torch.int64) >> 17) - 1,
+    lt["mpos"] = torch.cat([_master(ws.lm),
                             torch.full((T, 1), -1, device=dev,
                                        dtype=torch.int64)], dim=1)
+    lt["jac"] = torch.cat([ws.lin_jac, torch.zeros((T, 1), device=dev,
+                                                   dtype=torch.bool)], dim=1)
     ax, aK0, aK1 = af[..., 0:3], af[..., 3:6], af[..., 6:9]
     z3 = torch.zeros_like(ax)
     at = _wave_tables(af[..., :NAF], torch.gather(rows.am, 1, ws.ang_perm)
@@ -520,10 +659,13 @@ def row_sweep_waves(mom0, massinv, rows: SweepRows, iterations: int,
         f = x["f"].permute(2, 0, 1)                        # (F, T, W)
         fr = x["mpos"] >= 0
         act = x["act"]
+        jac = bool(x["jac"].any())
+        real = (x["idx"] - base[..., None] != B) & act[..., None]
         lin.append((P, x["idx"].reshape(-1), x["C"], x["D"], x["MI"],
                     None if bool(act.all()) else act, (-f[16], -f[17]),
                     f[15], f[18], f[19], f[20],
-                    fr if bool(fr.any()) else None, x["mpos"].clamp(min=0)))
+                    fr if bool(fr.any()) else None, x["mpos"].clamp(min=0),
+                    real.reshape(T, -1) if jac else None))
     ang = []
     for P in _level_steps(ws.ang_level, ws.ang_perm, Ra):
         x = _at(at, P)
@@ -543,7 +685,7 @@ def row_sweep_waves(mom0, massinv, rows: SweepRows, iterations: int,
             break
         k = 1 if s >= iterations else 0
         for (P, idx, C, D, MI, act, nts, dinv, lo, hi, fcoef, fr,
-             mpos) in lin:
+             mpos, jac) in lin:
             W = P.shape[1]
             x, y, z = (mom[idx].view(T, W, 12) * C).view(T, W, 4, 3) \
                 .unbind(-1)
@@ -557,8 +699,12 @@ def row_sweep_waves(mom0, massinv, rows: SweepRows, iterations: int,
             imp = torch.maximum(torch.minimum(imp, hi - own), lo - own)
             if act is not None:
                 imp = torch.where(act, imp, zero)
-            mom.index_add_(0, idx, (imp[..., None] * D).view(-1, 6))
             isum.scatter_(1, P, own + imp)
+            if jac is not None:         # a jacobi phase's level
+                _ordered_add(mom, idx.view(T, 2 * W),
+                             (imp[..., None] * D).view(T, 2 * W, 6), jac, B)
+                continue
+            mom.index_add_(0, idx, (imp[..., None] * D).view(-1, 6))
         for P, idx, C, D, ts, stt, lo, hi, amask in ang:
             W = P.shape[1]
             p = (mom[idx].view(T, W, 12) * C).view(T, W, 4, 3)
@@ -586,7 +732,8 @@ class _Args(ctypes.Structure):
                 ("cycles", ctypes.c_void_p),
                 ("T", ctypes.c_int), ("B", ctypes.c_int),
                 ("n_lin", ctypes.c_int), ("n_ang", ctypes.c_int),
-                ("iters", ctypes.c_int), ("iters_post", ctypes.c_int)]
+                ("iters", ctypes.c_int), ("iters_post", ctypes.c_int),
+                ("jmax", ctypes.c_int)]
 
 
 REC = 24                 # floats of a row's record in the kernel's stream
@@ -608,9 +755,12 @@ def row_sweep(mom0, massinv, rows: SweepRows, iterations: int,
     if Rl + Ra > MAX_ROWS:
         raise ValueError(f"row sweep kernel: at most {MAX_ROWS} rows "
                          f"(linear and angular), got {Rl + Ra}")
+    if rows.jmax > MAX_JACOBI_ROWS:
+        raise ValueError(f"row sweep kernel: at most {MAX_JACOBI_ROWS} "
+                         f"rows a jacobi phase, got {rows.jmax}")
     args = [x.contiguous() for x in (mom0, massinv)] + [
         r if r.data_ptr() % 16 == 0 else r.clone()     # 16-byte rows
-        for r in (x.contiguous() for x in rows)]
+        for r in (x.contiguous() for x in (rows.lf, rows.af))]
     dev = kernels.require_cuda(*args)
     mom0, massinv, lf, af = args
     stream = torch.empty((T, Rl + Ra, REC), device=dev)
@@ -625,16 +775,19 @@ def row_sweep(mom0, massinv, rows: SweepRows, iterations: int,
     a = _Args(mom0.data_ptr(), massinv.data_ptr(), lf.data_ptr(),
               af.data_ptr(), stream.data_ptr(), steps.data_ptr(),
               out.data_ptr(), cyc, T, B,
-              Rl, Ra, iterations, iterations_post)
+              Rl, Ra, iterations, iterations_post, rows.jmax)
     err = kernels.library().hts_row_sweep(ctypes.byref(a),
                                           kernels.stream_ptr(dev))
     kernels.check(err, "row_sweep")
     row_sweep.launches += 1
+    if rows.jmax:
+        row_sweep.kinds["jacobi"] = row_sweep.kinds.get("jacobi", 0) + 1
     return out
 
 
 def occupancy(rows: SweepRows, B: int) -> int:
     """Tracks (blocks) an SM holds at once for these rows (a measurement;
     0 if the kernel cannot hold them)."""
-    a = _Args(B=B, n_lin=rows.lf.shape[1], n_ang=rows.af.shape[1])
+    a = _Args(B=B, n_lin=rows.lf.shape[1], n_ang=rows.af.shape[1],
+              jmax=rows.jmax)
     return kernels.library().hts_row_sweep_occupancy(ctypes.byref(a))

@@ -1,16 +1,19 @@
 """Host-computed static row schedules for the hand (the port's counterpart
 of hand_tracking_samples_tpu.physics.schedule): precedence-colored groups
 per row class, as lists of row-index groups; `pair_linear`/`pair_angular`
-attach a class's exact groups, padded by `pad_groups`, to its rows for the
-colored solve."""
+attach a class's groups, padded by `pad_groups`, to its rows for the
+colored solve.  With contacts_mode="jacobi" the contact rows' groups are
+the jacobi phases (colored.JacobiPhases: row r of every collide pair,
+r = 0 .. 3*CONTACT_POINTS - 1), which the colored solve runs as jacobi
+levels, not as body-disjoint groups."""
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import numpy as np
 
-from .colored import (StaticPairAngular, StaticPairLinear, pad_groups,
-                      precedence_coloring)
+from .colored import (JacobiPhases, StaticPairAngular, StaticPairLinear,
+                      pad_groups, precedence_coloring)
 from .contacts import CONTACT_POINTS
 
 
@@ -43,7 +46,8 @@ def _hand_schedule(model_np: dict, contacts_mode: str) -> HandSchedule:
     U = 3 * CONTACT_POINTS
     pairs = np.asarray(model_np["collide_pairs"])
     if contacts_mode == "jacobi":
-        contact = [list(range(r, U * len(pairs), U)) for r in range(U)]
+        contact = JacobiPhases(list(range(r, U * len(pairs), U))
+                               for r in range(U))
     else:
         contact = precedence_coloring(list(zip(np.repeat(pairs[:, 0], U),
                                                np.repeat(pairs[:, 1], U))))

@@ -42,9 +42,18 @@ slowfit, the annotation-grade fit of the annotate CLI (handtrack.h:
 (contact kernel), and the annotator's extras: CNN landmark rays, a
 dragged-bone nail and the hold mode's relative angular rows.
 
-Other settings of TrackerConfig (angles-only, jacobi contacts, the kernel
-solver without use_pallas) raise NotImplementedError naming the ROADMAP
-item that brings them.
+Every setting of TrackerConfig runs.  contacts_mode="jacobi" is read by
+the kernel solver's PGS plans (one jacobi contact class) and the colored
+solver's schedule (jacobi phases, the row sweep's jacobi levels), as in
+JAX runtime.py:771-783; the sequential solver and slowfit never read it.
+On the kernel solver without use_pallas the cloud's rows are the
+reference-shaped ones (the plane dots) packed into one more single-body
+block of the PGS solve, in the dynamics pass, the reset's UnibodyFit and
+each MultiStepSim step; FitError takes closest_vals.  angles_only resets
+and takes the refit on every track, runs MultiStepSim with its angle rows
+on every step and no keypoint or cloud rows, and skips the main-thread
+pass.  kickstart_multi runs the reset from palm-flip hypotheses folded
+into the track dimension and keeps each track's best.
 """
 from __future__ import annotations
 
@@ -99,6 +108,18 @@ def physics_params(config: TrackerConfig) -> PhysicsParams:
     return PhysicsParams()
 
 
+def scale_tracker(model, config: TrackerConfig, s: float):
+    """HandTracker::scale (handtrack.h:591): the model resized by s
+    (model.bake.scale_model, on the model's device) and the segmentation
+    diameter with it.  Returns (model, config)."""
+    import dataclasses
+    from ..model.bake import HandModelArrays, from_numpy_model, scale_model
+    scaled = scale_model(HandModelArrays(**model.np), s)
+    return (from_numpy_model(scaled, model.device),
+            dataclasses.replace(config,
+                                segment_scale=config.segment_scale * s))
+
+
 def state_from_numpy(state, device):
     """The JAX package's TrackerState or BodyState, as NumPy arrays (or any
     NamedTuple with the same field names), -> the port's, on `device`."""
@@ -118,27 +139,14 @@ def state_from_numpy(state, device):
                      .to(torch.float32))
 
 
-def _check_config(config: TrackerConfig, slowfit: bool = False):
-    """Raise NotImplementedError for the settings a later slice of the port
-    brings, naming its ROADMAP item.  slowfit: the settings slowfit reads
-    (it solves sequentially whatever config.solver says, with use_pallas
-    True or False, and the exact contacts)."""
+def _check_config(config: TrackerConfig):
+    """Raise ValueError for a solver or contacts mode the JAX package does
+    not have.  Every other setting of TrackerConfig runs in the port."""
     if config.solver not in ("kernel", "sequential", "colored"):
         raise ValueError(f"TrackerConfig.solver={config.solver!r}")
-    later = {
-        "contacts_mode": (config.contacts_mode != "exact", "the jacobi "
-                          "contact schedule (ROADMAP queue 1, item 3)"),
-        "use_pallas": (config.solver == "kernel" and not config.use_pallas,
-                       "the kernel solver without the cloud kernels "
-                       "(ROADMAP queue 1, item 4)"),
-        "angles_only": (config.angles_only, "the angles-only frame "
-                        "(ROADMAP queue 1, item 4)"),
-    }
-    for name, (bad, where) in later.items():
-        if bad and (name == "contacts_mode" or not slowfit):
-            raise NotImplementedError(
-                f"TrackerConfig.{name}={getattr(config, name)!r} "
-                f"(solver={config.solver!r}): not in the port yet; {where}")
+    if config.contacts_mode not in ("exact", "jacobi"):
+        raise ValueError(
+            f"TrackerConfig.contacts_mode={config.contacts_mode!r}")
 
 
 def hand_model_enhancements(body: BodyState, model, params, armdir=None,
@@ -477,13 +485,16 @@ def multi_step_sim(body: BodyState, model, analysis: CNNAnalysis, ph,
     keypoint rows (steps < steps_keypoints), the subsampled cloud
     (steps >= steps_cloudstart), the ApplyAngles drive and cones
     (steps < steps_keyangles; palm drive torque while
-    steps < steps_palmangle), the arm cone and the joint ranges.  ph
-    (T, 8, N); camera_pose (T, 7).  On the kernel solver the PGS kernel's
-    multistep plan solves them, the cloud's rows packed by kernel 2
-    straight into the solve, or for the voxel and mirror clouds (JAX
-    runtime.py:397-404) by kernel 2.5 into one more single-body block each
-    cloud step.  On the reference solvers, multi_step_reference (schedule:
-    the colored solver's HandSchedule)."""
+    steps < steps_palmangle), the arm cone and the joint ranges; with
+    angles_only the angle rows on every step and no keypoint or cloud rows
+    (JAX runtime.py:341-377).  ph (T, 8, N); camera_pose (T, 7).  On the
+    kernel solver the PGS kernel's multistep plan solves them, the cloud's
+    rows packed by kernel 2 straight into the solve, or for the voxel and
+    mirror clouds (JAX runtime.py:397-404) by kernel 2.5 into one more
+    single-body block each cloud step, or without use_pallas the plane
+    dots' rows packed into that block (:422-433).  On the reference
+    solvers, multi_step_reference (schedule: the colored solver's
+    HandSchedule)."""
     if config.solver != "kernel":
         return multi_step_reference(body, model, analysis, ph, camera_pose,
                                     config, params, schedule)
@@ -496,17 +507,30 @@ def multi_step_sim(body: BodyState, model, analysis: CNNAnalysis, ph,
     aa = (analysis.palmq, analysis.finger_clenched, camq)
     C = config.cloud_rows_per_body
     planes = _planes_path(config)
+    ms = (multistep_reference_cloud(ph, camera_pose, config, model.n_bodies)
+          if not config.use_pallas else None)
     for s in range(config.steps):
-        has_angles = s < config.steps_keyangles
+        has_angles = s < config.steps_keyangles or config.angles_only
+        has_cloud = config.steps_cloudstart <= s and not config.angles_only
         blocks, limits = [], []
-        if s < config.steps_keypoints:
+        if s < config.steps_keypoints and not config.angles_only:
             blocks.append(_keypoint_block(body, model, analysis,
                                           camera_pose, config))
             limits.append(((0.0, -100000.0), (100000.0, 0.0)))
         cloud = None
-        if config.steps_cloudstart <= s and planes:
+        if has_cloud and planes:
             cloud = cloud_all
-        elif config.steps_cloudstart <= s:
+        elif has_cloud and ms is not None:
+            # the reference-shaped rows (JAX runtime.py:422-433)
+            from ..physics.colored import pack_single_body_linear
+            rows = cloud_constraint_rows(body.pose, model, ms.points,
+                                         ms.mask, origin=ms.origin,
+                                         use_kernel=False)
+            rows = scale_cloud_forces(rows, ms.cloudforce * torch.where(
+                rows.b1 == 0, 0.1, 1.0))
+            blocks.append(pack_single_body_linear(rows, model.n_bodies, C))
+            limits.append((-1.0, 1.0))       # +-force x the slot scale
+        elif has_cloud:
             blocks.append(cloud_rows_packed_ph(body.pose, model, *cloud_all,
                                                C)[0])
             limits.append((-1.0, 1.0))       # +-scale, scale >= 0
@@ -560,7 +584,8 @@ def multistep_rows(body: BodyState, model, analysis: CNNAnalysis,
     torque while s < steps_palmangle), the keypoint dead zones
     (s < steps_keypoints), the subsampled cloud's rows (s >=
     steps_cloudstart; the correspondence kernel with use_pallas, the plane
-    dots without; a tenth of the force on the wrist) and the arm cone, with
+    dots without; a tenth of the force on the wrist) and the arm cone (with
+    angles_only ApplyAngles on every step, no keypoints, no cloud), with
     the joints, contacts and ranges: model.hand.fit_rows' rows.
     Sequential (schedule None): linears [keypoints][cloud], angulars
     [ApplyAngles][arm cone] before fit_rows' own; colored: the keypoints
@@ -573,15 +598,15 @@ def multistep_rows(body: BodyState, model, analysis: CNNAnalysis,
     B = model.n_bodies
     colored = schedule is not None
     lin, ang = [], []
-    if s < config.steps_keyangles:
+    if s < config.steps_keyangles or config.angles_only:
         aa = apply_angles(body, model, analysis, camera_pose, params,
                           10000.0 if s < config.steps_palmangle else 0.0)
         ang.append(pair_angular(aa, schedule.apply_angles) if colored
                    else aa)
-    if s < config.steps_keypoints:
+    if s < config.steps_keypoints and not config.angles_only:
         kp = _keypoint_rows(body, analysis, camera_pose, config)
         lin.append(pack_single_body_linear(kp, B, 4) if colored else kp)
-    if config.steps_cloudstart <= s:
+    if config.steps_cloudstart <= s and not config.angles_only:
         cloud = cloud_constraint_rows(body.pose, model, ms.points, ms.mask,
                                       origin=ms.origin,
                                       use_kernel=config.use_pallas)
@@ -731,8 +756,9 @@ def update_cnn_model(state: TrackerState, model, cnn_params, depth, cam,
                      config: TrackerConfig, params, ph=None, schedule=None):
     """The background-thread body of the reference, for every track:
     FitError of the current pose, a reset where it exceeds
-    full_reset_on_error, MultiStepSim, FitError of the result, and the
-    take decision.  depth (T, H, W) int16 (u16 bits); ph: the frame's cloud
+    full_reset_on_error (every track with angles_only), MultiStepSim,
+    FitError of the result, and the take decision (always with
+    angles_only).  depth (T, H, W) int16 (u16 bits); ph: the frame's cloud
     (planes carrier) when the caller has it; schedule: the colored
     solver's HandSchedule (built here when not given).  Returns (state,
     CnnDebug)."""
@@ -744,7 +770,7 @@ def update_cnn_model(state: TrackerState, model, cnn_params, depth, cam,
         cnn_params, depth, cam, config, ph)
     olderror = fit_error(state.body.pose, model, ph, depth, cam,
                          config.bone_sum_error_scale, config.use_pallas)
-    do_reset = olderror > config.full_reset_on_error
+    do_reset = (olderror > config.full_reset_on_error) | config.angles_only
     other = reset_tracks(do_reset, state.body, model, analysis, ph,
                          seg.cam.pose, config, params)
     other = multi_step_sim(other, model, analysis, ph, seg.cam.pose, config,
@@ -759,7 +785,7 @@ def update_cnn_model(state: TrackerState, model, cnn_params, depth, cam,
     if config.init_take_gated:
         init_take = init_take & (newerror <= olderror)
     take = init_take | bool(config.always_take_cnn) \
-        | (prev > config.accum_error_threshold)
+        | bool(config.angles_only) | (prev > config.accum_error_threshold)
     prev = torch.where(prev > config.accum_error_threshold, zero, prev)
     initializing = torch.clamp(state.initializing - 1, min=0)
     body = state.body._replace(pose=torch.where(
@@ -778,10 +804,76 @@ def kickstart(state: TrackerState, model, cnn_params, depth, cam, config,
                             params)
 
 
-def kickstart_multi(*args, **kwargs):
-    raise NotImplementedError(
-        "kickstart_multi (multi-hypothesis re-acquisition) comes in a later "
-        "slice of the port (ROADMAP queue 1, item 4)")
+# palm-frame flips spanning the edge-on and clenched view ambiguities the
+# net cannot resolve from one crop: identity, and pi about each local axis
+_HYP_FLIPS = ((0.0, 0.0, 0.0, 1.0), (1.0, 0.0, 0.0, 0.0),
+              (0.0, 1.0, 0.0, 0.0), (0.0, 0.0, 1.0, 0.0))
+
+
+def kickstart_hypotheses(state: TrackerState, model, cnn_params, depth,
+                         cam, config: TrackerConfig, params,
+                         n_hyp: int = 4, lm_weight: float = 0.1):
+    """kickstart_multi's hypotheses (JAX runtime.py:698-751): from the
+    net's palm orientation turned by each of the first n_hyp flips, the
+    full reset (PoseFromScratch, steps_unibody UnibodyFits, MultiStepSim
+    on the sequential schedule where the solver is not the kernel one) and
+    its score, FitError plus lm_weight x the landmark rays' disagreement
+    (the net's feature rays against the fitted features, weighted by the
+    rays' probabilities).  The hypotheses fold into the track dimension
+    (track t's hypothesis h is batch row t * n_hyp + h), one batch.
+    Returns (BodyState (T, n_hyp, 17, ...), scores (T, n_hyp)) and the
+    frame's (seg, analysis, cnn_input, cnn_output)."""
+    _check_config(config)
+    seg, analysis, cnn_input, cnn_output, ph = _cnn_frame_inputs(
+        cnn_params, depth, cam, config)
+    T, dev = ph.shape[0], ph.device
+    idx = torch.arange(T, device=dev).repeat_interleave(n_hyp)
+    flips = torch.tensor(_HYP_FLIPS[:n_hyp], device=dev).repeat(T, 1)
+    a = _take(analysis, idx)
+    a = a._replace(palmq=qmul(a.palmq, flips))
+    ph_r, campose = ph[idx], seg.cam.pose[idx]
+    b = pose_from_scratch(_take(state.body, idx), model, a, ph_r, campose)
+    for _ in range(config.steps_unibody):
+        b = unibody_fit(b, model, params, ph_r, campose[:, :3],
+                        config.unibody_force, config.physics_iterations,
+                        config.physics_iterations_post,
+                        use_kernel=config.use_pallas)
+    b = multi_step_sim(b, model, a, ph_r, campose, config, params)
+    err = fit_error(b.pose, model, ph_r, depth[idx], cam,
+                    config.bone_sum_error_scale, config.use_pallas)
+    bones = torch.as_tensor(FEATURE_BONES.astype(np.int64), device=dev)
+    off = torch.as_tensor(FEATURE_OFFSETS, dtype=torch.float32, device=dev)
+    fw = pose_apply(b.pose[:, bones], off)                  # (T*H, 8, 3)
+    d = fw - campose[:, None, :3]
+    d = d / torch.clamp(torch.linalg.vector_norm(d, dim=-1, keepdim=True),
+                        min=1e-20)
+    agree = (d * a.crays[..., :3]).sum(-1)                  # (T*H, 8)
+    err_lm = (torch.clamp(a.crays[..., 3], min=0.0) * (1.0 - agree)).sum(-1)
+    score = (err + lm_weight * err_lm).reshape(T, n_hyp)
+    bodies = BodyState(*[x.reshape((T, n_hyp) + x.shape[1:]) for x in b])
+    return bodies, score, (seg, analysis, cnn_input, cnn_output)
+
+
+def kickstart_multi(state: TrackerState, model, cnn_params, depth, cam,
+                    config: TrackerConfig, params, n_hyp: int = 4,
+                    lm_weight: float = 0.1):
+    """Multi-hypothesis re-acquisition (the JAX package's addition; the
+    reference's kickstart, handtrack.h:743, is the n_hyp=1 column), every
+    track at once: kickstart_hypotheses, then per track the hypothesis of
+    the lowest score (the lower index on a tie).  Returns (state with the
+    chosen bodies, prev_frame_error 0 and initializing unchanged,
+    CnnDebug)."""
+    bodies, score, (seg, analysis, cnn_input, cnn_output) = \
+        kickstart_hypotheses(state, model, cnn_params, depth, cam, config,
+                             params, n_hyp, lm_weight)
+    k = torch.argmin(score, dim=1)
+    tt = torch.arange(score.shape[0], device=score.device)
+    body = BodyState(*[x[tt, k] for x in bodies])
+    dbg = CnnDebug(cnn_input=cnn_input, cnn_output=cnn_output,
+                   image_points=analysis.image_points,
+                   segment_cam_pose=seg.cam.pose)
+    return TrackerState(body, torch.zeros_like(state.prev_frame_error),
+                        state.initializing), dbg
 
 
 # ---------------------------------------------------------------------------
@@ -823,7 +915,7 @@ def update(state: TrackerState, model, depth, cam, config: TrackerConfig,
             None if config.subsample_voxel else ph)
     body = state.body
     B = model.n_bodies
-    for _ in range(config.mainthreadpasses):
+    for _ in range(0 if config.angles_only else config.mainthreadpasses):
         blocks, limits = [], []
         if config.boundary_planes:
             chamber = cloud_chamber_rows(
@@ -839,7 +931,8 @@ def update(state: TrackerState, model, depth, cam, config: TrackerConfig,
             iterations=config.physics_iterations,
             iterations_post=config.physics_iterations_post,
             cloud_slots=config.cloud_rows_per_body, pgs_plan=plan,
-            planes_path=_planes_path(config))
+            planes_path=_planes_path(config),
+            use_pallas=config.use_pallas)
     initializing = torch.where(npts < config.min_point_num,
                                torch.full_like(state.initializing, 50),
                                state.initializing)
@@ -905,7 +998,7 @@ def _update_reference(state: TrackerState, model, depth, cam,
             None if config.subsample_voxel else ph, schedule)
     body = state.body
     bp = body_params(model)
-    for _ in range(config.mainthreadpasses):
+    for _ in range(0 if config.angles_only else config.mainthreadpasses):
         lin, ang = reference_frame_rows(body, model, params, points, mask,
                                         config, schedule)
         body = sanity_check(solve(body, bp, lin, ang, params,
@@ -1004,7 +1097,7 @@ def slowfit(state: TrackerState, model, points, mask, config: TrackerConfig,
     tracks (trace-time structure in the JAX package).  Returns the state
     with the fitted bodies."""
     from ..physics.solver import physics_update
-    _check_config(config, slowfit=True)
+    _check_config(config)
     bp = body_params(model)
     body = state.body
     for st in range(steps):

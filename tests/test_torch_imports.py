@@ -94,28 +94,20 @@ def test_entry_points_refuse_later_slices():
                     runtime._check_config(TrackerConfig(
                         cnn_every_frame=cnn, solver=solver,
                         use_pallas=pallas, **cloud))
+    # the settings the later slices brought: every one is accepted now,
+    # on every solver (slowfit runs the same check)
     for kw in (dict(angles_only=True), dict(use_pallas=False),
                dict(contacts_mode="jacobi")):
-        for solver in ("kernel", "sequential"):
-            if solver == "sequential" and "use_pallas" in kw:
-                continue                       # ported
-            cfg = dict(cnn_every_frame=solver == "kernel", solver=solver,
-                       use_pallas=True)
-            cfg.update(kw)
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
+        for solver in ("kernel", "sequential", "colored"):
+            for cnn in (False, True):
+                cfg = dict(cnn_every_frame=cnn, solver=solver,
+                           use_pallas=True)
+                cfg.update(kw)
                 runtime._check_config(TrackerConfig(**cfg))
-    with pytest.raises(NotImplementedError, match="item 4"):
-        runtime.kickstart_multi()
-    # slowfit solves sequentially whatever the solver: both use_pallas
-    # settings, exact contacts only
-    for solver in ("kernel", "sequential", "colored"):
-        for pallas in (False, True):
-            runtime._check_config(TrackerConfig(solver=solver,
-                                                use_pallas=pallas),
-                                  slowfit=True)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        runtime._check_config(TrackerConfig(contacts_mode="jacobi"),
-                              slowfit=True)
+    assert callable(runtime.kickstart_multi)
+    for bad in (dict(solver="jacobi"), dict(contacts_mode="gauss")):
+        with pytest.raises(ValueError):
+            runtime._check_config(TrackerConfig(**bad))
 
 
 def test_every_port_module_imports():
@@ -132,7 +124,8 @@ def test_every_port_module_imports():
                  "maths.libm", "ops.correspondence", "physics.row_sweep",
                  "physics.colored", "physics.contacts", "physics.solver",
                  "data.dataset", "utils.viz", "utils.report",
-                 "apps.annotate", "apps.replay_track"):
+                 "apps.annotate", "apps.replay_track",
+                 "apps.synthetic_track", "model.meshes"):
         assert f"{pkg.__name__}.{name}" in names, name
     for name in names:
         importlib.import_module(name)
