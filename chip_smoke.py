@@ -162,6 +162,28 @@ Phases, each printing one line with its elapsed seconds:
      (< 1e-4 m; the jacobi frames' at the contact poses, on the two tracks
      with the most active contact rows, each frame with some); the synthetic-track CLI as two subprocesses on the card
      (--tracks 64 --frames 8, with and without --dynamics-only)
+ 19. the C++ goldens of the JAX suite that the port's tracker reaches,
+     each at its test file's gates: the contact sweep (the 20 sweep poses'
+     reference-layout contact rows against contact_sweep_ref.json's pairs
+     and depths, then 3 sequential joint-and-contact updates from each),
+     the fast-drift golden (T=8, the bench row configuration on the
+     colored solver, 32 frames on the port's renders of 8 fast animbank
+     segments), cold-start acquisition (8 tracks, initializing=50, 8
+     colored CNN frames) and the recorded CNN cadence (CADENCE_CASES:
+     cnntrack_rec and cnntrack_rec2 at T=1, k = 1, 4 and 8, up to 128
+     frames); each case's first GOLDEN_CPU_FRAMES frames re-run on 2
+     tracks on the CPU (< 1e-4 m)
+ 20. the training half of the flywheel: the SGD golden at batch 1 (MSE
+     within 1e-6, the output after the step within 1e-5), the synthetic
+     training set (TRAIN_FRAMES renders) and TRAIN_STEPS SGD steps at
+     batch TRAIN_BATCH from golden_cnn_init.cnnb (the MSE over every
+     frame and over the held-out frames each below 0.9x its start; ms a
+     step, examples/s, device busy and idle and launches a step from the
+     profiler), one batch-64 step on the
+     card against the CPU (SGD_CARD_CPU), the streaming loader on both
+     cadence recordings against load_dataset (bit for bit) and
+     compress_dataset on the card against the CPU (COMPRESS_CARD_CPU), and
+     the train and export CLIs as two subprocesses on the card
 
 Each phase drives its path with the launch counts set to 0 just before it
 and reads them just after.  The line before the last is the kernels' JSON
@@ -356,6 +378,39 @@ P18_ROWS = {
     "cloud_vals[angles-only]": (f"{PORT}/csrc/cloud_rows.cu",
                                 f"{JAXPKG}/ops/cloud_rows.py:34"),
 }
+
+
+# Phase 19: the C++ goldens of the JAX suite, each at its test file's
+# gates.  The recorded CNN cadence (tests/test_cnntrack_golden.py):
+# (recording, reference, frames, per-frame deviation gate, per-frame joint
+# error slack, mean joint error ratio, its slack, mean deviation gate), in
+# m; the first is test_cnn_cadence_recorded_parity (:62-69), the rest
+# _CADENCE_CASES (:86-97).  T=1, colored, DEFAULT_CNNB.
+CADENCE_CASES = [
+    ("cnntrack_rec", "cnntrack_ref", 32, 4.5e-3, 3e-3, 1.0, 1.5e-3, 2e-3),
+    ("cnntrack_rec", "cnntrack_ref_k1", 16, 3.0e-3, 3e-3, 1.15, 1.0e-3,
+     2e-3),
+    ("cnntrack_rec", "cnntrack_ref_k8", 32, 3.5e-3, 3e-3, 1.15, 1.0e-3,
+     2e-3),
+    ("cnntrack_rec2", "cnntrack_ref2_k1", 64, 4.5e-3, 4e-3, 1.45, 1.0e-3,
+     2.5e-3),
+    ("cnntrack_rec2", "cnntrack_ref2_k4", 128, None, 30e-3, 1.30, 2.0e-3,
+     12e-3),
+    ("cnntrack_rec2", "cnntrack_ref2_k8", 128, 14e-3, 8e-3, 1.15, 2.0e-3,
+     5e-3),
+]
+GOLDEN_CPU_FRAMES = 2     # frames of each golden's 2-track CPU re-run
+# Phase 20: training.  The synthetic set (512 animbank frames, the train
+# CLI's ids, not augmented), 300 SGD steps at batch 64 from the golden
+# init; the MSE gate of tests/test_train_meshes.py:37.
+TRAIN_FRAMES, TRAIN_STEPS, TRAIN_BATCH, TRAIN_ALPHA = 512, 300, 64, 0.001
+TRAIN_PROFILE_STEPS = 20  # steps read by the profiler
+SGD_CARD_CPU = 1e-5       # batch-64 step, card against CPU, any parameter
+COMPRESS_CARD_CPU = 1e-5  # compress_dataset, card against CPU
+TRAIN_CLI = ("tests/fixtures/cnntrack_rec.rs", "--synthetic", "64",
+             "--steps", "20", "--batch", "16", "--eval-every", "10",
+             "--init-cnnb", "tests/fixtures/golden_cnn_init.cnnb")
+EXPORT_CLI = ("tests/fixtures/cnntrack_rec.rs", "--max-frames", "8")
 
 
 class PhaseError(RuntimeError):
@@ -3303,18 +3358,638 @@ class Smoke:
             self.results.setdefault(k, {})
         if getattr(self, "cnn", None) is None:
             self.cnn_setup()
-        parts = []
-        for label, fn in (("kernels", self.jacobi_kernels),
-                          ("jacobi frames", self.jacobi_frames),
-                          ("angles-only", self.angles_only),
-                          ("kickstart_multi", self.kickstart),
-                          ("use_pallas=False", self.kernel_nopallas),
-                          ("CLI", self.synthetic_cli)):
+        return self.parts(18, (("kernels", self.jacobi_kernels),
+                               ("jacobi frames", self.jacobi_frames),
+                               ("angles-only", self.angles_only),
+                               ("kickstart_multi", self.kickstart),
+                               ("use_pallas=False", self.kernel_nopallas),
+                               ("CLI", self.synthetic_cli)))
+
+
+    # ---- phase 19: the C++ goldens -----------------------------------------
+    def recording(self, name):
+        """A fixture recording: (its camera, its depth (F, H, W) on the
+        card, its recorded poses (F, 17, 7) as NumPy)."""
+        if not hasattr(self, "_recs"):
+            self._recs = {}
+        if name not in self._recs:
+            from hand_tracking_samples_tpu_torch.data.dataset import (
+                load_dataset)
+            from hand_tracking_samples_tpu_torch.ops.cloud_kernel import (
+                depth_tensor)
+            path = os.path.join(REPO, "tests", "fixtures", name)
+            check(os.path.exists(path + ".rs"), f"{path}.rs is missing")
+            ds = load_dataset(path)
+            self._recs[name] = (ds.info.camera(),
+                                depth_tensor(ds.depth, self.dev), ds.pose)
+        return self._recs[name]
+
+    def cpu_copies(self):
+        """The model and the trained net as CPU copies."""
+        if not hasattr(self, "_cpu"):
+            from hand_tracking_samples_tpu_torch.cnn.model import (
+                from_numpy, to_numpy)
+            from hand_tracking_samples_tpu_torch.model.bake import (
+                from_numpy_model)
+            self._cpu = (from_numpy_model(self.model.np, "cpu"),
+                         from_numpy(to_numpy(self.cnn), "cpu"))
+        return self._cpu
+
+    def golden_frames(self, st, depth, cam, cfg, cnn, run_cnn, model=None):
+        """Frames f = 0.. of depth (F, T, H, W) from st through
+        batched_update (run_cnn(f) its run_cnn): [pose per frame]."""
+        from hand_tracking_samples_tpu_torch.parallel.tracks import (
+            batched_update)
+        hist = []
+        for f in range(len(depth)):
+            st, _ = batched_update(st, model or self.model, cnn, depth[f],
+                                   cam, cfg, self.params, run_cnn=run_cnn(f))
+            hist.append(st.body.pose.clone())
+        return hist
+
+    def cpu_gap(self, label, card, cpu):
+        """The largest position gap between the card's and the CPU's poses
+        (lists of (T, 17, 7)); fails above 1e-4 m."""
+        err = max((a[..., :3].cpu() - b[..., :3]).abs().max().item()
+                  for a, b in zip(card, cpu))
+        check(err < 1e-4, f"{label}: CPU plain reference differs: {err} m")
+        return err
+
+    def cadence(self):
+        """The recorded CNN cadence (tests/test_cnntrack_golden.py): each
+        case of CADENCE_CASES at T=1 on the colored CNN frame, the CNN on
+        frames f % k == 0, at its gates; then both recordings' first
+        GOLDEN_CPU_FRAMES frames as 2 tracks on the CPU, k = 1 and k > 1
+        (cnn_every_k is read only by track_sequences: every k > 1 runs the
+        same first frames)."""
+        torch, np = self.torch, self.np
+        from hand_tracking_samples_tpu_torch.parallel.tracks import (
+            batched_tracker_state)
+        from hand_tracking_samples_tpu_torch.tracker.config import (
+            TrackerConfig)
+        out, first = {}, {}
+        for (rec, refname, F, devgate, jeslack, ratio, meanslack,
+             meandev) in CADENCE_CASES:
+            t0 = time.perf_counter()
+            cam, depth, gt = self.recording(rec)
+            with open(os.path.join(REPO, "tests", "fixtures",
+                                   refname + ".json")) as f:
+                ref = json.load(f)
+            k, F = ref["k"], min(F, ref["n_frames"])
+            refp = np.asarray(ref["cnntrack_poses"], np.float32).reshape(
+                ref["n_frames"], 17, 7)[:F]
+            ref_je = np.asarray(ref["cnntrack_joint_err"])[:F]
+            cfg = TrackerConfig(cnn_every_frame=True, cnn_every_k=k,
+                                solver="colored")
+            hist = self.golden_frames(
+                batched_tracker_state(self.model, 1), depth[:F, None], cam,
+                cfg, self.cnn, lambda f: f % k == 0)
+            mine = torch.stack(hist)[:, 0].cpu().numpy()
+            devs = np.linalg.norm(mine[..., :3] - refp[..., :3],
+                                  axis=-1).mean(-1)
+            jes = np.linalg.norm(mine[..., :3] - gt[:F, :, :3],
+                                 axis=-1).mean(-1)
+            bad = [f for f in range(F)
+                   if (devgate is not None and devs[f] >= devgate)
+                   or jes[f] >= ref_je[f] + jeslack]
+            rec_ = dict(k=k, frames=F, seconds=time.perf_counter() - t0,
+                        dev_max_mm=float(devs.max() * 1e3),
+                        dev_mean_mm=float(devs.mean() * 1e3),
+                        je_mean_mm=float(jes.mean() * 1e3),
+                        ref_je_mean_mm=float(ref_je.mean() * 1e3),
+                        je_minus_ref_max_mm=float((jes - ref_je).max()
+                                                  * 1e3))
+            out[refname] = rec_
+            check(not bad, f"{refname}: frames {bad[:6]}: deviation "
+                  f"{np.round(devs[bad[:6]] * 1e3, 2)} mm, joint error "
+                  f"{np.round(jes[bad[:6]] * 1e3, 2)} against the "
+                  f"reference's {np.round(ref_je[bad[:6]] * 1e3, 2)} mm")
+            check(jes.mean() < ref_je.mean() * ratio + meanslack,
+                  f"{refname}: mean joint error {rec_['je_mean_mm']:.2f} "
+                  f"mm, the reference's {rec_['ref_je_mean_mm']:.2f}")
+            check(devs.mean() < meandev, f"{refname}: mean deviation "
+                  f"{rec_['dev_mean_mm']:.2f} mm")
+            first[refname] = (rec, k, hist[:GOLDEN_CPU_FRAMES])
+        recs = ("cnntrack_rec", "cnntrack_rec2")
+        cam = self.recording(recs[0])[0]
+        check(all(self.recording(r)[0] == cam for r in recs),
+              "the cadence recordings' cameras differ")
+        d = torch.stack([self.recording(r)[1][:GOLDEN_CPU_FRAMES]
+                         for r in recs], 1).cpu()
+        mc, cc = self.cpu_copies()
+        gaps = {}
+        for kk in (1, 4):
+            cfg = TrackerConfig(cnn_every_frame=True, cnn_every_k=kk,
+                                solver="colored")
+            cpu = self.golden_frames(batched_tracker_state(mc, 2), d, cam,
+                                     cfg, cc, lambda f: f % kk == 0,
+                                     model=mc)
+            for refname, (rec, k, card) in first.items():
+                if (k == 1) == (kk == 1):
+                    t = recs.index(rec)
+                    gaps[refname] = self.cpu_gap(refname, card,
+                                                 [c[t:t + 1] for c in cpu])
+        self.p19["cadence"] = dict(cases=out, cpu_gap_m=gaps)
+        return "; ".join(
+            f"{n} (k={v['k']}, {v['frames']} frames, {v['seconds']:.1f} s): "
+            f"deviation max {v['dev_max_mm']:.2f} mean "
+            f"{v['dev_mean_mm']:.2f} mm, joint error {v['je_mean_mm']:.2f}"
+            f" (reference {v['ref_je_mean_mm']:.2f}) mm, CPU "
+            f"{gaps[n]:.1e} m" for n, v in out.items())
+
+    def bank_renders(self, fids):
+        """The port's fake_depth renders of bank[fids] (F, T) -> (F, T, H,
+        W) on the card."""
+        from hand_tracking_samples_tpu_torch.data.synth import fake_depth
+        F, T = fids.shape
+        d = fake_depth(self.torch.tensor(self.bank[fids.reshape(-1)],
+                                         device=self.dev),
+                       self.model, self.cam, chunk=8)
+        return d.reshape(F, T, *d.shape[1:])
+
+    def coldstart(self):
+        """Cold-start acquisition (tests/test_coldstart_gate.py:32-58): 8
+        tracks from the rest pose with initializing=50, 8 colored CNN
+        frames on renders of 8 animbank segments."""
+        torch, np = self.torch, self.np
+        from hand_tracking_samples_tpu_torch.parallel.tracks import (
+            batched_tracker_state)
+        from hand_tracking_samples_tpu_torch.tracker.config import (
+            TrackerConfig)
+        T, F = 8, 8
+        starts = (np.arange(0, 64, 8) * 211) % (len(self.bank) - 64)
+        fids = starts[None, :] + np.arange(F)[:, None]
+        depth = self.bank_renders(fids)
+        cfg = TrackerConfig(cnn_every_frame=True, solver="colored")
+
+        def start(model, n):
+            st = batched_tracker_state(model, n)
+            return st._replace(initializing=torch.full(
+                (n,), 50, dtype=torch.int32, device=model.device))
+        hist = self.golden_frames(start(self.model, T), depth, self.cam, cfg,
+                                  self.cnn, lambda f: None)
+        e = np.stack([np.linalg.norm(h.cpu().numpy()[..., :3]
+                                     - self.bank[fids[f]][..., :3],
+                                     axis=-1).mean(-1)
+                      for f, h in enumerate(hist)])
+        means = e.mean(1)
+        fin = e[-1]
+        rec = dict(mean_mm=(means * 1e3).tolist(),
+                   final_mm=(fin * 1e3).tolist(),
+                   median_final_mm=float(np.median(fin) * 1e3),
+                   converged=int((fin < 0.008).sum()))
+        self.p19["coldstart"] = rec
+        check(means[0] < 0.045, f"cold start: frame-0 acquisition "
+              f"{means[0] * 1e3:.1f} mm")
+        check(means[-1] < 0.0075, f"cold start: frame-7 mean "
+              f"{means[-1] * 1e3:.1f} mm")
+        check(np.median(fin) < 0.003, f"cold start: frame-7 median "
+              f"{rec['median_final_mm']:.1f} mm")
+        check(rec["converged"] >= 5, f"cold start: only {rec['converged']}"
+              f"/8 starts converged: {np.round(fin * 1e3, 1)}")
+        check(means[-1] < 0.4 * means[0], "cold start: no progress")
+        idx = [0, 4]
+        mc, cc = self.cpu_copies()
+        cpu = self.golden_frames(start(mc, len(idx)),
+                                 depth[:GOLDEN_CPU_FRAMES, idx].cpu(),
+                                 self.cam, cfg, cc, lambda f: None, model=mc)
+        rec["cpu_gap_m"] = self.cpu_gap("cold start", [h[idx] for h in
+                                                       hist], cpu)
+        return (f"mean per frame {np.round(means * 1e3, 2)} mm, finals "
+                f"{np.round(fin * 1e3, 2)} mm ({rec['converged']}/8 under "
+                f"8 mm), CPU {rec['cpu_gap_m']:.1e} m")
+
+    def fastdrift(self):
+        """The fast-drift golden (tests/test_bench_parity.py:84-123): the
+        bench row configuration on the colored solver, T=8 from the poses
+        of 8 fast animbank segments, the fixture's frame count, the final
+        per-track joint error against fastdrift_ref.json's."""
+        torch, np = self.torch, self.np
+        from hand_tracking_samples_tpu_torch.parallel.tracks import (
+            batched_tracker_state)
+        from hand_tracking_samples_tpu_torch.tracker.config import (
+            TrackerConfig)
+        with open(os.path.join(REPO, "tests", "fixtures",
+                               "fastdrift_ref.json")) as f:
+            fdref = json.load(f)
+        T, F = 8, fdref["n_frames"]
+        cfg = TrackerConfig(point_budget=2048, cnn_every_frame=False,
+                            cloud_rows_per_body=128, solver="colored")
+        starts = (np.arange(T) * 37) % (len(self.bank) - F)
+        fids = starts[None, :] + np.arange(F)[:, None]
+        depth = self.bank_renders(fids)
+
+        def start(model, idx):
+            st = batched_tracker_state(model, len(idx))
+            return st._replace(body=st.body._replace(pose=torch.tensor(
+                self.bank[fids[0][idx]], device=model.device)))
+        hist = self.golden_frames(start(self.model, list(range(T))), depth,
+                                  self.cam, cfg, None, lambda f: None)
+        fin = np.linalg.norm(hist[-1].cpu().numpy()[..., :3]
+                             - self.bank[fids[-1]][..., :3],
+                             axis=-1).mean(-1)
+        ref = np.asarray(fdref["final_err_per_track"])[:T]
+        ratio = fin.mean() / ref.mean()
+        rec = dict(final_mm=(fin * 1e3).tolist(),
+                   reference_mm=(ref * 1e3).tolist(), ratio=float(ratio))
+        self.p19["fastdrift"] = rec
+        for t in range(T):
+            if ref[t] < 0.02:
+                check(abs(fin[t] - ref[t]) < max(0.004, 0.5 * ref[t]),
+                      f"fast drift track {t}: {fin[t] * 1e3:.1f} mm, the "
+                      f"reference's {ref[t] * 1e3:.1f}")
+            else:
+                check(fin[t] < 1.6 * ref[t] + 0.01, f"fast drift track {t}:"
+                      f" {fin[t] * 1e3:.1f} mm, the reference's "
+                      f"{ref[t] * 1e3:.1f}")
+        check(0.6 < ratio < 1.4, f"fast drift: aggregate ratio {ratio:.2f}")
+        idx = [0, 3]
+        mc, _ = self.cpu_copies()
+        cpu = self.golden_frames(start(mc, idx),
+                                 depth[:GOLDEN_CPU_FRAMES, idx].cpu(),
+                                 self.cam, cfg, None, lambda f: None,
+                                 model=mc)
+        rec["cpu_gap_m"] = self.cpu_gap("fast drift",
+                                        [h[idx] for h in hist], cpu)
+        return (f"finals {np.round(fin * 1e3, 2)} mm against "
+                f"{np.round(ref * 1e3, 2)}, ratio {ratio:.3f}, CPU "
+                f"{rec['cpu_gap_m']:.1e} m")
+
+    def contact_sweep(self):
+        """The contact sweep (tests/test_contact_sweep.py): the reference-
+        layout contact rows of the 20 sweep poses (one batch) against the
+        reference's pairs and depths, then 3 joint-and-contact updates from
+        each pose on the sequential solver with no cloud."""
+        torch, np = self.torch, self.np
+        from hand_tracking_samples_tpu_torch.model.hand import (
+            fit_point_cloud)
+        from hand_tracking_samples_tpu_torch.physics.contacts import (
+            contact_rows)
+        from hand_tracking_samples_tpu_torch.physics.solver import BodyState
+        with open(os.path.join(REPO, "tests", "fixtures",
+                               "contact_sweep_ref.json")) as f:
+            sweep = json.load(f)["frames"]
+        fr = [e["frame"] for e in sweep]
+
+        def state(model, idx):
+            z = torch.zeros((len(idx), 17, 3), device=model.device)
+            return BodyState(torch.tensor(self.bank[[fr[i] for i in idx]],
+                                          device=model.device), z, z)
+
+        def solve(st, model, n):
+            T, dev = st.pose.shape[0], st.pose.device
+            hist = []
+            for _ in range(n):
+                st = fit_point_cloud(st, model, self.params,
+                                     torch.zeros((T, 0, 3), device=dev),
+                                     torch.zeros((T, 0), dtype=torch.bool,
+                                                 device=dev), contacts=True)
+                hist.append(st.pose.clone())
+            return hist
+        every = list(range(len(fr)))
+        rows = contact_rows(state(self.model, every), self.model,
+                            self.params)
+        act = (rows.active & (rows.friction_master == 0)).cpu().numpy()
+        b0, b1 = rows.b0.cpu().numpy(), rows.b1.cpu().numpy()
+        td = rows.targetdist.cpu().numpy()
+        total = missing = extra = 0
+        depth_err, per_frame = [], []
+        for t, entry in enumerate(sweep):
+            mine = {}
+            for a, b, d in zip(b0[t][act[t]], b1[t][act[t]], td[t][act[t]]):
+                key = (int(a), int(b))
+                mine[key] = min(mine.get(key, np.inf), float(d))
+            ref = {(int(p[0]), int(p[1])): float(p[2])
+                   for p in entry["pairs"]}
+            total += len(ref)
+            m, x = len(set(ref) - set(mine)), len(set(mine) - set(ref))
+            missing, extra = missing + m, extra + x
+            per_frame.append((m, x))
+            depth_err += [abs(ref[k] - mine[k]) for k in set(ref) & set(mine)]
+            check(m <= 3 and x <= 9, f"contact sweep frame {entry['frame']}:"
+                  f" {m} pairs missing, {x} extra")
+        depth_err = np.asarray(depth_err)
+        check(missing <= total // 20, f"contact sweep: {missing} of {total} "
+              f"pairs missing")
+        check(depth_err.mean() < 1.6e-3 and depth_err.max() < 6e-3,
+              f"contact sweep: depth error mean {depth_err.mean()} max "
+              f"{depth_err.max()} m")
+        hist = solve(state(self.model, every), self.model, 3)
+        ref3 = np.asarray([e["pose3"] for e in sweep], np.float32)
+        dev = np.linalg.norm(hist[-1].cpu().numpy()[..., :3]
+                             - ref3[..., :3], axis=-1)
+        rec = dict(pairs=total, missing=missing, extra=extra,
+                   depth_err_mean_mm=float(depth_err.mean() * 1e3),
+                   depth_err_max_mm=float(depth_err.max() * 1e3),
+                   solve_mean_mm=float(dev.mean(1).mean() * 1e3),
+                   solve_max_mm=float(dev.max() * 1e3))
+        self.p19["contact_sweep"] = rec
+        check(dev.mean(1).mean() < 1.0e-3, f"contact sweep solve: mean "
+              f"{rec['solve_mean_mm']:.3f} mm")
+        check(dev.max() < 9.0e-3, f"contact sweep solve: max "
+              f"{rec['solve_max_mm']:.3f} mm")
+        idx = [0, 1]
+        mc, _ = self.cpu_copies()
+        rec["cpu_gap_m"] = self.cpu_gap(
+            "contact sweep", [h[idx] for h in hist[:GOLDEN_CPU_FRAMES]],
+            solve(state(mc, idx), mc, GOLDEN_CPU_FRAMES))
+        return (f"{total} pairs: {missing} missing, {extra} extra, depth "
+                f"error mean {rec['depth_err_mean_mm']:.3f} max "
+                f"{rec['depth_err_max_mm']:.3f} mm; solve mean "
+                f"{rec['solve_mean_mm']:.3f} max {rec['solve_max_mm']:.3f} "
+                f"mm; CPU {rec['cpu_gap_m']:.1e} m")
+
+    def parts(self, n, steps):
+        """Run (label, fn) steps, printing each one's seconds."""
+        out = []
+        for label, fn in steps:
             t0 = time.perf_counter()
             msg = fn()
-            parts.append(f"[{label}, {time.perf_counter() - t0:.1f} s]")
-            print(f"  phase 18 {parts[-1]} {msg}", flush=True)
-        return " ".join(parts)
+            out.append(f"[{label}, {time.perf_counter() - t0:.1f} s]")
+            print(f"  phase {n} {out[-1]} {msg}", flush=True)
+        return " ".join(out)
+
+    def phase19(self):
+        """Phase 19: the four C++ goldens of the JAX suite that need only
+        the port's tracker: the recorded CNN cadence, cold-start
+        acquisition, the fast-drift golden and the contact sweep."""
+        self.p19 = {}
+        if getattr(self, "cnn", None) is None:
+            self.cnn_setup()
+        return self.parts(19, (("contact sweep", self.contact_sweep),
+                               ("fast drift", self.fastdrift),
+                               ("cold start", self.coldstart),
+                               ("CNN cadence", self.cadence)))
+
+    # ---- phase 20: training and the flywheel -------------------------------
+    def golden_target(self, g):
+        np = self.np
+        t = np.zeros(2304, np.float32)
+        for i in range(8):
+            t[i * 256 + 37] = 1.0
+        for i in range(16):
+            t[2048 + i * 16 + 5] = 1.0
+        return self.torch.tensor(t, device=self.dev)[None]
+
+    def sgd_golden(self):
+        """The SGD step golden at batch 1 on the card
+        (tests/test_cnn.py:25-38): from golden_cnn_init.cnnb, the step's
+        MSE within 1e-6 and the output after it within 1e-5."""
+        torch, np = self.torch, self.np
+        from hand_tracking_samples_tpu_torch.cnn.model import (
+            forward, load_cnnb, sgd_step)
+        with open(os.path.join(REPO, "tests", "fixtures", "golden.json")) as f:
+            g = json.load(f)
+        p = load_cnnb(self.init_cnnb, self.dev)
+        x = torch.tensor(np.asarray(g["cnn_input"], np.float32),
+                         device=self.dev).reshape(1, 64, 64)
+        p2, mse = sgd_step(p, x, self.golden_target(g), 0.001)
+        e_mse = abs(mse.item() - g["cnn_train_mse"][0])
+        e_out = (forward(p2, x)[0].cpu() - torch.tensor(
+            g["cnn_output_after_step"])).abs().max().item()
+        self.p20["sgd_golden"] = dict(mse_err=e_mse, output_err=e_out)
+        check(e_mse < 1e-6, f"SGD golden: MSE off by {e_mse}")
+        check(e_out < 1e-5, f"SGD golden: output after the step off by "
+              f"{e_out}")
+        return f"MSE off by {e_mse:.2e}, output after the step {e_out:.2e}"
+
+    def profile_steps(self, fn, steps):
+        """(wall ms, device busy ms, launches) a step from torch.profiler
+        over fn(), which runs `steps` steps, read on the second of two
+        profiled runs (the first starts the profiler's tracing; a
+        measurement only)."""
+        torch = self.torch
+        try:
+            from torch.profiler import ProfilerActivity, profile
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as p:
+                    fn()
+                    torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3 / steps
+            dev = [e for e in p.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+            busy = sum(getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0))
+                       for e in dev) / 1e3 / steps
+            check(busy > 0, "the profiler recorded no device time")
+            return dict(profiled_wall_ms=wall, device_busy_ms=busy,
+                        device_idle_ms=wall - busy,
+                        launches=sum(e.count for e in dev) / steps)
+        except Exception as e:  # measurement only
+            return dict(profile_error=f"{type(e).__name__}: {e}"[:200])
+
+    def train_run(self):
+        """synthetic_training_set (TRAIN_FRAMES animbank frames, the train
+        CLI's ids) and train_epoch (TRAIN_STEPS steps at TRAIN_BATCH from
+        the golden init) on the card; evaluate's MSE over every frame and
+        over the held-out (odd) frames must each fall below 0.9x its
+        start (tests/test_train_meshes.py:37); the step's time and its
+        device busy time and launches from the profiler."""
+        torch, np = self.torch, self.np
+        from hand_tracking_samples_tpu_torch.cnn.model import load_cnnb
+        from hand_tracking_samples_tpu_torch.cnn.train import (
+            evaluate, synthetic_training_set, train_epoch)
+        ids = (np.arange(TRAIN_FRAMES) * 613) % len(self.bank)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        data = synthetic_training_set(self.model, self.bank, ids,
+                                      device=self.dev)
+        torch.cuda.synchronize()
+        set_s = time.perf_counter() - t0
+        check(data.inputs.shape == (TRAIN_FRAMES, 64, 64)
+              and data.labels.shape == (TRAIN_FRAMES, 2304)
+              and bool(torch.isfinite(data.inputs).all())
+              and bool(torch.isfinite(data.labels).all()),
+              "synthetic_training_set: bad shapes or values")
+        fg = (data.inputs > 0.3).float().mean().item()
+        check(fg > 0.03, f"synthetic crops hold no hand ({fg})")
+        self.train_data = data
+        p0 = load_cnnb(self.init_cnnb, self.dev)
+        before = evaluate(p0, data, split="all")
+        held_before = evaluate(p0, data)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, train_mse = train_epoch(p0, data, np.random.RandomState(0),
+                                   TRAIN_STEPS, TRAIN_BATCH, TRAIN_ALPHA)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        after = evaluate(p, data, split="all")
+        held_after = evaluate(p, data)
+        rec = dict(set_seconds=set_s, frames=TRAIN_FRAMES,
+                   steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                   mse_before=before, mse_after=after,
+                   epoch_mean_mse=train_mse, held_out_mse_before=held_before,
+                   held_out_mse_after=held_after, seconds=run_s,
+                   ms_per_step=run_s * 1e3 / TRAIN_STEPS,
+                   examples_per_s=TRAIN_STEPS * TRAIN_BATCH / run_s,
+                   card=getattr(self, "smi", None))
+        torch.cuda.synchronize()       # steady state: the net is warm
+        t0 = time.perf_counter()
+        train_epoch(p, data, np.random.RandomState(1), TRAIN_STEPS,
+                    TRAIN_BATCH, TRAIN_ALPHA)
+        torch.cuda.synchronize()
+        rec["steady_ms_per_step"] = ((time.perf_counter() - t0) * 1e3
+                                     / TRAIN_STEPS)
+        rec["steady_examples_per_s"] = (TRAIN_BATCH * 1e3
+                                        / rec["steady_ms_per_step"])
+        rec.update(self.profile_steps(
+            lambda: train_epoch(p, data, np.random.RandomState(1),
+                                TRAIN_PROFILE_STEPS, TRAIN_BATCH,
+                                TRAIN_ALPHA), TRAIN_PROFILE_STEPS))
+        if "device_busy_ms" in rec:    # idle against the unprofiled step
+            rec["device_idle_ms"] = (rec["steady_ms_per_step"]
+                                     - rec["device_busy_ms"])
+        self.p20["train"] = rec
+        check(np.isfinite(after) and after < 0.9 * before
+              and held_after < 0.9 * held_before,
+              f"training: MSE {before:.6f} -> {after:.6f}, held-out "
+              f"{held_before:.6f} -> {held_after:.6f}")
+        prof = (f"busy {rec['device_busy_ms']:.3f} ms, idle "
+                f"{rec['device_idle_ms']:.3f} ms, {rec['launches']:.0f} "
+                f"launches a step" if "device_busy_ms" in rec
+                else rec["profile_error"])
+        return (f"{TRAIN_FRAMES} frames in {set_s:.1f} s; MSE (all "
+                f"frames) {before:.6f} -> {after:.6f}, held-out (odd) "
+                f"{held_before:.6f} "
+                f"-> {held_after:.6f}; {TRAIN_STEPS} steps at batch "
+                f"{TRAIN_BATCH}: {rec['ms_per_step']:.3f} ms a step, "
+                f"{rec['examples_per_s']:.0f} examples/s (warm: "
+                f"{rec['steady_ms_per_step']:.3f} ms, "
+                f"{rec['steady_examples_per_s']:.0f} examples/s); {prof} "
+                f"({rec['card']})")
+
+    def sgd_card_cpu(self):
+        """One batch-64 sgd_step on the card and on the CPU from the same
+        weights (the golden init) and inputs (the synthetic set's first
+        64 frames): the largest parameter gap <= SGD_CARD_CPU."""
+        from hand_tracking_samples_tpu_torch.cnn.model import (
+            from_numpy, load_cnnb, sgd_step, to_numpy)
+        data = self.train_data
+        p = load_cnnb(self.init_cnnb, self.dev)
+        pc = from_numpy(to_numpy(p), "cpu")
+        x, t = data.inputs[:TRAIN_BATCH], data.labels[:TRAIN_BATCH]
+        a, ma = sgd_step(p, x, t, TRAIN_ALPHA)
+        b, mb = sgd_step(pc, x.cpu(), t.cpu(), TRAIN_ALPHA)
+        gap = max((a[k][kk].cpu() - b[k][kk]).abs().max().item()
+                  for k in a for kk in a[k])
+        step = max((a[k][kk] - p[k][kk]).abs().max().item()
+                   for k in a for kk in a[k])
+        self.p20["sgd_card_cpu"] = dict(param_gap=gap, largest_update=step,
+                                        mse_gap=abs(ma.item() - mb.item()))
+        check(gap <= SGD_CARD_CPU, f"batch-{TRAIN_BATCH} step: card and CPU "
+              f"parameters {gap} apart")
+        return (f"largest parameter gap {gap:.2e} (largest update "
+                f"{step:.2e}), MSE gap {abs(ma.item() - mb.item()):.2e}")
+
+    def loader_compress(self):
+        """StreamingLoader on cnntrack_rec and cnntrack_rec2 equal to
+        load_dataset (depth and ids bit for bit, poses within 1e-6);
+        compress_dataset of each on the card against the CPU (its first 32
+        frames) within COMPRESS_CARD_CPU."""
+        np = self.np
+        from hand_tracking_samples_tpu_torch.cnn.train import (
+            compress_dataset)
+        from hand_tracking_samples_tpu_torch.data.dataset import load_dataset
+        from hand_tracking_samples_tpu_torch.native import StreamingLoader
+        rec, msgs = {}, []
+        for name in ("cnntrack_rec", "cnntrack_rec2"):
+            path = os.path.join(REPO, "tests", "fixtures", name)
+            ds = load_dataset(path)
+            t0 = time.perf_counter()
+            with StreamingLoader([path], batch=64) as sl:
+                total = sl.total_frames
+                got = list(sl)
+            load_s = time.perf_counter() - t0
+            depth = np.concatenate([b[0] for b in got])
+            pose = np.concatenate([b[1] for b in got])
+            ids = np.concatenate([b[2] for b in got])
+            check(total == len(ds.depth) and np.array_equal(depth, ds.depth)
+                  and np.array_equal(ids, np.arange(total)),
+                  f"StreamingLoader: {name} differs from load_dataset")
+            pose_gap = float(np.abs(pose - ds.pose).max())
+            check(pose_gap <= 1e-6, f"StreamingLoader: {name} poses "
+                  f"{pose_gap} off")
+            cam = ds.info.camera()
+            card = compress_dataset(depth, cam, pose, device=self.dev)
+            cpu = compress_dataset(depth[:32], cam, pose[:32], device="cpu")
+            gaps = {f: (getattr(card, f)[:32].cpu() - getattr(cpu, f))
+                    .abs().max().item() for f in card._fields}
+            rec[name] = dict(frames=total, loader_seconds=load_s,
+                             pose_gap=pose_gap, compress_gaps=gaps)
+            check(max(gaps.values()) <= COMPRESS_CARD_CPU,
+                  f"compress_dataset {name}: card against CPU {gaps}")
+            msgs.append(f"{name}: {total} frames in {load_s:.2f} s, poses "
+                        f"{pose_gap:.1e}; compress card/CPU " + ", ".join(
+                            f"{k} {v:.1e}" for k, v in gaps.items()))
+        self.p20["loader"] = rec
+        return "; ".join(msgs)
+
+    def flywheel_clis(self):
+        """apps.train_cnn (TRAIN_CLI) and apps.export_dataset (EXPORT_CLI)
+        as two subprocesses on the card, run together: both exit 0, the
+        .cnnb loads and is finite, the label files hold a line a frame and
+        the PNGs are written."""
+        import tempfile
+        torch, np = self.torch, self.np
+        from hand_tracking_samples_tpu_torch.cnn.model import load_cnnb
+        with tempfile.TemporaryDirectory() as tmp:
+            cnnb = os.path.join(tmp, "trained.cnnb")
+            exp = os.path.join(tmp, "export")
+            t0 = time.perf_counter()
+            procs = {
+                "train_cnn": subprocess.Popen(
+                    [sys.executable, "-m", f"{PORT}.apps.train_cnn",
+                     *TRAIN_CLI, "--out", cnnb], cwd=REPO,
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True),
+                "export_dataset": subprocess.Popen(
+                    [sys.executable, "-m", f"{PORT}.apps.export_dataset",
+                     *EXPORT_CLI, "--out", exp], cwd=REPO,
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True)}
+            out, text = {}, {}
+            for label, proc in procs.items():
+                text[label], stderr = proc.communicate(timeout=600)
+                check(proc.returncode == 0, f"{label}: exit "
+                      f"{proc.returncode}: {stderr[-400:]}")
+                out[label] = dict(seconds=time.perf_counter() - t0,
+                                  last_line=text[label].strip()
+                                  .splitlines()[-1])
+            mses = [float(ln.split("train mse")[1].split()[0])
+                    for ln in text["train_cnn"].splitlines()
+                    if ln.startswith("step")]
+            check(len(mses) == 2 and all(np.isfinite(mses)),
+                  f"train_cnn: {text['train_cnn'][-400:]}")
+            out["train_cnn"]["train_mse"] = mses
+            p = load_cnnb(cnnb, self.dev)
+            check(all(bool(torch.isfinite(v).all()) for d in p.values()
+                      for v in d.values()), "train_cnn: non-finite .cnnb")
+            n = int(EXPORT_CLI[EXPORT_CLI.index("--max-frames") + 1])
+            lines = {f: len(open(os.path.join(exp, f)).read().splitlines())
+                     for f in ("labels_full.txt", "labels_seg.txt")}
+            pngs = sorted(f for f in os.listdir(exp) if f.endswith(".png"))
+            check(all(v == n for v in lines.values()) and len(pngs) >= 5 * n,
+                  f"export_dataset: {lines} label lines, {len(pngs)} PNGs")
+            out["export_dataset"].update(label_lines=lines, pngs=len(pngs))
+        self.p20["clis"] = out
+        return "; ".join(f"{k} {v['seconds']:.1f} s: {v['last_line']}"
+                         for k, v in out.items())
+
+    def phase20(self):
+        """Phase 20: the training half of the data flywheel on the card."""
+        self.p20 = {}
+        self.init_cnnb = os.path.join(REPO, "tests", "fixtures",
+                                      "golden_cnn_init.cnnb")
+        check(os.path.exists(self.init_cnnb), f"{self.init_cnnb} is missing")
+        return self.parts(20, (("SGD golden", self.sgd_golden),
+                               ("training run", self.train_run),
+                               ("batch 64, card against CPU",
+                                self.sgd_card_cpu),
+                               ("loader and compress", self.loader_compress),
+                               ("CLIs", self.flywheel_clis)))
 
 
 def main(argv=None) -> int:
@@ -3395,6 +4070,7 @@ def main(argv=None) -> int:
         return state["s"].compare()
     phase(3, "kernels vs plain (T=4)", setup_and_compare)
     s = state["s"]
+    s.smi = smi["line"]
     phase(4, "slice", s.slice_run)
     phase(5, "timing and kernels vs plain (T=512)", s.timing)
 
@@ -3416,6 +4092,8 @@ def main(argv=None) -> int:
     phase(17, "slowfit", s.slowfit_phase)
     phase(18, "jacobi, angles-only, kickstart_multi, use_pallas=False, CLI",
           s.phase18)
+    phase(19, "C++ goldens", s.phase19)
+    phase(20, "training and the flywheel", s.phase20)
     s.results["row_sweep[colored]"]["launches"] = \
         s.ref_speed["colored"]["launches"]["row_sweep"]
     record["total_s"] = time.perf_counter() - t_all
@@ -3461,7 +4139,7 @@ def main(argv=None) -> int:
                            slowfit=s.slowfit_stats,
                            slowfit_speed=s.slowfit_speed,
                            slowfit_shapes=s.slowfit_shapes,
-                           phase18=s.p18),
+                           phase18=s.p18, phase19=s.p19, phase20=s.p20),
                       f, indent=1, default=str)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """The pose-initialiser CNN (PoseInitializerCNN, include/handtrack.h:
-103-130): forward pass and the .cnnb weight reader, the port's counterpart
-of hand_tracking_samples_tpu.cnn.model.
+103-130): forward pass, SGD step and .cnnb weight I/O, the port's
+counterpart of hand_tracking_samples_tpu.cnn.model.
 
     64x64x1 -> conv5x5(16) -> tanh -> maxpool -> maxpool
             -> conv4x4(16->64) -> tanh -> maxpool
@@ -8,10 +8,16 @@ of hand_tracking_samples_tpu.cnn.model.
             -> chunked softmax (8 chunks of 256, 16 chunks of 16)
 
 Parameters are a dict of the JAX package's layout (conv weights HWIO, fc
-weights (in, out)), so weights carry across in either direction.  The
-convolutions and matrix products are PyTorch's (the JAX package leaves them
-to XLA, outside any Pallas kernel); TF32 stays off (device.py), so they run
-in full float32.
+weights (in, out)), so weights carry across in either direction
+(`from_numpy`, `to_numpy`).  The convolutions and matrix products are
+PyTorch's (the JAX package leaves them to XLA, outside any Pallas kernel),
+their gradients autograd's; TF32 stays off (device.py), so they run in full
+float32.
+
+The reference trains one example per step with SGD on the loss
+0.5*sum((softmax(z) - t)^2): its backward injects e = y - t at the output
+and runs it through the softmax VJP (third_party/cnn.h:558-580), which is
+exactly the gradient of that loss.  Here the step is over a batch.
 """
 from __future__ import annotations
 
@@ -30,6 +36,26 @@ _LAYOUT = [
     ("fc1", (2304, 2048)),
     ("fc2", (2048, OUT)),
 ]
+
+
+def init_params(generator: torch.Generator, device=None) -> dict:
+    """Xavier-uniform with the reference's fans (cnn.h:280-285, 446-450),
+    zero biases; the draws are the generator's (a CPU generator, so the
+    weights do not depend on the device), not std::default_random_engine
+    or JAX's."""
+    def xavier(shape, fan_in, fan_out):
+        r = float(np.sqrt(6.0 / (fan_in + fan_out)))
+        return torch.rand(shape, generator=generator) * (2 * r) - r
+    params = {
+        "conv1": {"w": xavier((5, 5, 1, 16), 5 * 5 * 1, 5 * 5 * 16),
+                  "b": torch.zeros(16)},
+        "conv2": {"w": xavier((4, 4, 16, 64), 4 * 4 * 16, 4 * 4 * 64),
+                  "b": torch.zeros(64)},
+        "fc1": {"w": xavier((2304, 2048), 2304, 2048),
+                "b": torch.zeros(2048)},
+        "fc2": {"w": xavier((2048, OUT), 2048, OUT), "b": torch.zeros(OUT)},
+    }
+    return from_numpy(to_numpy(params), device)
 
 
 def load_cnnb(path, device=None) -> dict:
@@ -70,6 +96,24 @@ def from_numpy(params: dict, device=None) -> dict:
                 for kk, vv in v.items()} for k, v in params.items()}
 
 
+def to_numpy(params: dict) -> dict:
+    """The port's parameters -> the JAX package's layout as NumPy arrays."""
+    return {k: {kk: vv.detach().cpu().numpy().astype(np.float32)
+                for kk, vv in v.items()} for k, v in params.items()}
+
+
+def save_cnnb(params: dict, path):
+    """The reference's .cnnb layout (load_cnnb's inverse)."""
+    out = []
+    for name, dims in _LAYOUT:
+        w = params[name]["w"].detach().cpu().numpy().astype(np.float32)
+        b = params[name]["b"].detach().cpu().numpy().astype(np.float32)
+        if len(dims) == 4:
+            w = np.transpose(w, (3, 2, 0, 1))    # HWIO -> (zout, zin, ky, kx)
+        out += [w.reshape(-1), b.reshape(-1)]
+    np.concatenate(out).tofile(path)
+
+
 def _maxpool2(x):
     """2x2 max pool, NCHW."""
     return F.max_pool2d(x, 2, 2)
@@ -101,3 +145,28 @@ def forward(params, x):
     h = torch.tanh(h @ params["fc1"]["w"] + params["fc1"]["b"])
     z = h @ params["fc2"]["w"] + params["fc2"]["b"]
     return chunked_softmax(z)
+
+
+def loss_fn(params, x, target):
+    """0.5 * sum (y - t)^2 over the batch, the objective whose gradient
+    CNN::Train descends (cnn.h:566-575).  Returns (loss, y)."""
+    y = forward(params, x)
+    e = y - target
+    return 0.5 * (e * e).sum(), y
+
+
+def sgd_step(params, x, target, alpha: float):
+    """One SGD step over a batch: p - alpha * dloss/dp.  With batch 1 it is
+    CNN::Train's step; returns (new params, the mean square error)."""
+    leaves = [(k, kk) for k in params for kk in params[k]]
+    req = {k: {kk: params[k][kk].detach().requires_grad_(True)
+               for kk in params[k]} for k in params}
+    loss, y = loss_fn(req, x, target)
+    grads = torch.autograd.grad(loss, [req[k][kk] for k, kk in leaves])
+    new = {k: {} for k in params}
+    with torch.no_grad():
+        for (k, kk), g in zip(leaves, grads):
+            new[k][kk] = params[k][kk] - alpha * g
+        e = y.detach() - target
+        mse = (e * e).mean(-1).mean()
+    return new, mse

@@ -1,7 +1,8 @@
 """Depth-image operations (include/misc_image.h), the port's counterpart of
 hand_tracking_samples_tpu.imaging.image_ops: the cloud functions of the
-tracking frame and what the segmentation reads.  Images carry the tracks
-first: (T, H, W).  Depth enters as an int16 tensor holding the u16 raster
+tracking frame, what the segmentation reads, and the image pyramid,
+resampling, mesh and clip operations of misc_image.h.  Images carry the
+tracks first: (T, H, W).  Depth enters as an int16 tensor holding the u16 raster
 bit for bit (ops.cloud_kernel.depth_tensor); `depth_u16` widens it to int32
 values 0..65535, the form the integer image operations run on."""
 from __future__ import annotations
@@ -15,7 +16,9 @@ from ..ops.cloud_kernel import (cloud_from_depth_planes, depth_tensor,
                                 planes_points)
 
 __all__ = ["cloud_from_depth", "cloud_from_depth_planes", "depth_tensor",
-           "depth_u16", "downsample_min", "distance_transform", "threshold",
+           "depth_u16", "downsample_min", "downsample_max", "downsample_avg",
+           "downsample_fst", "upsample", "sample", "depth_mesh",
+           "image_clip", "distance_transform", "threshold",
            "gather_pixels_u16", "sample_d", "point_cloud",
            "plane_split_masks", "mirror_points", "mirror_plane_split",
            "voxel_buckets", "voxel_subsample", "compact_points",
@@ -42,6 +45,128 @@ def downsample_min(img):
     (T, H/2, W/2)."""
     T, h, w = img.shape
     return img.reshape(T, h // 2, 2, w // 2, 2).amin(dim=(2, 4))
+
+
+def downsample_max(img):
+    """2x2 maximum, (T, H, W) -> (T, H/2, W/2)."""
+    T, h, w = img.shape
+    return img.reshape(T, h // 2, 2, w // 2, 2).amax(dim=(2, 4))
+
+
+def downsample_avg(img):
+    """DownSampleAvg (misc_image.h:91): pairwise (a+b)/2 applied as
+    f(f(a, b), f(c, d)), with integer (floor) division for integer
+    rasters.  Integer sums run in int32, as C promotes them (the JAX
+    package sums in the raster's dtype, which wraps above 65535 for u16)."""
+    T, h, w = img.shape
+    x = img.reshape(T, h // 2, 2, w // 2, 2)
+    if img.is_floating_point():
+        ab = (x[:, :, 0, :, 0] + x[:, :, 0, :, 1]) / 2
+        cd = (x[:, :, 1, :, 0] + x[:, :, 1, :, 1]) / 2
+        return (ab + cd) / 2
+    x = x.to(torch.int32)
+
+    def half(a, b):
+        return torch.div(a + b, 2, rounding_mode="floor")
+    return half(half(x[:, :, 0, :, 0], x[:, :, 0, :, 1]),
+                half(x[:, :, 1, :, 0], x[:, :, 1, :, 1])).to(img.dtype)
+
+
+def downsample_fst(img):
+    """The top-left sample of each 2x2 cell."""
+    return img[:, ::2, ::2]
+
+
+def upsample(img):
+    """Each pixel to a 2x2 cell."""
+    return img.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+
+
+def _cam_pose(cam, like):
+    """A DCamera's (7,) pose or a TrackCamera's (T, 7) one, as (T|1, 7)."""
+    p = torch.as_tensor(cam.pose, dtype=torch.float32, device=like.device)
+    return p.reshape(-1, 7)
+
+
+def sample(src, src_cam, dst_cam, background=0):
+    """Sample (misc_image.h:143-150): plain point-resample of (T, H, W)
+    under a new camera (no depth-plane correction), for IR and greyscale
+    channels.  dst_cam a DCamera or a TrackCamera -> (T, h, w), src's
+    dtype."""
+    from ..maths.pose import pose_apply
+    T = src.shape[0]
+    W, H = dst_cam.dim
+    dev = src.device
+    ys, xs = torch.meshgrid(torch.arange(H, dtype=torch.float32, device=dev),
+                            torch.arange(W, dtype=torch.float32, device=dev),
+                            indexing="ij")
+    p = torch.stack([xs, ys], dim=-1).expand(T, H, W, 2)
+    rays = dst_cam.deprojectz(p, torch.ones((T, H, W), device=dev))
+    pose = _cam_pose(dst_cam, src)[:, None, None, :]
+    pp = src_cam.projectz(pose_apply(pose, rays))
+    ppi = pp.to(torch.int32)                       # C-cast truncation
+    sw, sh = src_cam.dim
+    inside = ((ppi[..., 0] >= 0) & (ppi[..., 0] <= sw - 1)
+              & (ppi[..., 1] >= 0) & (ppi[..., 1] <= sh - 1))
+    px = torch.clamp(ppi[..., 0], 0, sw - 1).long()
+    py = torch.clamp(ppi[..., 1], 0, sh - 1).long()
+    sampled = torch.gather(src.reshape(T, -1), 1,
+                           (py * sw + px).reshape(T, -1)).reshape(T, H, W)
+    return torch.where(inside, sampled,
+                       torch.full((), background, dtype=src.dtype,
+                                  device=dev))
+
+
+def depth_mesh(depth, cam, range_lo, range_hi, gaplimit=float("inf"),
+               skip: int = 1):
+    """DepthMesh (misc_image.h:419-451) with static shapes: one vertex per
+    (skip x skip) cell (the cell's top-left pixel), quads triangulated
+    where all corners are in range and the depth gaps stay within
+    `gaplimit`.  depth (T, H, W) u16 values -> (verts (T, h*w, 3),
+    vert_mask (T, h*w), tris (2*(h-1)*(w-1), 3) int32, tri_mask (T, ntri))."""
+    d = depth_u16(depth)[:, ::skip, ::skip].to(torch.float32) \
+        * float(np.float32(cam.depth_scale))
+    T, h, w = d.shape
+    dev = d.device
+    ys, xs = torch.meshgrid(
+        torch.arange(h, dtype=torch.float32, device=dev) * skip,
+        torch.arange(w, dtype=torch.float32, device=dev) * skip,
+        indexing="ij")
+    verts = cam.deprojectz(torch.stack([xs, ys], -1).expand(T, h, w, 2),
+                           d).reshape(T, -1, 3)
+    vflat = ((d >= range_lo) & (d < range_hi)).reshape(T, -1)
+    vid = torch.arange(h * w, device=dev).reshape(h, w)
+    a = vid[:-1, :-1].reshape(-1)
+    b = vid[1:, :-1].reshape(-1)
+    c = vid[1:, 1:].reshape(-1)
+    e = vid[:-1, 1:].reshape(-1)
+    z = verts[..., 2]
+
+    def ok(i, j):
+        return vflat[:, i] & vflat[:, j] & ((z[:, i] - z[:, j]).abs()
+                                            <= gaplimit)
+    tris = torch.cat([torch.stack([a, b, c], -1),
+                      torch.stack([c, e, a], -1)]).to(torch.int32)
+    tmask = torch.cat([ok(a, b) & ok(b, c) & ok(c, a),
+                       ok(c, e) & ok(e, a) & ok(a, c)], dim=1)
+    return verts, vflat, tris, tmask
+
+
+def image_clip(depth, cam, plane, val):
+    """ImageClip (misc_image.h:454-460): pixels of (T, H, W) under `plane`
+    (a, b, c, d) set to val."""
+    T, h, w = depth.shape
+    dev = depth.device
+    ys, xs = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=dev),
+                            torch.arange(w, dtype=torch.float32, device=dev),
+                            indexing="ij")
+    pts = cam.deprojectz(torch.stack([xs, ys], -1).expand(T, h, w, 2),
+                         depth_u16(depth).to(torch.float32)
+                         * float(np.float32(cam.depth_scale)))
+    pl = torch.as_tensor(plane, dtype=torch.float32, device=dev)
+    dval = (pts * pl[:3]).sum(-1) + pl[3]
+    return torch.where(dval < 0, torch.full((), val, dtype=depth.dtype,
+                                            device=dev), depth)
 
 
 def _minplus_row(row):

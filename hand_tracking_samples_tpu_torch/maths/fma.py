@@ -122,6 +122,23 @@ def qrot(q, v):
     return fma(w, t, v) + cross(qv, t)
 
 
+def pose_apply(p, v):
+    """maths.pose.pose_apply with the contracted rotation."""
+    return p[..., :3] + qrot(p[..., 3:7], v)
+
+
+def pose_inverse(p):
+    """maths.pose.pose_inverse with the contracted rotation."""
+    q = torch.cat([-p[..., 3:6], p[..., 6:7]], dim=-1)
+    return torch.cat([qrot(q, -p[..., :3]), q], dim=-1)
+
+
+def pose_mul(a, b):
+    """maths.pose.pose_mul with the contracted rotation and product."""
+    return torch.cat([pose_apply(a, b[..., :3]), qmul(a[..., 3:7],
+                                                      b[..., 3:7])], dim=-1)
+
+
 def qrot_z1(q, x, y):
     """qrot(q, (x, y, 1)) as the JAX CPU build runs it when the 1 is a
     constant: XLA folds the multiplies by it, so the first cross product's

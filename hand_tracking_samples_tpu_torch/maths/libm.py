@@ -1,4 +1,5 @@
-"""The JAX CPU build's float32 sin, cos and atan2, reproduced.
+"""The JAX CPU build's float32 sin, cos, atan2, exp, arccos and arcsin,
+reproduced.
 
 XLA's CPU backend computes float32 sin, cos and atan2 with the C library's
 sinf, cosf and atan2f (glibc 2.36 on x86-64; 0 differences in 2^20 random
@@ -20,12 +21,16 @@ same code gives the same bits on the CPU and on the card:
           x86-64 build evaluates the polynomial with fused multiply-adds
           too; that float64 rounding difference can move the final
           float32 rounding only when the float64 value lies within ~2^-52
-          of a float32 rounding boundary (0 of 2^20 inputs measured).
+          of a float32 rounding boundary (0 of 2^20 inputs measured);
+  expf    XLA's own exp (Eigen's pexp), not the C library's;
+  acosf/asinf  atan2f forms, as XLA expands arccos and arcsin.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .fma import fma as _fma, sqrt as _sqrt
 
 _F = np.float32
 _ATANHI = [float(_F(v)) for v in (4.6364760399e-01, 7.8539812565e-01,
@@ -113,6 +118,49 @@ def atan2f(y, x):
                     torch.where(sy, torch.full_like(r, -_PI_O_2),
                                 torch.full_like(r, _PI_O_2)), r)
     return torch.where(x == 1.0, atanf(y), r)
+
+
+_EXP_HI = float(_F(88.3762626647950))
+_FLT_MIN = float(np.finfo(np.float32).tiny)
+_LOG2EF = float(_F(1.44269504088896341))
+_EXP_C1 = float(_F(0.693359375))
+_EXP_C2 = float(_F(-2.12194440e-4))
+_EXP_P = [float(_F(v)) for v in (1.9875691500e-4, 1.3981999507e-3,
+                                 8.3334519073e-3, 4.1665795894e-2,
+                                 1.6666665459e-1, 5.0000001201e-1)]
+
+
+def expf(x):
+    """The JAX CPU build's float32 exp: Eigen's pexp (Cephes), clamped to
+    +-88.376, n = floor(x log2 e + 1/2), the reduction and the degree-5
+    polynomial in fused multiply-adds (maths.fma), times 2^n built from
+    the exponent bits, subnormal results flushed to zero: bit for bit
+    with it for x < 88.  PyTorch's exp differs from it by an ulp on ~1%
+    of inputs, which moves a heatmap byte on ~0.1% of splats."""
+    x = torch.clamp(x, -_EXP_HI, _EXP_HI)
+    fx = torch.floor(_fma(x, _LOG2EF, 0.5))
+    r = _fma(fx, -_EXP_C2, _fma(fx, -_EXP_C1, x))
+    y = _fma(r, _EXP_P[0], _EXP_P[1])
+    for c in _EXP_P[2:]:
+        y = _fma(y, r, c)
+    y = _fma(y, r * r, r) + 1.0
+    pow2n = ((fx.to(torch.int32) + 127) << 23).view(torch.float32)
+    out = y * pow2n
+    # subnormal results flush to zero, as there
+    return torch.where(out < _FLT_MIN, torch.zeros_like(out), out)
+
+
+def acosf(x):
+    """jnp.arccos as the JAX CPU build expands it:
+    atan2f(sqrt((1 - x)(1 + x)), x), the root correctly rounded."""
+    return atan2f(_sqrt((1.0 - x) * (x + 1.0)), x)
+
+
+def asinf(x):
+    """jnp.arcsin as the JAX CPU build expands it:
+    2 atan2f(x, 1 + sqrt((1 - x)(1 + x)))."""
+    a = atan2f(x, _sqrt((1.0 - x) * (x + 1.0)) + 1.0)
+    return a + a
 
 
 def _poly(x, x2, odd):

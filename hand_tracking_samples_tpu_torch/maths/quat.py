@@ -11,7 +11,7 @@ import torch
 __all__ = [
     "cross", "dot", "qconj", "qmul", "qrot", "qxdir", "qydir", "qzdir",
     "qmat", "quat_from_axis_angle", "quat_from_to", "qnormalize", "orth",
-    "safenormalize",
+    "safenormalize", "quat_from_mat",
 ]
 
 
@@ -111,3 +111,35 @@ def quat_from_to(v0, v1):
     q = torch.cat([c / s, s * 0.5], dim=-1)
     q180 = torch.cat([orth(v0), torch.zeros_like(d)], dim=-1)
     return torch.where(d <= -1.0, q180, q)
+
+
+def quat_from_mat(m):
+    """geometric.h:67 quatfrommat.  m (..., 3, 3) row-major (matvec
+    convention): m[..., :, j] is column j (linalg's m[j])."""
+    def e(i, j):
+        return m[..., j, i]
+
+    def vec(*v):
+        return torch.tensor(v, dtype=m.dtype, device=m.device)
+    magw = e(0, 0) + e(1, 1) + e(2, 2)
+    wvsz = (magw > e(2, 2))[..., None]
+    magzw = torch.where(wvsz[..., 0], magw, e(2, 2))
+    prezw = torch.where(wvsz, vec(1.0, 1.0, 1.0), vec(-1.0, -1.0, 1.0))
+    postzw = torch.where(wvsz, vec(0.0, 0, 0, 1), vec(0.0, 0, 1, 0))
+    xvsy = (e(0, 0) > e(1, 1))[..., None]
+    magxy = torch.where(xvsy[..., 0], e(0, 0), e(1, 1))
+    prexy = torch.where(xvsy, vec(1.0, -1.0, -1.0), vec(-1.0, 1.0, -1.0))
+    postxy = torch.where(xvsy, vec(1.0, 0, 0, 0), vec(0.0, 1, 0, 0))
+    zwvsxy = (magzw > magxy)[..., None]
+    pre = torch.where(zwvsxy, prezw, prexy)
+    post = torch.where(zwvsxy, postzw, postxy)
+    t = (pre[..., 0] * e(0, 0) + pre[..., 1] * e(1, 1)
+         + pre[..., 2] * e(2, 2) + 1.0)
+    s = 1.0 / torch.sqrt(t) / 2.0
+    qp = torch.stack([
+        (pre[..., 1] * e(1, 2) - pre[..., 2] * e(2, 1)) * s,
+        (pre[..., 2] * e(2, 0) - pre[..., 0] * e(0, 2)) * s,
+        (pre[..., 0] * e(0, 1) - pre[..., 1] * e(1, 0)) * s,
+        t * s,
+    ], dim=-1)
+    return qmul(qp, post)

@@ -124,9 +124,9 @@ def correspondence_reductions(pts_h, planes, d0):
     """Kernel wrapper: see the module docstring for the layouts."""
     T, _, N = pts_h.shape
     B, P = planes.shape[1], planes.shape[2]
-    assert N % N_BLK == 0, (
-        f"point budget {N} must be a multiple of {N_BLK} when "
-        f"use_pallas=True (TrackerConfig.point_budget)")
+    if N % N_BLK:
+        raise ValueError(f"point budget {N} must be a multiple of {N_BLK} "
+                         f"when use_pallas=True (TrackerConfig.point_budget)")
     if pts_h.device.type == "cpu":
         return correspondence_reductions_plain(pts_h, planes, d0)
     args = [x.contiguous() for x in (pts_h, planes, d0)]

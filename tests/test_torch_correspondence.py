@@ -9,6 +9,8 @@ Tolerance: bit-identical (every output of every (track, body, point)); the
 port computes the plane dot as the JAX CPU build contracts its K=8 dot,
 fma(z, pz, fma(y, py, x*px)) + w, and the world planes' rotation and offset
 contracted as well (maths/fma.py)."""
+import os
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -64,6 +66,26 @@ def test_block_size_is_enforced(hand_model):
     model = from_numpy_model({k: np.asarray(v) for k, v in
                               vars(hand_model).items()}, "cpu")
     pose = torch.tensor(np.asarray(hand_model.start_pose))[None]
-    with pytest.raises(AssertionError):
+    with pytest.raises(ValueError, match="multiple of 512"):
         pc.hull_reductions(pose, model, torch.zeros((1, 500, 3)),
                            (0.0, 0.0, 0.0))
+
+
+def test_block_size_check_survives_optimize():
+    """The wrapper's check is a ValueError, not an assert: `python -O`
+    keeps it."""
+    import subprocess
+    import sys
+    code = ("import torch\n"
+            "from hand_tracking_samples_tpu_torch.ops import correspondence"
+            " as pc\n"
+            "try:\n"
+            "    pc.correspondence_reductions(torch.zeros((1, 4, 500)),"
+            " torch.zeros((1, 17, 96, 4)), torch.zeros((1, 17, 96)))\n"
+            "except ValueError as e:\n"
+            "    print('raised', e)\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run([sys.executable, "-O", "-c", code], cwd=root,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-1000:]
+    assert res.stdout.startswith("raised point budget 500"), res.stdout

@@ -125,7 +125,9 @@ def test_every_port_module_imports():
                  "physics.colored", "physics.contacts", "physics.solver",
                  "data.dataset", "utils.viz", "utils.report",
                  "apps.annotate", "apps.replay_track",
-                 "apps.synthetic_track", "model.meshes"):
+                 "apps.synthetic_track", "model.meshes", "cnn.layers",
+                 "cnn.train", "native", "utils.checkpoint",
+                 "apps.train_cnn", "apps.export_dataset"):
         assert f"{pkg.__name__}.{name}" in names, name
     for name in names:
         importlib.import_module(name)
