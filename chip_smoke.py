@@ -184,6 +184,20 @@ Phases, each printing one line with its elapsed seconds:
      cadence recordings against load_dataset (bit for bit) and
      compress_dataset on the card against the CPU (COMPRESS_CARD_CPU), and
      the train and export CLIs as two subprocesses on the card
+ 21. scale-out and profiling: two meshes (every visible card, and the
+     first card listed twice); sharded_track_sequences on each against
+     track_sequences (P21_GATE on poses and states) for P21_FRAMES T=512
+     dynamics frames on phase 4's renders and one T=512 CNN frame on phase
+     7's render with every 4th track reset, each with its launches and
+     host ms a frame; the data-parallel SGD step at batch TRAIN_BATCH on
+     each mesh against sgd_step (MSE 1e-6, every parameter 2e-6) and ms a
+     step; the port's dryrun_multichip on each mesh; device_trace around
+     one dynamics frame (the Chrome trace, written beside the --json file
+     or under build/trace, must name a port kernel) and the phase's StageTimer report; the kernel solver's
+     dynamics frame with use_pallas=False at T=512 (P21_NOPALLAS_FRAMES
+     frames: peak memory, ms a frame, distance from use_pallas=True, a
+     2-track CPU re-run; if T=512 does not fit, the peak it reached and
+     the T that fits)
 
 Each phase drives its path with the launch counts set to 0 just before it
 and reads them just after.  The line before the last is the kernels' JSON
@@ -400,6 +414,10 @@ CADENCE_CASES = [
      5e-3),
 ]
 GOLDEN_CPU_FRAMES = 2     # frames of each golden's 2-track CPU re-run
+# the cadence cases (indices into CADENCE_CASES) each spawned process runs,
+# balanced by their host time (CNN frames at T=1 dominate: 64; 32 + 16;
+# 16 + 8 + 4)
+CADENCE_WORKERS = ((3,), (4, 1), (5, 0, 2))
 # Phase 20: training.  The synthetic set (512 animbank frames, the train
 # CLI's ids, not augmented), 300 SGD steps at batch 64 from the golden
 # init; the MSE gate of tests/test_train_meshes.py:37.
@@ -411,10 +429,31 @@ TRAIN_CLI = ("tests/fixtures/cnntrack_rec.rs", "--synthetic", "64",
              "--steps", "20", "--batch", "16", "--eval-every", "10",
              "--init-cnnb", "tests/fixtures/golden_cnn_init.cnnb")
 EXPORT_CLI = ("tests/fixtures/cnntrack_rec.rs", "--max-frames", "8")
+# Phase 21: scale-out and profiling.  Sharded against unsharded: JAX's gate
+# (tests/test_parallel.py:52-55) on poses and states; the dynamics frames
+# sharded (T=512, phase 4's renders), the dp step's timed steps, and the
+# use_pallas=False frames at T=512 (the plane dots' (T, 17, 2048, 96)
+# tensors bound its memory)
+P21_GATE = 2e-5
+P21_FRAMES = 4
+P21_STEPS = 20
+P21_NOPALLAS_FRAMES = 3
+# the port kernels' entry names, one of which the trace must show
+PORT_KERNEL_SYMBOLS = ("cloud_from_depth_kernel", "cloud_rows_pack_kernel",
+                       "contact_fields_kernel", "pgs_kernel")
 
 
 class PhaseError(RuntimeError):
     pass
+
+
+def _cadence_worker(cases):
+    """A spawned process of phase 19: the cases of CADENCE_CASES at these
+    indices on the card (Smoke.cadence_case)."""
+    sys.path.insert(0, REPO)
+    s = Smoke()
+    s.cnn_setup()
+    return [s.cadence_case(CADENCE_CASES[i]) for i in cases]
 
 
 def check(cond, msg):
@@ -913,8 +952,9 @@ class Smoke:
                    steps_per_sweep_max=c[:, 2].max().item(),
                    cycles_per_step=(c[:, 1].sum() / steps.sum().clamp(min=1))
                    .item(), blocks_per_sm=(
-                       pk.occupancy(args[0], args[3].shape[2]) if pgs
-                       else rs.occupancy(args[2], args[0].shape[1])))
+                       pk.occupancy(args[0], args[3].shape[2], self.dev)
+                       if pgs else rs.occupancy(args[2], args[0].shape[1],
+                                                self.dev)))
         self.results[name]["cycles"] = res
         floor = ""
         if pgs:   # the design's floor: every step's block every sweep
@@ -3415,61 +3455,86 @@ class Smoke:
         check(err < 1e-4, f"{label}: CPU plain reference differs: {err} m")
         return err
 
-    def cadence(self):
-        """The recorded CNN cadence (tests/test_cnntrack_golden.py): each
-        case of CADENCE_CASES at T=1 on the colored CNN frame, the CNN on
-        frames f % k == 0, at its gates; then both recordings' first
-        GOLDEN_CPU_FRAMES frames as 2 tracks on the CPU, k = 1 and k > 1
-        (cnn_every_k is read only by track_sequences: every k > 1 runs the
-        same first frames)."""
+    def cadence_case(self, case):
+        """One case of CADENCE_CASES at T=1 on the colored CNN frame, the
+        CNN on frames f % k == 0, at its gates: (refname, its record, its
+        recording, k, its first GOLDEN_CPU_FRAMES poses as NumPy)."""
         torch, np = self.torch, self.np
         from hand_tracking_samples_tpu_torch.parallel.tracks import (
             batched_tracker_state)
         from hand_tracking_samples_tpu_torch.tracker.config import (
             TrackerConfig)
+        (rec, refname, F, devgate, jeslack, ratio, meanslack,
+         meandev) = case
+        t0 = time.perf_counter()
+        cam, depth, gt = self.recording(rec)
+        with open(os.path.join(REPO, "tests", "fixtures",
+                               refname + ".json")) as f:
+            ref = json.load(f)
+        k, F = ref["k"], min(F, ref["n_frames"])
+        refp = np.asarray(ref["cnntrack_poses"], np.float32).reshape(
+            ref["n_frames"], 17, 7)[:F]
+        ref_je = np.asarray(ref["cnntrack_joint_err"])[:F]
+        cfg = TrackerConfig(cnn_every_frame=True, cnn_every_k=k,
+                            solver="colored")
+        hist = self.golden_frames(
+            batched_tracker_state(self.model, 1), depth[:F, None], cam,
+            cfg, self.cnn, lambda f: f % k == 0)
+        mine = torch.stack(hist)[:, 0].cpu().numpy()
+        devs = np.linalg.norm(mine[..., :3] - refp[..., :3],
+                              axis=-1).mean(-1)
+        jes = np.linalg.norm(mine[..., :3] - gt[:F, :, :3],
+                             axis=-1).mean(-1)
+        bad = [f for f in range(F)
+               if (devgate is not None and devs[f] >= devgate)
+               or jes[f] >= ref_je[f] + jeslack]
+        rec_ = dict(k=k, frames=F, seconds=time.perf_counter() - t0,
+                    dev_max_mm=float(devs.max() * 1e3),
+                    dev_mean_mm=float(devs.mean() * 1e3),
+                    je_mean_mm=float(jes.mean() * 1e3),
+                    ref_je_mean_mm=float(ref_je.mean() * 1e3),
+                    je_minus_ref_max_mm=float((jes - ref_je).max() * 1e3))
+        check(not bad, f"{refname}: frames {bad[:6]}: deviation "
+              f"{np.round(devs[bad[:6]] * 1e3, 2)} mm, joint error "
+              f"{np.round(jes[bad[:6]] * 1e3, 2)} against the "
+              f"reference's {np.round(ref_je[bad[:6]] * 1e3, 2)} mm")
+        check(jes.mean() < ref_je.mean() * ratio + meanslack,
+              f"{refname}: mean joint error {rec_['je_mean_mm']:.2f} "
+              f"mm, the reference's {rec_['ref_je_mean_mm']:.2f}")
+        check(devs.mean() < meandev, f"{refname}: mean deviation "
+              f"{rec_['dev_mean_mm']:.2f} mm")
+        return (refname, rec_, rec, k,
+                [h.cpu().numpy() for h in hist[:GOLDEN_CPU_FRAMES]])
+
+    def cadence(self):
+        """The recorded CNN cadence (tests/test_cnntrack_golden.py): the
+        cases of CADENCE_CASES (cadence_case), in CADENCE_WORKERS spawned
+        processes at once (each case is a host-bound T=1 run); then both
+        recordings' first GOLDEN_CPU_FRAMES frames as 2 tracks on the CPU,
+        k = 1 and k > 1 (cnn_every_k is read only by track_sequences:
+        every k > 1 runs the same first frames)."""
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+        torch = self.torch
+        from hand_tracking_samples_tpu_torch.parallel.tracks import (
+            batched_tracker_state)
+        from hand_tracking_samples_tpu_torch.tracker.config import (
+            TrackerConfig)
+        check(sorted(i for w in CADENCE_WORKERS for i in w)
+              == list(range(len(CADENCE_CASES))),
+              "CADENCE_WORKERS must run every case once")
+        # a worker that dies ends the map with BrokenProcessPool
+        with ProcessPoolExecutor(
+                len(CADENCE_WORKERS),
+                mp_context=multiprocessing.get_context("spawn")) as pool:
+            done = [r for rs in pool.map(_cadence_worker, CADENCE_WORKERS)
+                    for r in rs]
+        by_name = {r[0]: r for r in done}
         out, first = {}, {}
-        for (rec, refname, F, devgate, jeslack, ratio, meanslack,
-             meandev) in CADENCE_CASES:
-            t0 = time.perf_counter()
-            cam, depth, gt = self.recording(rec)
-            with open(os.path.join(REPO, "tests", "fixtures",
-                                   refname + ".json")) as f:
-                ref = json.load(f)
-            k, F = ref["k"], min(F, ref["n_frames"])
-            refp = np.asarray(ref["cnntrack_poses"], np.float32).reshape(
-                ref["n_frames"], 17, 7)[:F]
-            ref_je = np.asarray(ref["cnntrack_joint_err"])[:F]
-            cfg = TrackerConfig(cnn_every_frame=True, cnn_every_k=k,
-                                solver="colored")
-            hist = self.golden_frames(
-                batched_tracker_state(self.model, 1), depth[:F, None], cam,
-                cfg, self.cnn, lambda f: f % k == 0)
-            mine = torch.stack(hist)[:, 0].cpu().numpy()
-            devs = np.linalg.norm(mine[..., :3] - refp[..., :3],
-                                  axis=-1).mean(-1)
-            jes = np.linalg.norm(mine[..., :3] - gt[:F, :, :3],
-                                 axis=-1).mean(-1)
-            bad = [f for f in range(F)
-                   if (devgate is not None and devs[f] >= devgate)
-                   or jes[f] >= ref_je[f] + jeslack]
-            rec_ = dict(k=k, frames=F, seconds=time.perf_counter() - t0,
-                        dev_max_mm=float(devs.max() * 1e3),
-                        dev_mean_mm=float(devs.mean() * 1e3),
-                        je_mean_mm=float(jes.mean() * 1e3),
-                        ref_je_mean_mm=float(ref_je.mean() * 1e3),
-                        je_minus_ref_max_mm=float((jes - ref_je).max()
-                                                  * 1e3))
+        for case in CADENCE_CASES:
+            refname, rec_, rec, k, frames = by_name[case[1]]
             out[refname] = rec_
-            check(not bad, f"{refname}: frames {bad[:6]}: deviation "
-                  f"{np.round(devs[bad[:6]] * 1e3, 2)} mm, joint error "
-                  f"{np.round(jes[bad[:6]] * 1e3, 2)} against the "
-                  f"reference's {np.round(ref_je[bad[:6]] * 1e3, 2)} mm")
-            check(jes.mean() < ref_je.mean() * ratio + meanslack,
-                  f"{refname}: mean joint error {rec_['je_mean_mm']:.2f} "
-                  f"mm, the reference's {rec_['ref_je_mean_mm']:.2f}")
-            check(devs.mean() < meandev, f"{refname}: mean deviation "
-                  f"{rec_['dev_mean_mm']:.2f} mm")
-            first[refname] = (rec, k, hist[:GOLDEN_CPU_FRAMES])
+            first[refname] = (rec, k, [torch.from_numpy(h) for h in frames])
         recs = ("cnntrack_rec", "cnntrack_rec2")
         cam = self.recording(recs[0])[0]
         check(all(self.recording(r)[0] == cam for r in recs),
@@ -3992,6 +4057,266 @@ class Smoke:
                                ("CLIs", self.flywheel_clis)))
 
 
+    # ---- phase 21: scale-out and profiling ---------------------------------
+    def p21_meshes(self):
+        """Every visible card, and the first card listed twice (the split
+        and the merge on one card)."""
+        torch = self.torch
+        from hand_tracking_samples_tpu_torch.parallel.mesh import make_mesh
+        out = subprocess.run(["nvidia-smi", "-L"], capture_output=True,
+                             text=True, timeout=60)
+        smi = [ln for ln in out.stdout.splitlines() if ln.startswith("GPU")]
+        every = make_mesh("tracks")
+        first = make_mesh("tracks", devices=[every.devices[0]] * 2)
+        check(len(every) == torch.cuda.device_count() == len(smi),
+              f"mesh {every.devices}, torch sees "
+              f"{torch.cuda.device_count()}, nvidia-smi {len(smi)}")
+        self.meshes = {f"every card ({len(every)})": every,
+                       "first card twice": first}
+        self.p21["meshes"] = {k: [str(d) for d in m.devices]
+                              for k, m in self.meshes.items()}
+        return (f"torch.cuda.device_count() {torch.cuda.device_count()}, "
+                f"nvidia-smi -L {len(smi)}; " + "; ".join(
+                    f"{k}: {v}" for k, v in self.p21["meshes"].items()))
+
+    def p21_compare(self, label, run, path):
+        """run(mesh or None) -> (states, poses): unsharded, then on each
+        mesh, each timed by the phase's StageTimer (host clock, from a
+        synchronized card to its output's); launch counts reset before and
+        read after each sharded run; the largest difference from
+        unsharded, states and poses, must be <= P21_GATE
+        (tests/test_parallel.py:52-55)."""
+        torch = self.torch
+        from hand_tracking_samples_tpu_torch import kernels
+        rec = {}
+        torch.cuda.synchronize()
+        base = self.timer.time(f"{label}, unsharded", run, None)
+        for name, mesh in self.meshes.items():
+            key = f"{label}, {name}"
+            kernels.reset_counts()
+            torch.cuda.synchronize()
+            st, poses = self.timer.time(key, run, mesh)
+            dt = self.timer.total[key]
+            counts = {k: n for k, n in kernels.counts().items() if n}
+            check(all(counts.get(k, 0) > 0 for k in path),
+                  f"{label} on {name}: a kernel of {path} did not launch: "
+                  f"{counts}")
+            check(poses.shape == base[1].shape
+                  and bool(torch.isfinite(poses).all()),
+                  f"{label} on {name}: poses {tuple(poses.shape)}")
+            gap = max((poses - base[1]).abs().max().item(),
+                      max((a - b).abs().max().item() for a, b in
+                          zip(st.body, base[0].body)))
+            rec[name] = dict(max_diff=gap, seconds=dt, launches=counts)
+            check(gap <= P21_GATE, f"{label} on {name}: {gap} from "
+                  f"unsharded (gate {P21_GATE})")
+        return rec
+
+    def p21_dynamics(self):
+        """T=512 dynamics frames (P21_FRAMES) on phase 4's renders,
+        unsharded and on both meshes."""
+        from hand_tracking_samples_tpu_torch.parallel.tracks import (
+            sharded_track_sequences, track_sequences)
+        T = TRACKS
+        depths = [self.depth_frame(f, T) for f in range(P21_FRAMES)]
+
+        def run(mesh):
+            st = self.init_state(T)
+            if mesh is None:
+                return track_sequences(st, self.model, None, depths,
+                                       self.cam, self.cfg, self.params)
+            return sharded_track_sequences(mesh, st, self.model, None,
+                                           depths, self.cam, self.cfg,
+                                           self.params)
+        rec = self.p21_compare("dynamics", run, FIRST)
+        self.p21["dynamics"] = rec
+        p5 = self.fps["seconds"] / self.fps["frames"] * 1e3
+        return "; ".join(
+            f"{k}: max diff {v['max_diff']:.3g}, "
+            f"{v['seconds'] / P21_FRAMES * 1e3:.1f} ms a frame "
+            f"(phase 5 unsharded {p5:.1f})" for k, v in rec.items()) + (
+            f" ({self.smi})")
+
+    def p21_cnn(self):
+        """One T=512 CNN frame (DEFAULT_CNNB, every 4th track reset) on
+        phase 7's render, unsharded and on both meshes."""
+        from hand_tracking_samples_tpu_torch.parallel.tracks import (
+            sharded_track_sequences, track_sequences)
+        T = CNN_TRACKS
+        depths = [self.cnn_depth(0, T)]
+
+        def run(mesh):
+            st = self.cnn_state(T)
+            if mesh is None:
+                return track_sequences(st, self.model, self.cnn, depths,
+                                       self.cam, self.cnn_cfg, self.params)
+            return sharded_track_sequences(mesh, st, self.model, self.cnn,
+                                           depths, self.cam, self.cnn_cfg,
+                                           self.params)
+        rec = self.p21_compare("CNN frame", run,
+                               FIRST + ("cloud_rows_unpacked",
+                                        "cloud_vals"))
+        # the net on half the tracks against the same tracks of the whole
+        # batch: PyTorch's products may sum in another order at another
+        # batch size, which a shard's CNN frame then carries
+        from hand_tracking_samples_tpu_torch.cnn.model import forward
+        from hand_tracking_samples_tpu_torch.tracker.runtime import (
+            _cnn_frame_inputs)
+        _, _, x, y, _ = _cnn_frame_inputs(self.cnn, depths[0], self.cam,
+                                          self.cnn_cfg)
+        net_gap = (forward(self.cnn, x[:T // 2]) - y[:T // 2]).abs().max() \
+            .item()
+        self.p21["cnn"] = dict(rec, net_half_batch_diff=net_gap)
+        p8 = self.cnn_speed["ms_per_frame"]
+        return "; ".join(
+            f"{k}: max diff {v['max_diff']:.3g}, {v['seconds'] * 1e3:.1f} "
+            f"ms a frame (phase 8 unsharded {p8:.1f})"
+            for k, v in rec.items()) + (
+            f"; the net at T={T // 2} against the first {T // 2} of "
+            f"T={T}: {net_gap:.3g} ({self.smi})")
+
+    def p21_dp_step(self):
+        """The data-parallel SGD step at batch TRAIN_BATCH on both meshes
+        against cnn.model.sgd_step from the golden init on phase 20's
+        first frames (MSE within 1e-6, every parameter within 2e-6,
+        tests/test_parallel.py:73-75); ms a step of each (P21_STEPS steps,
+        host clock) beside the single step's."""
+        torch = self.torch
+        from hand_tracking_samples_tpu_torch.cnn.model import (
+            load_cnnb, sgd_step)
+        from hand_tracking_samples_tpu_torch.parallel.mesh import (
+            make_dp_train_step)
+        p = load_cnnb(self.init_cnnb, self.dev)
+        x = self.train_data.inputs[:TRAIN_BATCH]
+        t = self.train_data.labels[:TRAIN_BATCH]
+
+        def ms_a_step(step):
+            step(p, x, t)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(P21_STEPS):
+                out = step(p, x, t)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / P21_STEPS, out
+        single_ms, (ref, ref_mse) = ms_a_step(
+            lambda *a: sgd_step(*a, TRAIN_ALPHA))
+        rec = {"single": dict(ms_per_step=single_ms)}
+        for name, mesh in self.meshes.items():
+            step = make_dp_train_step(mesh, TRAIN_ALPHA)
+            ms, (new, mse) = self.timer.time(f"dp step, {name}", ms_a_step,
+                                             step)
+            dmse = abs(mse.item() - ref_mse.item())
+            dp = max((new[k][kk] - ref[k][kk]).abs().max().item()
+                     for k in ref for kk in ref[k])
+            rec[name] = dict(ms_per_step=ms, mse_diff=dmse, param_diff=dp)
+            check(dmse <= 1e-6 and dp <= 2e-6, f"dp step on {name}: MSE "
+                  f"{dmse}, parameters {dp} from the single step")
+        self.p21["dp_step"] = rec
+        p20 = self.p20["train"]["steady_ms_per_step"]
+        return (f"single step {single_ms:.3f} ms (phase 20 {p20:.3f}); "
+                + "; ".join(f"{k}: {v['ms_per_step']:.3f} ms a step, MSE "
+                            f"{v['mse_diff']:.2g}, parameters "
+                            f"{v['param_diff']:.2g}" for k, v in rec.items()
+                            if k != "single") + f" ({self.smi})")
+
+    def p21_dryrun(self):
+        """The port's dryrun_multichip (__graft_entry__.py:44) on both
+        meshes."""
+        from hand_tracking_samples_tpu_torch.parallel.tracks import (
+            dryrun_multichip)
+        msgs = [self.timer.time(f"dryrun, {k}", dryrun_multichip, m,
+                                self.model)
+                for k, m in self.meshes.items()]
+        self.p21["dryrun"] = msgs
+        return "; ".join(msgs) + f" ({self.smi})"
+
+    def p21_trace(self):
+        """device_trace around one T=512 dynamics frame: the Chrome trace
+        exists and names a port kernel; the phase's StageTimer report."""
+        from hand_tracking_samples_tpu_torch.utils.profiling import (
+            device_trace)
+        T = TRACKS
+        st = self.init_state(T)
+        with device_trace(self.trace_dir) as trace:
+            self.timer.time("traced dynamics frame", self.run, st, 1, T)
+        check(os.path.exists(trace.path), f"no trace at {trace.path}")
+        with open(trace.path) as f:
+            text = f.read()
+        named = [k for k in PORT_KERNEL_SYMBOLS if k in text]
+        check(named, f"the trace {trace.path} names no port kernel")
+        report = self.timer.report()
+        self.p21["trace"] = dict(path=os.path.relpath(trace.path, REPO),
+                                 bytes=len(text), kernels=named,
+                                 report=report)
+        print(f"StageTimer ({self.smi}):\n{report}", flush=True)
+        return (f"{os.path.relpath(trace.path, REPO)} ({len(text)} bytes) "
+                f"names {named}")
+
+    def p21_nopallas(self):
+        """The kernel solver's dynamics frame with use_pallas=False at
+        T=512 (P21_NOPALLAS_FRAMES frames): peak memory and host ms a
+        frame, the distance from the use_pallas=True frames, a 2-track CPU
+        re-run (< 1e-4 m).  If T=512 does not fit in the card's memory,
+        the peak it reached is recorded and T halves until it fits."""
+        import dataclasses
+        torch = self.torch
+        F = P21_NOPALLAS_FRAMES
+        cfg = dataclasses.replace(self.cfg, use_pallas=False)
+        T, tries = TRACKS, []
+        while True:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            m0 = torch.cuda.memory_allocated()
+            try:
+                dt, counts, pk, _, hist = self.frames_of(cfg, F, T)
+                peak = (torch.cuda.max_memory_allocated() - m0) / 2**30
+                break
+            except torch.cuda.OutOfMemoryError as e:
+                peak = (torch.cuda.max_memory_allocated() - m0) / 2**30
+                tries.append(dict(tracks=T, peak_gib=peak,
+                                  error=str(e)[:200]))
+                print(f"  phase 21 use_pallas=False at T={T} does not fit: "
+                      f"peak {peak:.3f} GiB", flush=True)
+                check(T > 1, "use_pallas=False fits at no T")
+                T //= 2
+        _, _, _, _, ref = self.frames_of(self.cfg, F, T)
+        check(not any(k.startswith("cloud_rows") for k in counts)
+              and pk.get("dyn") == F,
+              f"use_pallas=False launches {counts}, PGS plans {pk}")
+        check(all(bool(torch.isfinite(h).all()) for h in hist),
+              "use_pallas=False: non-finite poses")
+        dist = max((a[..., :3] - b[..., :3]).abs().max().item()
+                   for a, b in zip(hist, ref))
+        cpu = self.cpu_reference([h[:2] for h in hist[:REF_CPU_FRAMES]], cfg)
+        self.p21["nopallas"] = dict(tracks=T, frames=F, seconds=dt,
+                                    ms_per_frame=dt / F * 1e3,
+                                    peak_gib=peak, from_pallas_m=dist,
+                                    launches=counts, did_not_fit=tries,
+                                    cpu_reference_err_m=cpu)
+        return (f"T={T}{' (did not fit: ' + str(tries) + ')' if tries else ''}"
+                f": {dt / F * 1e3:.1f} ms a frame, peak {peak:.3f} GiB, "
+                f"{dist:.3g} m from use_pallas; CPU re-run {cpu:.2g} m; "
+                f"launches {counts} ({self.smi})")
+
+    def phase21(self):
+        """Phase 21: the sharded entry points, the data-parallel step,
+        dryrun_multichip, device_trace and use_pallas=False at T=512."""
+        from hand_tracking_samples_tpu_torch.utils.profiling import (
+            StageTimer)
+        self.p21 = {}
+        self.timer = StageTimer()
+        if getattr(self, "cnn", None) is None:
+            self.cnn_setup()
+        return self.parts(21, (("meshes", self.p21_meshes),
+                               ("sharded dynamics", self.p21_dynamics),
+                               ("sharded CNN frame", self.p21_cnn),
+                               ("dp step", self.p21_dp_step),
+                               ("dryrun_multichip", self.p21_dryrun),
+                               ("device_trace", self.p21_trace),
+                               ("use_pallas=False, T=512",
+                                self.p21_nopallas)))
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--json", help="also write every measured number to "
@@ -4071,6 +4396,9 @@ def main(argv=None) -> int:
     phase(3, "kernels vs plain (T=4)", setup_and_compare)
     s = state["s"]
     s.smi = smi["line"]
+    s.trace_dir = os.path.join(os.path.dirname(os.path.abspath(args.json))
+                               if args.json else os.path.join(REPO, "build"),
+                               "trace")
     phase(4, "slice", s.slice_run)
     phase(5, "timing and kernels vs plain (T=512)", s.timing)
 
@@ -4094,6 +4422,7 @@ def main(argv=None) -> int:
           s.phase18)
     phase(19, "C++ goldens", s.phase19)
     phase(20, "training and the flywheel", s.phase20)
+    phase(21, "scale-out and profiling", s.phase21)
     s.results["row_sweep[colored]"]["launches"] = \
         s.ref_speed["colored"]["launches"]["row_sweep"]
     record["total_s"] = time.perf_counter() - t_all
@@ -4139,7 +4468,8 @@ def main(argv=None) -> int:
                            slowfit=s.slowfit_stats,
                            slowfit_speed=s.slowfit_speed,
                            slowfit_shapes=s.slowfit_shapes,
-                           phase18=s.p18, phase19=s.p19, phase20=s.p20),
+                           phase18=s.p18, phase19=s.p19, phase20=s.p20,
+                           phase21=s.p21),
                       f, indent=1, default=str)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

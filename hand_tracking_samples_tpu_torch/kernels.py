@@ -20,6 +20,8 @@ Each kernel wrapper (ops/cloud_kernel.py, ops/cloud_rows.py (four),
 ops/correspondence.py, physics/contact_kernel.py, physics/pgs_kernel.py,
 physics/row_sweep.py) registers itself here with
 `wrapper(name)`; its `launches` attribute counts the launches it made.
+Every launch goes through `launch`, which makes the tensors' card the
+current device.
 Nothing here runs when the package is imported.
 """
 from __future__ import annotations
@@ -185,6 +187,25 @@ def check(err: int, name: str):
 def stream_ptr(device) -> int:
     import torch
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def on_device(entry, device, *args):
+    """entry(*args) with `device` the calling thread's current device: each
+    C entry point sets its kernel's attributes, queries occupancy and
+    launches on the current device, which on a mesh of several cards need
+    not be the one its tensors lie on.  (When it already is, the switch is
+    skipped: it costs more host time than a short kernel runs.)"""
+    import torch
+    if device.index == torch.cuda.current_device():
+        return entry(*args)
+    with torch.cuda.device(device):
+        return entry(*args)
+
+
+def launch(name: str, entry, device, *args):
+    """Launch C entry point `entry` on `device`: its arguments, then the
+    device's current stream; raises when it fails."""
+    check(on_device(entry, device, *args, stream_ptr(device)), name)
 
 
 def require_cuda(*tensors):

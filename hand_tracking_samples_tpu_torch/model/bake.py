@@ -270,6 +270,19 @@ class HandModel:
     def n_bodies(self) -> int:
         return int(self.np["start_pose"].shape[0])
 
+    def to(self, device) -> "HandModel":
+        """This model on `device`: the same host copy, each tensor moved
+        (`self` when it is there already)."""
+        import torch
+        device = torch.device(device)
+        if device == self.device:
+            return self
+        out = object.__new__(HandModel)
+        out.device, out.np = device, self.np
+        for k in FIELDS:
+            setattr(out, k, getattr(self, k).to(device))
+        return out
+
 
 def from_numpy_model(fields: dict, device=None) -> HandModel:
     """The carry-across function: a baked model as NumPy arrays (this

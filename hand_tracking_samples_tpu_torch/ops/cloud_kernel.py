@@ -126,11 +126,10 @@ def cloud_from_depth_planes(depth, cam, range_lo, range_hi, frac: int,
     k = _scalars(cam, range_lo, range_hi, frac)
     ulo, uhi = valid_range(k["scale"], k["lo"], k["hi"])
     out = torch.empty((T, 8, budget), dtype=torch.float32, device=dev)
-    err = kernels.library().hts_cloud_from_depth(
+    kernels.launch(
+        "cloud_from_depth", kernels.library().hts_cloud_from_depth, dev,
         depth.data_ptr(), out.data_ptr(), T, H, W, frac, budget, ulo, uhi,
-        k["scale"], k["inv_frac"], k["cx"], k["cy"], k["rfx"], k["rfy"],
-        kernels.stream_ptr(dev))
-    kernels.check(err, "cloud_from_depth")
+        k["scale"], k["inv_frac"], k["cx"], k["cy"], k["rfx"], k["rfy"])
     cloud_from_depth_planes.launches += 1
     return out
 

@@ -357,10 +357,10 @@ def _pack_launch(pts_h, planes_t, body_sc, misc, slots: int, parity: bool):
     counts = torch.empty((T, BP), device=dev)
     lib = kernels.library()
     entry = lib.hts_cloud_rows_packed if parity else lib.hts_cloud_rows_solve
-    err = entry(*[a.data_ptr() for a in args], packed.data_ptr(),
-                counts.data_ptr(), T, N, P, B, slots, BP,
-                kernels.stream_ptr(dev))
-    kernels.check(err, "cloud_rows_packed" if parity else "cloud_rows_solve")
+    kernels.launch("cloud_rows_packed" if parity else "cloud_rows_solve",
+                   entry, dev, *[a.data_ptr() for a in args],
+                   packed.data_ptr(), counts.data_ptr(), T, N, P, B, slots,
+                   BP)
     return packed, counts
 
 
@@ -497,11 +497,10 @@ def cloud_rows_unpacked(pts_h, planes_t, body_sc, misc, evals=None):
                          f"planes fit 227 KB of shared memory: P={P} B={B}")
     _evals_ok(evals, T, dev)
     out = torch.empty((T, 8, N), device=dev)
-    err = kernels.library().hts_cloud_rows_unpacked(
-        *[a.data_ptr() for a in args], out.data_ptr(),
-        0 if evals is None else evals.data_ptr(), T, N, P, B,
-        kernels.stream_ptr(dev))
-    kernels.check(err, "cloud_rows_unpacked")
+    kernels.launch(
+        "cloud_rows_unpacked", kernels.library().hts_cloud_rows_unpacked,
+        dev, *[a.data_ptr() for a in args], out.data_ptr(),
+        0 if evals is None else evals.data_ptr(), T, N, P, B)
     cloud_rows_unpacked.launches += 1
     return out
 
@@ -525,11 +524,10 @@ def cloud_vals_k(pts_h, planes_t, body_sc, misc, evals=None):
                          f"body_sc (T, 16, {BP}): B={B}")
     _evals_ok(evals, T, dev)
     out = torch.empty((T, 2, N), device=dev)
-    err = kernels.library().hts_cloud_vals(
+    kernels.launch(
+        "cloud_vals", kernels.library().hts_cloud_vals, dev,
         *[a.data_ptr() for a in args], out.data_ptr(),
-        0 if evals is None else evals.data_ptr(), T, N, P, B,
-        kernels.stream_ptr(dev))
-    kernels.check(err, "cloud_vals")
+        0 if evals is None else evals.data_ptr(), T, N, P, B)
     cloud_vals_k.launches += 1
     return out
 

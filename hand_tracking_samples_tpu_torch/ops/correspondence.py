@@ -139,10 +139,10 @@ def correspondence_reductions(pts_h, planes, d0):
     out = (torch.empty((T, B, N), **f32), torch.empty((T, B, N), **i32),
            torch.empty((T, B, N), **f32), torch.empty((T, B, N), **f32),
            torch.empty((T, B, N), **i32))
-    err = kernels.library().hts_correspondence(
+    kernels.launch(
+        "correspondence", kernels.library().hts_correspondence, dev,
         *[x.data_ptr() for x in args], *[o.data_ptr() for o in out],
-        T, B, P, N, kernels.stream_ptr(dev))
-    kernels.check(err, "correspondence")
+        T, B, P, N)
     correspondence_reductions.launches += 1
     return out
 

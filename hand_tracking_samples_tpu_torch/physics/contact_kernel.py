@@ -165,11 +165,10 @@ def contact_fields_raw(vw, nw, dw, aux, pairs, n_points: int,
         raise ValueError(f"contact kernel geometry too large: B={B} V={V} "
                          f"P={P} NP={NP} n_points={n_points}")
     out = torch.empty((T, NP, NCH, n_points), device=dev)
-    err = kernels.library().hts_contact_fields(
+    kernels.launch(
+        "contact_fields", kernels.library().hts_contact_fields, dev,
         *[x.data_ptr() for x in args], pairs32.data_ptr(), out.data_ptr(),
-        T, B, V, P, NP, n_points, refine_iters, float(np.float32(driftmax)),
-        kernels.stream_ptr(dev))
-    kernels.check(err, "contact_fields")
+        T, B, V, P, NP, n_points, refine_iters, float(np.float32(driftmax)))
     contact_fields_raw.launches += 1
     return out
 

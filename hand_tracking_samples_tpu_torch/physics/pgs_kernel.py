@@ -609,9 +609,8 @@ def pgs_solve(plan: SolvePlan, iterations: int, iterations_post: int, mom0,
         a.lin[k] = _class(c, r.data_ptr(), ids[k])
     for k, (c, r) in enumerate(zip(plan.ang_classes, ang_rows)):
         a.ang[k] = _class(c, r.data_ptr(), ids[nl + k])
-    err = kernels.library().hts_pgs_solve(ctypes.byref(a),
-                                          kernels.stream_ptr(dev))
-    kernels.check(err, "pgs_solve")
+    kernels.launch("pgs_solve", kernels.library().hts_pgs_solve, dev,
+                   ctypes.byref(a))
     pgs_solve.launches += 1
     kind = plan.key.split(":")[0]              # dyn, ms or uni
     if any(c.jacobi for c in plan.lin_classes):
@@ -620,13 +619,15 @@ def pgs_solve(plan: SolvePlan, iterations: int, iterations_post: int, mom0,
     return out
 
 
-def occupancy(plan: SolvePlan, bp: int) -> int:
-    """Tracks (blocks) an SM holds at once for this plan's layout with bp
-    body slots (a measurement; 0 if the kernel cannot hold it)."""
+def occupancy(plan: SolvePlan, bp: int, device) -> int:
+    """Tracks (blocks) an SM of card `device` holds at once for this plan's
+    layout with bp body slots (a measurement; 0 if the kernel cannot hold
+    it)."""
     a = _Args(CS=plan.CS, BP=bp, n_lin=len(plan.lin_classes),
               n_ang=len(plan.ang_classes))
     for k, c in enumerate(plan.lin_classes):
         a.lin[k] = _class(c)
     for k, c in enumerate(plan.ang_classes):
         a.ang[k] = _class(c)
-    return kernels.library().hts_pgs_occupancy(ctypes.byref(a))
+    return kernels.on_device(kernels.library().hts_pgs_occupancy, device,
+                             ctypes.byref(a))

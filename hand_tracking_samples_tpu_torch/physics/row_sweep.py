@@ -776,18 +776,18 @@ def row_sweep(mom0, massinv, rows: SweepRows, iterations: int,
               af.data_ptr(), stream.data_ptr(), steps.data_ptr(),
               out.data_ptr(), cyc, T, B,
               Rl, Ra, iterations, iterations_post, rows.jmax)
-    err = kernels.library().hts_row_sweep(ctypes.byref(a),
-                                          kernels.stream_ptr(dev))
-    kernels.check(err, "row_sweep")
+    kernels.launch("row_sweep", kernels.library().hts_row_sweep, dev,
+                   ctypes.byref(a))
     row_sweep.launches += 1
     if rows.jmax:
         row_sweep.kinds["jacobi"] = row_sweep.kinds.get("jacobi", 0) + 1
     return out
 
 
-def occupancy(rows: SweepRows, B: int) -> int:
-    """Tracks (blocks) an SM holds at once for these rows (a measurement;
-    0 if the kernel cannot hold them)."""
+def occupancy(rows: SweepRows, B: int, device) -> int:
+    """Tracks (blocks) an SM of card `device` holds at once for these rows
+    (a measurement; 0 if the kernel cannot hold them)."""
     a = _Args(B=B, n_lin=rows.lf.shape[1], n_ang=rows.af.shape[1],
               jmax=rows.jmax)
-    return kernels.library().hts_row_sweep_occupancy(ctypes.byref(a))
+    return kernels.on_device(kernels.library().hts_row_sweep_occupancy,
+                             device, ctypes.byref(a))

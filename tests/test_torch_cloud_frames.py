@@ -17,15 +17,22 @@ rows a body, 16+4 sweeps, exact contacts, boundary planes):
                    renders 5 and 12, track 0 at its ground truth, track 1
                    from the model's start pose, so FitError exceeds
                    full_reset_on_error and PoseFromScratch and the three
-                   UnibodyFits run.
+                   UnibodyFits run.  The same CNN frames on the
+                   sequential and colored solvers (use_pallas), each with
+                   the voxel cloud and with the cutting plane; JAX runs
+                   those one track at a time (its vmapped reference-solver
+                   frame may sum in another order,
+                   tests/test_torch_cnn_ref_frame.py), cached apart
+                   (cloudcnnref_*.json).
 
 The cutting plane is a tilted unit normal ~(0.3, -0.2, -0.93) through the
 median valid point of render 0: points under it (reflected), in its 2 cm
 band (dropped) and over it all occur.  Held: poses within 1e-5 m and
 quat_err 1e-4 (the port's frame bound, tests/test_torch_slice_jax.py); for
-the CNN frames also equal do_reset and take decisions, and kernel 2.5 (the
-16-channel pack) running 5 times a frame, 4 in MultiStepSim and 1 in the
-dynamics pass (counted through its plain version's calls on the CPU).
+the CNN frames also equal do_reset and take decisions, and on the kernel
+solver kernel 2.5 (the 16-channel pack) running 5 times a frame, 4 in
+MultiStepSim and 1 in the dynamics pass (counted through its plain
+version's calls on the CPU).
 
 The JAX frames take many minutes on the CPU (the Pallas kernels in
 interpret mode), so their results are cached as JSON text in
@@ -58,6 +65,8 @@ DYN = [("kernel", "voxel"), ("kernel", "mirror"), ("kernel", "voxel_mirror"),
        ("colored", "voxel"), ("colored", "mirror"),
        ("sequential", "mirror_nopallas")]
 CNN = ["mirror", "voxel"]
+CNN_REF = [("sequential", "voxel"), ("sequential", "mirror"),
+           ("colored", "voxel"), ("colored", "mirror")]
 DYN_FRAMES = (0, 12)
 CNN_FRAMES = (5, 12)
 
@@ -161,6 +170,78 @@ def jax_reference(hand_model):
     return out
 
 
+def jax_reference_ref_cnn(hand_model):
+    """The JAX package's CNN frames of CNN_REF on _inputs, one track at a
+    time, cached: "<solver>_<cloud>_<field>" with the fields of
+    jax_reference's CNN frames."""
+    _, _, _, cdepth, cposes = _inputs(hand_model)
+    with open(_cnnb(), "rb") as f:
+        wh = hashlib.sha1(f.read()).hexdigest()
+    h = hashlib.sha1(cdepth.tobytes() + cposes.tobytes() + wh.encode()
+                     + repr((CLOUDS, CNN_REF)).encode() + b"per track"
+                     ).hexdigest()[:12]
+    path = os.path.join(FIXTURES, "cache", f"cloudcnnref_{h}.json")
+    if os.path.exists(path):
+        with open(path) as f:
+            return {k: np.asarray(v, np.float32)
+                    for k, v in json.load(f).items()}
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+    from hand_tracking_samples_tpu.cnn.model import load_cnnb
+    from hand_tracking_samples_tpu.data.synth import synth_camera
+    from hand_tracking_samples_tpu.fitting.cloud import fit_error
+    from hand_tracking_samples_tpu.imaging.image_ops import (
+        cloud_from_depth, mirror_plane_split)
+    from hand_tracking_samples_tpu.physics.schedule import (
+        build_hand_schedule)
+    from hand_tracking_samples_tpu.tracker.config import TrackerConfig
+    from hand_tracking_samples_tpu.tracker.runtime import (
+        make_tracker_state, physics_params, update, update_cnn_model)
+    cam = synth_camera()
+    cnn = load_cnnb(_cnnb())
+    out = {}
+    for solver, cloud in CNN_REF:
+        cfg = _config(TrackerConfig, solver, cloud, cnn=True)
+        params = physics_params(cfg)
+        sched = (build_hand_schedule(hand_model, cfg.contacts_mode)
+                 if solver == "colored" else None)
+
+        def olderr(body, dd, cfg=cfg):
+            pts, mask = cloud_from_depth(dd, cam, 0.1, cfg.drangey,
+                                         cfg.subsample_fraction,
+                                         cfg.point_budget)
+            if cfg.mirror_plane:
+                pts, mask = mirror_plane_split(
+                    pts, mask, jnp.asarray(cfg.mirror_plane, jnp.float32))
+            return fit_error(body, hand_model, pts, mask, dd, cam,
+                             cfg.bone_sum_error_scale,
+                             use_kernel=cfg.use_pallas)
+        refit = jax.jit(lambda s, dd, cfg=cfg, params=params, sched=sched:
+                        update_cnn_model(s, hand_model, cnn, dd, cam, cfg,
+                                         params, schedule=sched)[0])
+        dyn = jax.jit(lambda s, dd, cfg=cfg, params=params: update(
+            s, hand_model, cnn, dd, cam, cfg, params, run_cnn=False)[0])
+        rec = {k: [] for k in ("olderror", "mid_pose", "final_pose")}
+        for i in range(len(CNN_FRAMES)):        # one track at a time
+            st = make_tracker_state(hand_model)
+            st = st._replace(body=st.body._replace(
+                pose=jnp.asarray(cposes[i])))
+            d = jnp.asarray(cdepth[i])
+            with pltpu.force_tpu_interpret_mode():
+                rec["olderror"].append(np.asarray(jax.jit(olderr)(st.body,
+                                                                   d)))
+                mid = refit(st, d)
+                final = dyn(mid, d)
+            rec["mid_pose"].append(np.asarray(mid.body.pose))
+            rec["final_pose"].append(np.asarray(final.body.pose))
+        for k, v in rec.items():
+            out[f"{solver}_{cloud}_{k}"] = np.stack(v)
+    with open(path, "w") as f:       # text: float32 values round-trip
+        json.dump({k: v.tolist() for k, v in out.items()}, f)
+    return out
+
+
 VOXEL_CURVE_FRAMES = {"kernel": 30, "sequential": 10}
 
 
@@ -258,8 +339,11 @@ def test_dynamics_frame_matches_jax(hand_model, port, ref, solver, cloud):
     _close(st.body.pose.numpy(), ref[f"{solver}_{cloud}"])
 
 
-@pytest.mark.parametrize("cloud", CNN)
-def test_cnn_frame_matches_jax(hand_model, port, ref, cloud, monkeypatch):
+@pytest.mark.parametrize("solver,cloud", [
+    pytest.param("kernel", c, id=c) for c in CNN] + [
+    pytest.param(s, c, id=f"{s}-{c}") for s, c in CNN_REF])
+def test_cnn_frame_matches_jax(hand_model, port, ref, solver, cloud,
+                               monkeypatch):
     from hand_tracking_samples_tpu_torch.cnn.model import load_cnnb
     from hand_tracking_samples_tpu_torch.data.synth import synth_camera
     from hand_tracking_samples_tpu_torch.fitting.cloud import fit_error
@@ -270,29 +354,44 @@ def test_cnn_frame_matches_jax(hand_model, port, ref, cloud, monkeypatch):
         batched_tracker_state, batched_update)
     from hand_tracking_samples_tpu_torch.tracker.config import (
         TrackerConfig)
+    from hand_tracking_samples_tpu_torch.tracker import runtime
     from hand_tracking_samples_tpu_torch.tracker.runtime import (
         frame_cloud, physics_params, update_cnn_model)
     _, _, _, depth, poses = _inputs(hand_model)
-    cfg = _config(TrackerConfig, "kernel", cloud, cnn=True)
+    cfg = _config(TrackerConfig, solver, cloud, cnn=True)
     cam = synth_camera()
     cnn = load_cnnb(_cnnb(), "cpu")
     d = depth_tensor(depth, "cpu")
     st = batched_tracker_state(port, 2)
     st = st._replace(body=st.body._replace(pose=torch.tensor(poses)))
-    # the CNN refit's cloud: the frame's cloud_from_depth, mirrored
-    ph = frame_cloud(d, cam, dataclasses.replace(cfg, subsample_voxel=0))
-    old = fit_error(st.body.pose, port, ph, d, cam,
-                    cfg.bone_sum_error_scale).numpy()
-    mid, _ = update_cnn_model(st, port, cnn, d, cam, cfg,
-                              physics_params(cfg))
-    calls = []
-    plain = cloud_rows.cloud_rows_packed_plain
-    monkeypatch.setattr(cloud_rows, "cloud_rows_packed_plain",
-                        lambda *a: calls.append(1) or plain(*a))
-    final, _ = batched_update(st, port, cnn, d, cam, cfg, run_cnn=True)
-    assert len(calls) == 5               # 4 MultiStepSim steps + dynamics
-
-    k = f"cnn_{cloud}_"
+    if solver == "kernel":
+        # the CNN refit's cloud: the frame's cloud_from_depth, mirrored
+        ph = frame_cloud(d, cam, dataclasses.replace(cfg, subsample_voxel=0))
+        old = fit_error(st.body.pose, port, ph, d, cam,
+                        cfg.bone_sum_error_scale).numpy()
+        mid, _ = update_cnn_model(st, port, cnn, d, cam, cfg,
+                                  physics_params(cfg))
+        calls = []
+        plain = cloud_rows.cloud_rows_packed_plain
+        monkeypatch.setattr(cloud_rows, "cloud_rows_packed_plain",
+                            lambda *a: calls.append(1) or plain(*a))
+        final, _ = batched_update(st, port, cnn, d, cam, cfg, run_cnn=True)
+        assert len(calls) == 5           # 4 MultiStepSim steps + dynamics
+        k = f"cnn_{cloud}_"
+    else:
+        # the FitError before the refit and the refit's state, recorded on
+        # their way through batched_update
+        seen = {"fit_error": [], "update_cnn_model": []}
+        for name in seen:
+            def spy(*a, _real=getattr(runtime, name), _out=seen[name], **kw):
+                _out.append(_real(*a, **kw))
+                return _out[-1]
+            monkeypatch.setattr(runtime, name, spy)
+        final, _ = batched_update(st, port, cnn, d, cam, cfg, run_cnn=True)
+        old = seen["fit_error"][0].numpy()
+        (mid, _), = seen["update_cnn_model"]
+        ref = jax_reference_ref_cnn(hand_model)
+        k = f"{solver}_{cloud}_"
     np.testing.assert_allclose(old, ref[k + "olderror"], rtol=1e-6)
     assert (old > cfg.full_reset_on_error).tolist() == [False, True]
     assert ((ref[k + "olderror"] > cfg.full_reset_on_error).tolist()
@@ -312,6 +411,7 @@ if __name__ == "__main__":
     hm = jax.tree_util.tree_map(jnp.asarray, load_hand_model(
         MODEL_JSON, cache_dir=os.path.join(FIXTURES, "cache")))
     print({k: v.shape for k, v in jax_reference(hm).items()})
+    print({k: v.shape for k, v in jax_reference_ref_cnn(hm).items()})
     curves = jax_voxel_curve(hm)
     # the port's plain path on the CPU on the same renders, against it
     from hand_tracking_samples_tpu.assets_paths import DEFAULT_ANIMBANK

@@ -18,7 +18,16 @@ writes the cache.
 
 Held: the two packages' do_reset and take decisions are equal, and the
 poses agree to 1e-5 m and quat_err 1e-4, the slice's tolerance
-(tests/test_torch_slice_jax.py)."""
+(tests/test_torch_slice_jax.py).
+
+The CNN curve: 3 consecutive CNN frames on the renders chip_smoke.py's
+phase 7 tracks (bank[30:33], here JAX's renders), T=2: track 0 started at
+bank[30] (the card's tracks on the hand), track 1 from initial_state (its
+reset tracks).  JAX runs one track at a time (as
+tests/test_torch_cnn_ref_frame.py does; its vmapped frame may sum in
+another order), cached as cnncurve_*.json; held per frame to the same
+tolerance, with each track's mean joint error against the animbank (the
+card's curve, PERF.md) beside JAX's."""
 import hashlib
 import json
 import os
@@ -181,6 +190,101 @@ def test_cnn_frame_matches_jax(frame):
     assert err < 0.02, err
 
 
+CURVE_BANK, CURVE_FRAMES = 30, 3
+
+
+def _curve_inputs(hand_model):
+    """(bank, depths (F, H, W) of bank[30:33], start poses (2, 17, 7))."""
+    from hand_tracking_samples_tpu.assets_paths import DEFAULT_ANIMBANK
+    from hand_tracking_samples_tpu.data.animbank import load_animbank
+    bank = load_animbank(DEFAULT_ANIMBANK)
+    ids = CURVE_BANK + np.arange(CURVE_FRAMES)
+    depth = cached_fake_depths(hand_model, np.asarray(bank[ids]),
+                               "cnn3").astype(np.uint16)
+    start = np.asarray(hand_model.start_pose, np.float32)
+    poses = np.stack([bank[CURVE_BANK], start]).astype(np.float32)
+    return bank, depth, poses
+
+
+def jax_curve(hand_model):
+    """JAX's poses after each of the CURVE_FRAMES CNN frames, one track at
+    a time: (F, 2, 17, 7), cached."""
+    _, depth, poses = _curve_inputs(hand_model)
+    with open(_cnnb(), "rb") as f:
+        wh = hashlib.sha1(f.read()).hexdigest()
+    h = hashlib.sha1(depth.tobytes() + poses.tobytes() + wh.encode()
+                     + repr(sorted(FULL.items())).encode()
+                     + b"per track").hexdigest()[:12]
+    path = os.path.join(FIXTURES, "cache", f"cnncurve_{h}.json")
+    if os.path.exists(path):
+        with open(path) as f:
+            return np.asarray(json.load(f), np.float32)
+    import jax
+    import jax.numpy as jnp
+    from hand_tracking_samples_tpu.cnn.model import load_cnnb
+    from hand_tracking_samples_tpu.data.synth import synth_camera
+    from hand_tracking_samples_tpu.parallel.tracks import (
+        batched_tracker_state, batched_update)
+    from hand_tracking_samples_tpu.tracker.config import TrackerConfig
+    from hand_tracking_samples_tpu.tracker.runtime import physics_params
+    cfg = TrackerConfig(**FULL)
+    params, cam, cnn = physics_params(cfg), synth_camera(), load_cnnb(_cnnb())
+    step = jax.jit(lambda s, d: batched_update(s, hand_model, cnn, d, cam,
+                                               cfg, params)[0])
+    out = np.zeros((CURVE_FRAMES, 2, 17, 7), np.float32)
+    for i in range(2):                       # one track at a time
+        st = batched_tracker_state(hand_model, 1)
+        st = st._replace(body=st.body._replace(
+            pose=jnp.asarray(poses[i:i + 1])))
+        for f in range(CURVE_FRAMES):
+            st = step(st, jnp.asarray(depth[f:f + 1]))
+            out[f, i] = np.asarray(st.body.pose[0])
+    with open(path, "w") as f:       # text: float32 values round-trip
+        json.dump(out.tolist(), f)
+    return out
+
+
+def test_cnn_curve_matches_jax(hand_model):
+    """Three consecutive CNN frames: every frame's poses within 1e-5 m and
+    quat_err 1e-4 of JAX's on both tracks; each track's per-frame mean
+    joint error (mm) equal to JAX's within 0.01 mm, the reset track on the
+    hand by the last frame (under 20 mm)."""
+    from hand_tracking_samples_tpu_torch.cnn.model import load_cnnb
+    from hand_tracking_samples_tpu_torch.data.synth import synth_camera
+    from hand_tracking_samples_tpu_torch.model.bake import from_numpy_model
+    from hand_tracking_samples_tpu_torch.ops.cloud_kernel import (
+        depth_tensor)
+    from hand_tracking_samples_tpu_torch.parallel.tracks import (
+        batched_tracker_state, batched_update)
+    from hand_tracking_samples_tpu_torch.tracker.config import TrackerConfig
+    ref = jax_curve(hand_model)
+    bank, depth, poses = _curve_inputs(hand_model)
+    model = from_numpy_model({k: np.asarray(v) for k, v in
+                              vars(hand_model).items()}, "cpu")
+    cfg, cam, cnn = TrackerConfig(**FULL), synth_camera(), load_cnnb(
+        _cnnb(), "cpu")
+    st = batched_tracker_state(model, 2)
+    st = st._replace(body=st.body._replace(pose=torch.tensor(poses)))
+    mine = []
+    for d in depth:
+        st, _ = batched_update(st, model, cnn,
+                               depth_tensor(np.stack([d, d]), "cpu"), cam,
+                               cfg)
+        mine.append(st.body.pose.numpy())
+    mine = np.stack(mine)
+    for f in range(CURVE_FRAMES):
+        assert np.abs(mine[f, ..., :3] - ref[f, ..., :3]).max() < 1e-5, f
+        assert quat_err(mine[f, ..., 3:].reshape(-1, 4),
+                        ref[f, ..., 3:].reshape(-1, 4)) < 1e-4, f
+    want = bank[CURVE_BANK:CURVE_BANK + CURVE_FRAMES, None, :, :3]
+
+    def joint_err_mm(p):
+        return np.linalg.norm(p[..., :3] - want, axis=-1).mean(-1) * 1e3
+    je, je_ref = joint_err_mm(mine), joint_err_mm(ref)
+    assert np.abs(je - je_ref).max() < 0.01, (je, je_ref)
+    assert je[-1, 1] < 20.0, je
+
+
 if __name__ == "__main__":
     import jax
     jax.config.update("jax_platforms", "cpu")
@@ -189,3 +293,4 @@ if __name__ == "__main__":
     hm = jax.tree_util.tree_map(jnp.asarray, load_hand_model(
         MODEL_JSON, cache_dir=os.path.join(FIXTURES, "cache")))
     print({k: v.shape for k, v in jax_reference(hm).items()})
+    print("curve", jax_curve(hm).shape)

@@ -127,7 +127,8 @@ def test_every_port_module_imports():
                  "apps.annotate", "apps.replay_track",
                  "apps.synthetic_track", "model.meshes", "cnn.layers",
                  "cnn.train", "native", "utils.checkpoint",
-                 "apps.train_cnn", "apps.export_dataset"):
+                 "apps.train_cnn", "apps.export_dataset",
+                 "parallel.mesh", "utils.profiling"):
         assert f"{pkg.__name__}.{name}" in names, name
     for name in names:
         importlib.import_module(name)
