@@ -198,6 +198,24 @@ Phases, each printing one line with its elapsed seconds:
      frames: peak memory, ms a frame, distance from use_pallas=True, a
      2-track CPU re-run; if T=512 does not fit, the peak it reached and
      the T that fits)
+ 22. the tools (hand_tracking_samples_tpu_torch.tools): the profiling
+     kernels of csrc/prof_cloud.cu (the cloud kernel cut after each stage
+     0-4, the sum kernel at 1-16 tracks a block and a track a block)
+     against their plain versions at T=4 on phase 4's renders and on
+     seeded rasters, then driven through their tools (prof_cloud_kernel,
+     prof_cloud_mt, prof_cloud_pre at T=512, one frame: every stage and
+     every tracks-a-block launched), then timed at T=512 on phase 4's
+     renders beside their plain versions, their bounds and the PyTorch sum
+     (stages 1-4 equal, stage 0 and the sums within P22_SUM_REL); then
+     every ported tool as a subprocess on the card at a small size
+     (P22_FIRST alone, then P22_TOOLS, then P22_LAST), each exiting 0
+     with its expected line: eval_fastdrift --tracks 8 held to phase 19's
+     fast-drift gates, eval_coldstart on every 8th start of the JAX
+     tool's 64 x 64 protocol for 8 frames (colored, EVAL_START_STEP=8,
+     EVAL_PROTOCOL_FRAMES=64) held to phase 19's cold-start gates,
+     prof_full at T=512 with its stage times in its --json
+     (prof_full.json beside this script's --json file, else under
+     build/)
 
 Each phase drives its path with the launch counts set to 0 just before it
 and reads them just after.  The line before the last is the kernels' JSON
@@ -438,6 +456,81 @@ P21_GATE = 2e-5
 P21_FRAMES = 4
 P21_STEPS = 20
 P21_NOPALLAS_FRAMES = 3
+# Phase 22: the tools.  The profiling kernels' rows in the kernels line:
+# name -> (the TPU kernel it replaces); all in csrc/prof_cloud.cu.  Stage
+# 0 and the sums add float32 products in float64 in one fixed order, as
+# their plain versions do in another: held to P22_SUM_REL relative.
+P22_SRC = f"{PORT}/csrc/prof_cloud.cu"
+P22_STAGES = {f"cloud_stage[{s}]": "tools/prof_cloud_kernel.py:38"
+              for s in range(5)}
+P22_TRK = (1, 2, 4, 8, 16)
+P22_SUMS = {**{f"group_sum[trk={k}]": "tools/prof_cloud_mt.py:35"
+               for k in P22_TRK}, "track_sum": "tools/prof_cloud_pre.py:29"}
+P22_SUM_REL = 1e-6
+P22_PATH_ENV = dict(PROF_TRACKS="512", PROF_FRAMES="1", PROF_REPS="1")
+P22_WORKERS = 8           # tool subprocesses at a time
+# Three batches of tool subprocesses: prof_full at T=512, alone on the
+# card and the host (its stage times go into PERF.md); every other ported
+# tool at a small size, P22_WORKERS at a time; then train_finetune, which
+# reads eval_coldstart's dump.  Each is (label, module, arguments,
+# environment, a regular expression its output must match); {out} is a
+# temporary directory, {json} prof_full's --json
+P22_FIRST = ("prof_full", "prof_full", ("--json", "{json}"),
+             dict(PROF_TRACKS="512", PROF_FRAMES="3", PROF_REPS="3"),
+             r"cloud\(N,3\) +[\d.]+ ms/frame")
+_A = ("--out", "{out}/artifacts")
+P22_TOOLS = (
+    ("eval_artifacts fastdrift", "eval_artifacts", ("fastdrift", *_A),
+     dict(EVAL_TRACKS="8", EVAL_FRAMES="4"), r"wrote"),
+    ("eval_artifacts coldstart", "eval_artifacts", ("coldstart", *_A),
+     dict(EVAL_TRACKS="8", EVAL_FRAMES="4"), r"coldstart_r04.json"),
+    ("eval_artifacts dyntrack", "eval_artifacts", ("dyntrack", *_A),
+     dict(EVAL_FRAMES="4"), r"dyntrack_kernel_r04.json"),
+    ("eval_artifacts cnntrack_kernel", "eval_artifacts",
+     ("cnntrack_kernel", *_A), dict(EVAL_FRAMES="4"),
+     r"cnntrack_kernel_r04.json"),
+    # every 8th start of the JAX tool's 64 x 64 protocol, 8 frames, on the
+    # colored solver: phase 19's gate (test_coldstart_gate)
+    ("eval_coldstart", "eval_coldstart", ("--out", "{out}"),
+     dict(EVAL_TRACKS="8", EVAL_START_STEP="8", EVAL_PROTOCOL_FRAMES="64",
+          EVAL_FRAMES="8", EVAL_SOLVER="colored", EVAL_DUMP="cold.npz"),
+     r"cold-start after 8"),
+    ("eval_accum_threshold", "eval_accum_threshold", ("--out", "{out}"),
+     dict(EVAL_FRAMES="8"), r"accum_threshold_r04.json"),
+    ("eval_cap_recorded", "eval_cap_recorded", (), dict(EVAL_FRAMES="8"),
+     r"^kernel cap=128: mean je [\d.]+ mm[\s\S]*^kernel cap=256: mean je "
+     r"[\d.]+ mm[\s\S]*^colored cap=512: mean je [\d.]+ mm"),
+    ("profile_cnn_frame", "profile_cnn_frame", (), dict(BENCH_TRACKS="64"),
+     r"update run_cnn=True"),
+    ("prof_trace", "prof_trace", ("cloud", "--out", "{out}"),
+     dict(PROF_TRACKS="64", PROF_FRAMES="1"), r"== cloud: device total"),
+    ("eval_fastdrift", "eval_fastdrift",
+     ("--tracks", "8", "--json", "{out}/fastdrift.json"), {},
+     r"per-track final"),
+    ("eval_coldstart_modes", "eval_coldstart_modes", (),
+     dict(MODE="gated", EVAL_TRACKS="8", EVAL_FRAMES="4"), r"MODE=gated"),
+    ("profile_frame", "profile_frame", (),
+     dict(BENCH_TRACKS="64", BENCH_FRAMES="2"), r"chamber total"),
+    ("profile_stages", "profile_stages", (), dict(BENCH_TRACKS="64"),
+     r"1\+1 iters"),
+    ("check_pgs_kernel", "check_pgs_kernel", (), {}, r"^OK$"),
+    ("dyn_colored_ctrl", "dyn_colored_ctrl", (), dict(EVAL_FRAMES="8"),
+     r"^\[[\d., ]+\]$"),
+    ("train_v3", "train_v3", ("--out", "{out}"),
+     dict(TRAIN_FRAMES="64", TRAIN_AUG="1", TRAIN_STEPS="20",
+          TRAIN_BATCH="16", TRAIN_CACHE=""), r"saved .*v3.cnnb"),
+    ("prof_cloud_kernel", "prof_cloud_kernel", (),
+     dict(PROF_TRACKS="64", PROF_FRAMES="2"), r"stage 5: +[\d.]+ ms/frame"),
+    ("prof_cloud_mt", "prof_cloud_mt", (),
+     dict(PROF_TRACKS="64", PROF_FRAMES="2"), r"tracks/instance +16:"),
+    ("prof_cloud_pre", "prof_cloud_pre", (),
+     dict(PROF_TRACKS="64", PROF_FRAMES="2"), r"current: +[\d.]+"),
+    ("prof_cloud_epi", "prof_cloud_epi", (),
+     dict(PROF_TRACKS="64", PROF_FRAMES="2"), r"deproject +:"),
+)
+P22_LAST = ("train_finetune", "train_finetune", ("--out", "{out}"),
+            dict(FT_DUMP="cold.npz", FT_FRAMES="64", FT_STEPS="20",
+                 FT_BATCH="16", FT_CACHE=""), r"saved .*v5.cnnb")
 # the port kernels' entry names, one of which the trace must show
 PORT_KERNEL_SYMBOLS = ("cloud_from_depth_kernel", "cloud_rows_pack_kernel",
                        "contact_fields_kernel", "pgs_kernel")
@@ -4317,6 +4410,238 @@ class Smoke:
                                ("use_pallas=False, T=512",
                                 self.p21_nopallas)))
 
+    # ---- phase 22: the tools ------------------------------------------------
+    def p22_hold(self, label, a, b, rel):
+        """a (kernel) against b (plain): equal, or within rel of b where
+        rel > 0; returns the largest absolute difference."""
+        torch = self.torch
+        err = (a - b).abs().max().item()
+        if rel:
+            ok = bool(((a - b).abs() <= rel * b.abs()).all())
+        else:
+            ok = torch.equal(a, b)
+        check(ok, f"{label}: kernel against plain {err}")
+        return err
+
+    def p22_compare(self, draw, label, timed=False):
+        """Kernels 9-11 against their plain versions on draw (T, 600,
+        128); with timed, each timed beside its plain version, its bound
+        and (kernels 10-11) the PyTorch sum, into the kernels rows."""
+        torch = self.torch
+        from hand_tracking_samples_tpu_torch.tools import (
+            prof_cloud_kernel as pk, prof_cloud_mt as pm, prof_cloud_pre as pp)
+        T = draw.shape[0]
+        scal = pk.scalars()
+        out = {}
+        calls = [(f"cloud_stage[{s}]", (lambda s=s: pk.cloud_stage(
+            draw, scal, s)), (lambda s=s: pk.stage_plain(draw, scal, s)),
+            None, P22_SUM_REL if s == 0 else 0, draw.numel() * 4
+            + T * pk.BUDGET * 8 * 4, draw.numel() * (2 if s == 0 else 4))
+            for s in range(5)]
+        for trk in P22_TRK:
+            if T % trk:
+                continue
+            x = draw.reshape(T // trk, -1, 128)
+            calls.append((f"group_sum[trk={trk}]",
+                          lambda x=x: pm.group_sum(x),
+                          lambda x=x: pm.group_sum_plain(x),
+                          lambda x=x: (x * 0.001).sum((-2, -1)),
+                          P22_SUM_REL, x.numel() * 4 + x.shape[0] * 4096,
+                          x.numel() * 2))
+        calls.append(("track_sum", lambda: pp.track_sum(draw),
+                      lambda: pm.group_sum_plain(draw),
+                      lambda: (draw * 0.001).sum((-2, -1)), P22_SUM_REL,
+                      draw.numel() * 4 + T * 4096, draw.numel() * 2))
+        for name, kern, plain, lib, rel, nbytes, ops in calls:
+            if not timed:
+                out[name] = self.p22_hold(f"{name} {label}", kern(),
+                                          plain(), rel)
+                continue
+            ms, a = self.event_ms(kern, (), 3, 20)
+            pms, b = self.event_ms(plain, (), 1, 3)
+            lms = self.event_ms(lib, (), 3, 20)[0] if lib else None
+            bb, bo = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_S * 1e3
+            self.results[name].update(
+                max_abs_err=self.p22_hold(f"{name} {label}", a, b, rel),
+                ms=ms, plain_ms=pms, library_ms=lms, bound_ms=max(bb, bo),
+                bound_by="bytes" if bb >= bo else "operations")
+            out[name] = ms
+        return out
+
+    def p22_small(self):
+        """At T=4 on phase 4's renders and on seeded rasters."""
+        from hand_tracking_samples_tpu_torch.ops.cloud_kernel import (
+            depth_tensor, synthetic_depths)
+        from hand_tracking_samples_tpu_torch.tools.common import to_raster
+        errs = {}
+        for label, depth in (
+                ("renders", self.depth_frame(0, 4)),
+                ("seeded", depth_tensor(synthetic_depths(
+                    4, 240, 320, seed=22), self.dev))):
+            for k, v in self.p22_compare(to_raster(depth), label).items():
+                errs[k] = max(errs.get(k, 0.0), v)
+        self.p22["t4_max_abs_err"] = errs
+        return f"{len(errs)} kernels held, largest error {max(errs.values())}"
+
+    def p22_path(self):
+        """The tools' path: prof_cloud_kernel (stages 0-4), prof_cloud_mt
+        and prof_cloud_pre at T=512, one frame, in this process with the
+        launch counts set to 0 just before: every kernel launched."""
+        from hand_tracking_samples_tpu_torch import kernels
+        from hand_tracking_samples_tpu_torch.tools import (
+            prof_cloud_kernel as pk, prof_cloud_mt as pm, prof_cloud_pre as pp)
+        saved = {k: os.environ.get(k) for k in P22_PATH_ENV}
+        os.environ.update(P22_PATH_ENV)
+        try:
+            self.torch.cuda.synchronize()
+            kernels.reset_counts()
+            times = dict(stages=pk.main(["0", "1", "2", "3", "4"]),
+                         mt=pm.main([]), pre=pp.main([]))
+            self.torch.cuda.synchronize()
+            counts = dict(kernels.counts())
+            kinds = {k: dict(kernels.WRAPPERS[k].kinds)
+                     for k in ("cloud_stage", "group_sum")}
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        launches = {**{f"cloud_stage[{s}]": kinds["cloud_stage"].get(s, 0)
+                       for s in range(5)},
+                    **{f"group_sum[trk={k}]": kinds["group_sum"].get(k, 0)
+                       for k in P22_TRK},
+                    "track_sum": counts["track_sum"]}
+        for name, n in launches.items():
+            check(n > 0, f"{name} was not launched on the tools' path")
+            self.results.setdefault(name, {})["launches"] = n
+        self.p22["path"] = dict(ms_per_frame=times, launches=launches)
+        return f"launches {launches}; ms a frame {times}"
+
+    def p22_timing(self):
+        """At T=512 on phase 4's renders (frame 0), timed; on seeded
+        rasters, held."""
+        from hand_tracking_samples_tpu_torch.ops.cloud_kernel import (
+            depth_tensor, synthetic_depths)
+        from hand_tracking_samples_tpu_torch.tools.common import to_raster
+        ms = self.p22_compare(to_raster(self.depth_frame(0, TRACKS)),
+                              "T=512", timed=True)
+        self.p22_compare(to_raster(depth_tensor(synthetic_depths(
+            TRACKS, 240, 320, seed=23), self.dev)), "seeded T=512")
+        return "; ".join(
+            f"{k} {v:.4f} ms (plain {self.results[k]['plain_ms']:.3f}, "
+            f"bound {self.results[k]['bound_ms']:.4f}"
+            + (f", library {self.results[k]['library_ms']:.4f}"
+               if self.results[k].get("library_ms") else "") + ")"
+            for k, v in ms.items()) + f" ({self.smi})"
+
+    def p22_run_tools(self, tools, out, json_path):
+        """The tools as subprocesses on the card, P22_WORKERS at a time:
+        {label: (seconds, stdout)}; fails, after every tool has run,
+        unless each exited 0 and printed its expected line."""
+        import re
+        pending, running, done, bad = list(tools), {}, {}, []
+        try:
+            while pending or running:
+                while pending and len(running) < P22_WORKERS:
+                    t = pending.pop(0)
+                    label, mod, argv, env, _ = t
+                    args = [a.format(out=out, json=json_path) for a in argv]
+                    running[label] = (t, time.perf_counter(),
+                                      subprocess.Popen(
+                        [sys.executable, "-m", f"{PORT}.tools.{mod}",
+                         *args], cwd=REPO, stdout=subprocess.PIPE,
+                        stderr=subprocess.PIPE, text=True,
+                        env={**os.environ, **env}))
+                time.sleep(0.2)
+                for label in [k for k, v in running.items()
+                              if v[2].poll() is not None]:
+                    t, t0, proc = running.pop(label)
+                    stdout, stderr = proc.communicate()
+                    done[label] = (time.perf_counter() - t0, stdout)
+                    print(f"  tool {label}: exit {proc.returncode}, "
+                          f"{done[label][0]:.1f} s", flush=True)
+                    if proc.returncode != 0:
+                        bad.append(f"{label}: exit {proc.returncode}: "
+                                   f"{stderr[-600:]}")
+                    elif not re.search(t[4], stdout, re.M):
+                        bad.append(f"{label}: no line {t[4]!r} in "
+                                   f"{stdout[-600:]}")
+        finally:
+            for _, _, proc in running.values():
+                proc.kill()
+        check(not bad, "tools failed: " + " | ".join(bad))
+        return done
+
+    def p22_tools(self):
+        """Every ported tool as a subprocess on the card (P22_FIRST alone,
+        then P22_TOOLS, then P22_LAST), the fast-drift and cold-start
+        tools at phase 19's gates, prof_full's stage times kept."""
+        import tempfile
+        np = self.np
+        json_path = os.path.join(os.path.dirname(self.trace_dir),
+                                 "prof_full.json")
+        self.torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as out:
+            done = self.p22_run_tools((P22_FIRST,), out, json_path)
+            done.update(self.p22_run_tools(P22_TOOLS, out, json_path))
+            done.update(self.p22_run_tools((P22_LAST,), out, json_path))
+            with open(os.path.join(out, "fastdrift.json")) as f:
+                fd = json.load(f)
+            cold = np.load(os.path.join(out, "cold.npz"))["errs"]
+            arts = sorted(os.listdir(os.path.join(out, "artifacts")))
+            with open(os.path.join(out, "artifacts",
+                                   "fastdrift_r04.json")) as f:
+                self.p22["attribution"] = json.load(f).get("attribution")
+        with open(json_path) as f:
+            stages = json.load(f)["ms_per_frame"]
+        self.p22["prof_full"] = stages
+        self.p22["tools_s"] = {k: v[0] for k, v in done.items()}
+        self.p22["tools_tail"] = {k: v[1].strip().splitlines()[-12:]
+                                  for k, v in done.items()}
+        # phase 19's gates (fastdrift, coldstart)
+        with open(os.path.join(REPO, "tests", "fixtures",
+                               "fastdrift_ref.json")) as f:
+            ref = np.asarray(json.load(f)["final_err_per_track"])[:8]
+        fin = np.asarray(fd["final_err_per_track_mm"]) / 1e3
+        for t in range(8):
+            ok = (abs(fin[t] - ref[t]) < max(0.004, 0.5 * ref[t])
+                  if ref[t] < 0.02 else fin[t] < 1.6 * ref[t] + 0.01)
+            check(ok, f"eval_fastdrift track {t}: {fin[t] * 1e3:.1f} mm, "
+                  f"the reference's {ref[t] * 1e3:.1f}")
+        ratio = fin.mean() / ref.mean()
+        check(0.6 < ratio < 1.4, f"eval_fastdrift: ratio {ratio:.2f}")
+        means, final = cold.mean(1), cold[-1]
+        check(means[0] < 0.045 and means[-1] < 0.0075
+              and np.median(final) < 0.003 and (final < 0.008).sum() >= 5
+              and means[-1] < 0.4 * means[0],
+              f"eval_coldstart: means {np.round(means * 1e3, 2)} mm, "
+              f"finals {np.round(final * 1e3, 2)} mm")
+        self.p22["gates"] = dict(fastdrift_final_mm=(fin * 1e3).tolist(),
+                                 fastdrift_ratio=float(ratio),
+                                 coldstart_mean_mm=(means * 1e3).tolist(),
+                                 coldstart_final_mm=(final * 1e3).tolist())
+        print(f"prof_full T=512 ms a frame ({self.smi}): "
+              + json.dumps(stages), flush=True)
+        return (f"{len(done)} tools in "
+                f"{sum(v[0] for v in done.values()):.0f} s of subprocess "
+                f"time; fast drift ratio {ratio:.3f}; cold start means "
+                f"{np.round(means * 1e3, 2)} mm; artifacts {arts}")
+
+    def phase22(self):
+        """Phase 22: the tools and their kernels."""
+        self.p22 = {}
+        for k in (*P22_STAGES, *P22_SUMS):
+            self.results.setdefault(k, {})
+        if getattr(self, "cnn", None) is None:
+            self.cnn_setup()
+        return self.parts(22, (("kernels at T=4", self.p22_small),
+                               ("the tools' path", self.p22_path),
+                               ("kernels at T=512", self.p22_timing),
+                               ("tools", self.p22_tools)))
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--json", help="also write every measured number to "
@@ -4423,6 +4748,7 @@ def main(argv=None) -> int:
     phase(19, "C++ goldens", s.phase19)
     phase(20, "training and the flywheel", s.phase20)
     phase(21, "scale-out and profiling", s.phase21)
+    phase(22, "tools", s.phase22)
     s.results["row_sweep[colored]"]["launches"] = \
         s.ref_speed["colored"]["launches"]["row_sweep"]
     record["total_s"] = time.perf_counter() - t_all
@@ -4451,6 +4777,14 @@ def main(argv=None) -> int:
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": None})
+    for name, rep in {**P22_STAGES, **P22_SUMS}.items():   # phase 22
+        r = s.results[name]
+        rows.append({"name": name, "route": "cuda", "source": P22_SRC,
+                     "replaces": rep, "launches": r["launches"],
+                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                     "bound_by": r["bound_by"],
+                     "library_ms": r["library_ms"]})
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
                     exist_ok=True)
@@ -4469,7 +4803,7 @@ def main(argv=None) -> int:
                            slowfit_speed=s.slowfit_speed,
                            slowfit_shapes=s.slowfit_shapes,
                            phase18=s.p18, phase19=s.p19, phase20=s.p20,
-                           phase21=s.p21),
+                           phase21=s.p21, phase22=s.p22),
                       f, indent=1, default=str)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

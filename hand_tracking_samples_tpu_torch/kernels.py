@@ -18,7 +18,9 @@ memory into the build log (`BUILD_INFO["log"]`, `ptxas_summary`).
 
 Each kernel wrapper (ops/cloud_kernel.py, ops/cloud_rows.py (four),
 ops/correspondence.py, physics/contact_kernel.py, physics/pgs_kernel.py,
-physics/row_sweep.py) registers itself here with
+physics/row_sweep.py, and the profiling tools' three in
+tools/prof_cloud_kernel.py, prof_cloud_mt.py and prof_cloud_pre.py)
+registers itself here with
 `wrapper(name)`; its `launches` attribute counts the launches it made.
 Every launch goes through `launch`, which makes the tensors' card the
 current device.
@@ -157,13 +159,16 @@ def _declare(lib):
     lib.hts_row_sweep.argtypes = [P, P]
     lib.hts_row_sweep_occupancy.argtypes = [P]
     lib.hts_pgs_occupancy.argtypes = [P]
+    lib.hts_cloud_stage.argtypes = [P, P, I, I, I, I, I, I, F, F, F, P]
+    lib.hts_group_sum.argtypes = [P, P, I, ctypes.c_longlong, F, P]
     for fn in (lib.hts_cloud_from_depth, lib.hts_cloud_rows_solve,
                lib.hts_cloud_rows_packed, lib.hts_cloud_rows_unpacked,
                lib.hts_cloud_vals,
                lib.hts_contact_fields,
                lib.hts_pgs_solve, lib.hts_correspondence,
                lib.hts_row_sweep, lib.hts_row_sweep_occupancy,
-               lib.hts_pgs_occupancy):
+               lib.hts_pgs_occupancy, lib.hts_cloud_stage,
+               lib.hts_group_sum):
         fn.restype = ctypes.c_int
 
 
@@ -206,6 +211,11 @@ def launch(name: str, entry, device, *args):
     """Launch C entry point `entry` on `device`: its arguments, then the
     device's current stream; raises when it fails."""
     check(on_device(entry, device, *args, stream_ptr(device)), name)
+
+
+class KernelLimit(ValueError):
+    """A shape outside a kernel's limits (ROADMAP, "Limits of the
+    kernels"), which its wrapper refuses rather than launch."""
 
 
 def require_cuda(*tensors):

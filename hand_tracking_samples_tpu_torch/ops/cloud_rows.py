@@ -350,8 +350,9 @@ def _pack_launch(pts_h, planes_t, body_sc, misc, slots: int, parity: bool):
     T, _, N = pts_h.shape
     P, B = planes_t.shape[1] // 5, planes_t.shape[2]
     if N % 32 or N > 2048 or 5 * P * B > 8192 or B > BP:
-        raise ValueError(f"cloud_rows kernel takes N % 32 == 0, N <= 2048, "
-                         f"5*P*B <= 8192: N={N} P={P} B={B}")
+        raise kernels.KernelLimit(
+            f"cloud_rows kernel takes N % 32 == 0, N <= 2048, "
+            f"5*P*B <= 8192: N={N} P={P} B={B}")
     packed = torch.empty((T, PACK_CH if parity else CH, BP * slots),
                          device=dev)
     counts = torch.empty((T, BP), device=dev)

@@ -105,54 +105,62 @@ def solve_inputs(state: BodyState, bodies, single_rows, plan,
         assert s_all is not None and s_all.shape[1] == plan.CS, (
             plan.key, None if s_all is None else s_all.shape)
 
-    # ---- pair-class channels, tracks-last ----
-    lin_chans = []
-    (jb0, jb1, n, r0, r1, td, tsnb, fmin, fmax, fcoef, act) = \
-        rp.joint_lin_geometry(P, model_np)
-    lin_chans.append(rp.prep_lin_channels(
-        P, jb0, jb1, hmi, dt, n, r0, r1, td, tsnb, fmin, fmax, fcoef, act))
+    # ---- pair-class planes, tracks-last ----
+    lin_g, ang_g = pair_factories(state, plan, params, model, P, mode, aa,
+                                  drive_force)
+    lin_planes, ang_planes = pair_preps(P, lin_g, ang_g, plan, dt, hmi)
+
+    return dict(mom0=mom0, mi=mi, singles=s_all, lin_rows=lin_planes,
+                ang_rows=ang_planes, P=P)
+
+
+def pair_factories(state: BodyState, plan, params: PhysicsParams, model, P,
+                   mode: str = "dyn", aa=None, drive_force: float = 0.0):
+    """The pair classes' row factories of one solve (the work the JAX
+    package's HTS_ZERO_PLANES switch let XLA drop): the joints' nailed
+    geometry, the contacts (kernel 3 and their geometry) when the plan has
+    them, and the mode's angular rows.  Returns (linear, angular): per
+    class the (b0, b1, *fields) tuple its prep takes (pair_preps)."""
+    model_np = model.np
+    lin = [rp.joint_lin_geometry(P, model_np)]
     if len(plan.lin_classes) > 1:
         from .contact_kernel import contact_fields
         fields = contact_fields(state.pose, state.linear_momentum,
                                 state.angular_momentum, model, params,
                                 CONTACT_POINTS)
         pairs_np = np.asarray(model_np["collide_pairs"])
-        (cb0, cb1, n, r0, r1, td, tsnb, fmin, fmax, fcoef, act) = \
-            rp.contact_geometry(fields, pairs_np, params, 0.6,
-                                CONTACT_POINTS)
-        lin_chans.append(rp.prep_lin_channels(
-            P, cb0, cb1, hmi, dt, n, r0, r1, td, tsnb, fmin, fmax, fcoef,
-            act))
-    ang_chans = []
+        lin.append(rp.contact_geometry(fields, pairs_np, params, 0.6,
+                                       CONTACT_POINTS))
+    ang = []
     if mode != "dyn":
         palmq_b, clenched_b, camq_b = aa
         palmq = [palmq_b[:, c][None, :] for c in range(4)]
         camq = [camq_b[:, c][None, :] for c in range(4)]
         if mode == "ms_angles":
-            dax, dspin, dmint, dmaxt, dact = rp.apply_angles_drive(
-                P, palmq, camq, drive_force, params)
-            ang_chans.append(rp.prep_ang_channels(
-                P, np.asarray([-1] * 3), np.asarray([1] * 3), dt, dax,
-                dspin, dmint, dmaxt, dact))
-            cb0, cb1, *cone = rp.apply_angles_cones(P, clenched_b.T,
-                                                    model_np, params)
-            ang_chans.append(rp.prep_ang_channels(P, cb0, cb1, dt, *cone))
-        mb0, mb1, *arm = rp.armdir_cone(P, camq, params)
-        ang_chans.append(rp.prep_ang_channels(P, mb0, mb1, dt, *arm))
+            ang.append((np.asarray([-1] * 3), np.asarray([1] * 3),
+                        *rp.apply_angles_drive(P, palmq, camq, drive_force,
+                                               params)))
+            ang.append(tuple(rp.apply_angles_cones(P, clenched_b.T,
+                                                   model_np, params)))
+        ang.append(tuple(rp.armdir_cone(P, camq, params)))
     rmin, rmax = rp.enhancement_ranges(P, model_np)
-    (ab0, ab1, axis, spins, mints, maxts, aact) = rp.joint_ang_geometry(
-        P, model_np, params, rmin, rmax)
-    ang_chans.append(rp.prep_ang_channels(P, ab0, ab1, dt, axis, spins,
-                                          mints, maxts, aact))
-    assert len(lin_chans) == len(plan.lin_classes), plan.key
-    assert len(ang_chans) == len(plan.ang_classes), plan.key
-    lin_planes = [rp.phase_planes_t(ch, cls)
-                  for ch, cls in zip(lin_chans, plan.lin_classes)]
-    ang_planes = [rp.phase_planes_t(ch, cls)
-                  for ch, cls in zip(ang_chans, plan.ang_classes)]
+    ang.append(rp.joint_ang_geometry(P, model_np, params, rmin, rmax))
+    assert len(lin) == len(plan.lin_classes), plan.key
+    assert len(ang) == len(plan.ang_classes), plan.key
+    return lin, ang
 
-    return dict(mom0=mom0, mi=mi, singles=s_all, lin_rows=lin_planes,
-                ang_rows=ang_planes, P=P)
+
+def pair_preps(P, lin, ang, plan, dt, hmi):
+    """The pair classes' preps: each factory's rows (pair_factories) into
+    its solve channels, then into the PGS kernel's phase planes.  Returns
+    (linear planes, angular planes)."""
+    lin_planes = [rp.phase_planes_t(rp.prep_lin_channels(
+        P, g[0], g[1], hmi, dt, *g[2:]), cls)
+        for g, cls in zip(lin, plan.lin_classes)]
+    ang_planes = [rp.phase_planes_t(rp.prep_ang_channels(
+        P, g[0], g[1], dt, *g[2:]), cls)
+        for g, cls in zip(ang, plan.ang_classes)]
+    return lin_planes, ang_planes
 
 
 def integrate(out, P, model_np, dt) -> BodyState:

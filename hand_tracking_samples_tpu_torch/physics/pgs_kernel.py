@@ -316,13 +316,26 @@ def pgs_solve_plain(plan: SolvePlan, iterations: int, iterations_post: int,
     T, _, bp = mom0.shape
     dev = mom0.device
     mom = mom0.clone()
-    CS = plan.CS
-    isum_s = torch.zeros((T, CS, bp), device=dev)
-    lin_isum = [torch.zeros((T, c.n_phases, c.W), device=dev)
+    lin_isum = [[torch.zeros((T, c.W), device=dev)] * c.n_phases
                 for c in plan.lin_classes]
-    ang_torq = [torch.zeros((T, c.n_phases, c.W), device=dev)
+    ang_torq = [[torch.zeros((T, c.W), device=dev)] * c.n_phases
                 for c in plan.ang_classes]
+    # each phase's columns, sliced once (the ts columns negated where the
+    # sweep negates them)
+    lin_cols = [[(b[:, 0:3], b[:, 3:6], b[:, 6:9], b[:, 9:12], b[:, 12:15],
+                  -b[:, 16], -b[:, 17], b[:, 15], b[:, 18], b[:, 19],
+                  b[:, 20], b[:, 21:22], b[:, 22:23])
+                 for b in rows.unbind(1)] for rows in lin_rows]
+    ang_cols = [[(b[:, 0:3], b[:, 3:6], b[:, 6:9], b[:, 9], b[:, 10],
+                  b[:, 11], b[:, 12], b[:, 13])
+                 for b in rows.unbind(1)] for rows in ang_rows]
     nact = _slot_count(singles)
+    # each active slot's columns, sliced once: n, K, J, -ts, -ts (post),
+    # the inverse diagonal, lo, hi; and its impulse sum
+    slot_cols = [(b[:, 0:3], b[:, 6:9], b[:, 3:6], -b[:, 10], -b[:, 11],
+                  b[:, 9], b[:, 12], b[:, 13])
+                 for b in singles[:, :nact].unbind(1)] if nact else []
+    isum_s = [torch.zeros((T, bp), device=dev) for _ in range(nact)]
     gact = []
     for cls, rows in zip(plan.lin_classes, lin_rows):
         if cls.friction:
@@ -371,25 +384,25 @@ def pgs_solve_plain(plan: SolvePlan, iterations: int, iterations_post: int,
             out[:, :, w_idx] = v * mi0_full[b_idx] if scale else v
         return out
 
-    def single_slot(c, post):
-        blk = singles[:, c]                                 # (T, 14, bp)
-        lin = mom[:, 0:3]
-        ang = mom[:, 3:6]
-        n = blk[:, 0:3]
-        ln = lin * n
-        ak = ang * blk[:, 6:9]
-        vn = (ln[:, 0] + ln[:, 1] + ln[:, 2]) * mi + ak[:, 0] + ak[:, 1] \
-            + ak[:, 2]
-        ts = blk[:, 11 if post else 10]
-        imp = (-ts - vn) * blk[:, 9]
-        isc = isum_s[:, c]
-        imp = torch.minimum(imp, blk[:, 13] - isc)
-        imp = torch.maximum(imp, blk[:, 12] - isc)
-        isum_s[:, c] = isc + imp
-        mom[:, 0:3] = lin + n * imp[:, None]
-        mom[:, 3:6] = ang + blk[:, 3:6] * imp[:, None]
+    def single_slots(post):
+        """The single-body slots in order, every body at once."""
+        lin, ang = mom[:, 0:3], mom[:, 3:6]
+        for c, (n, K, J, nts, nts_post, d, lo, hi) in enumerate(slot_cols):
+            ln0, ln1, ln2 = (lin * n).unbind(1)
+            ak0, ak1, ak2 = (ang * K).unbind(1)
+            vn = (ln0 + ln1 + ln2) * mi + ak0 + ak1 + ak2
+            imp = ((nts_post if post else nts) - vn) * d
+            isc = isum_s[c]
+            imp = torch.minimum(imp, hi - isc)
+            imp = torch.maximum(imp, lo - isc)
+            isum_s[c] = isc + imp
+            imp = imp[:, None]
+            lin = lin + n * imp
+            ang = ang + J * imp
+        mom[:, 0:3] = lin
+        mom[:, 3:6] = ang
 
-    def lin_group(cls, rows, isum, unit, g, post):
+    def lin_group(cls, cols, isum, unit, g, post):
         U, W = cls.U, cls.W
         w0, b0, w1, b1 = unit
         l0m = gather(slice(0, 3), w0, b0, W, True)
@@ -399,23 +412,21 @@ def pgs_solve_plain(plan: SolvePlan, iterations: int, iterations_post: int,
         sv = None
         for u in range(U):
             p = g * U + u
-            blk = rows[:, p]                                # (T, 23, W)
-            n = blk[:, 0:3]
-            J0, J1 = blk[:, 3:6], blk[:, 6:9]
-            K0, K1 = blk[:, 9:12], blk[:, 12:15]
-            vn3 = (l1m - l0m) * n + a1 * K1 - a0 * K0
-            vn = vn3[:, 0] + vn3[:, 1] + vn3[:, 2]
-            imp = (-blk[:, 17 if post else 16] - vn) * blk[:, 15]
-            isc = isum[:, p]
+            (n, J0, J1, K0, K1, nts, nts_post, d, lo0, hi0, fc, c0,
+             c1) = cols[p]
+            v0, v1, v2 = ((l1m - l0m) * n + a1 * K1 - a0 * K0).unbind(1)
+            vn = v0 + v1 + v2
+            imp = ((nts_post if post else nts) - vn) * d
+            isc = isum[p]
             if cls.friction and u % 3 != 0:
-                mst = isum[:, g * U + (u // 3) * 3]
+                mst = isum[g * U + (u // 3) * 3]
             else:
                 mst = isc
-            hi = blk[:, 19] + blk[:, 20] * mst
-            lo = blk[:, 18] - blk[:, 20] * mst
+            hi = hi0 + fc * mst
+            lo = lo0 - fc * mst
             imp = torch.minimum(imp, hi - isc)
             imp = torch.maximum(imp, lo - isc)
-            isum[:, p] = isc + imp
+            isum[p] = isc + imp
             imp3 = imp[:, None]
             dl = n * imp3
             da0 = J0 * imp3
@@ -423,8 +434,8 @@ def pgs_solve_plain(plan: SolvePlan, iterations: int, iterations_post: int,
             svu = torch.cat([dl, da0, da1], dim=1)
             sv = svu if sv is None else sv + svu
             if u + 1 < U:
-                l0m = l0m - blk[:, 21:22] * dl
-                l1m = l1m + blk[:, 22:23] * dl
+                l0m = l0m - c0 * dl
+                l1m = l1m + c1 * dl
                 a0 = a0 - da0
                 a1 = a1 + da1
         if cls.jacobi:
@@ -459,7 +470,7 @@ def pgs_solve_plain(plan: SolvePlan, iterations: int, iterations_post: int,
         mom[:, 3:6, :] = torch.where(has, mom[:, 3:6, :] + Da,
                                      mom[:, 3:6, :])
 
-    def ang_group(cls, rows, torq, unit, g, post):
+    def ang_group(cls, cols, torq, unit, g, post):
         U, W = cls.U, cls.W
         w0, b0, w1, b1 = unit
         a0 = gather(slice(3, 6), w0, b0, W, False)
@@ -467,15 +478,14 @@ def pgs_solve_plain(plan: SolvePlan, iterations: int, iterations_post: int,
         sv = None
         for u in range(U):
             p = g * U + u
-            blk = rows[:, p]                                # (T, 14, W)
-            axis = blk[:, 0:3]
-            cur3 = a1 * blk[:, 6:9] - a0 * blk[:, 3:6]
-            cur = cur3[:, 0] + cur3[:, 1] + cur3[:, 2]
-            dtq = (blk[:, 11 if post else 10] - cur) * blk[:, 9]
-            tq = torq[:, p]
-            dtq = torch.minimum(dtq, blk[:, 13] - tq)
-            dtq = torch.maximum(dtq, blk[:, 12] - tq)
-            torq[:, p] = tq + dtq
+            axis, K0, K1, d, ts, ts_post, lo, hi = cols[p]
+            c0, c1, c2 = (a1 * K1 - a0 * K0).unbind(1)
+            cur = c0 + c1 + c2
+            dtq = ((ts_post if post else ts) - cur) * d
+            tq = torq[p]
+            dtq = torch.minimum(dtq, hi - tq)
+            dtq = torch.maximum(dtq, lo - tq)
+            torq[p] = tq + dtq
             da = axis * dtq[:, None]
             sv = da if sv is None else sv + da
             if u + 1 < U:
@@ -492,18 +502,17 @@ def pgs_solve_plain(plan: SolvePlan, iterations: int, iterations_post: int,
         post = sweep >= iterations
         if sweep == iterations:
             out0 = mom.clone()
-        for c in range(nact):
-            single_slot(c, post)
-        for k, (cls, rows, isum) in enumerate(zip(plan.lin_classes,
-                                                  lin_rows, lin_isum)):
+        single_slots(post)
+        for k, (cls, cols, isum) in enumerate(zip(plan.lin_classes,
+                                                  lin_cols, lin_isum)):
             for g in range(cls.n_groups):
                 if gact[k] is not None and not gact[k][g]:
                     continue
-                lin_group(cls, rows, isum, units[k][g], g, post)
-        for k, (cls, rows, torq) in enumerate(zip(plan.ang_classes,
-                                                  ang_rows, ang_torq)):
+                lin_group(cls, cols, isum, units[k][g], g, post)
+        for k, (cls, cols, torq) in enumerate(zip(plan.ang_classes,
+                                                  ang_cols, ang_torq)):
             for g in range(cls.n_groups):
-                ang_group(cls, rows, torq, units[nl + k][g], g, post)
+                ang_group(cls, cols, torq, units[nl + k][g], g, post)
     if iterations_post == 0:
         out0 = mom.clone()
     return torch.stack([out0, mom], dim=1)

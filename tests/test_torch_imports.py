@@ -44,7 +44,7 @@ def test_port_imports_no_jax():
 
 
 def test_wrappers_registered_and_plain_on_cpu():
-    """The nine kernel wrappers register their launch counts; on CPU
+    """The twelve kernel wrappers register their launch counts; on CPU
     tensors they run the plain version and count no launch."""
     from hand_tracking_samples_tpu_torch import kernels
     from hand_tracking_samples_tpu_torch.imaging.camera import DCamera
@@ -54,16 +54,29 @@ def test_wrappers_registered_and_plain_on_cpu():
     import hand_tracking_samples_tpu_torch.physics.pgs_kernel  # noqa: F401
     import hand_tracking_samples_tpu_torch.ops.correspondence  # noqa: F401
     import hand_tracking_samples_tpu_torch.physics.row_sweep  # noqa: F401
+    from hand_tracking_samples_tpu_torch.tools import (prof_cloud_kernel,
+                                                       prof_cloud_mt,
+                                                       prof_cloud_pre)
+    from hand_tracking_samples_tpu_torch.tools.common import to_raster
     assert set(kernels.counts()) == {"cloud_from_depth", "cloud_rows_solve",
                                      "cloud_rows_packed",
                                      "cloud_rows_unpacked", "cloud_vals",
                                      "contact_fields", "pgs_solve",
-                                     "correspondence", "row_sweep"}
+                                     "correspondence", "row_sweep",
+                                     "cloud_stage", "group_sum",
+                                     "track_sum"}
     kernels.reset_counts()
     cam = DCamera.make((64, 8), (30.0, 30.0), (32.0, 4.0), 0.001)
     d = torch.full((2, 8, 64), 300, dtype=torch.int16)
     ph = cloud_kernel.cloud_from_depth_planes(d, cam, 0.1, 0.7, 4, 32)
     assert ph.shape == (2, 8, 32) and bool((ph[:, 4] == 1).all())
+    draw = to_raster(d)                              # (2, 4, 128): all valid
+    out = prof_cloud_kernel.cloud_stage(draw, prof_cloud_kernel.scalars(), 4,
+                                        budget=32, W=64)
+    assert out.shape == (2, 32, 8) and bool((out[:, :, 3] == 1).all())
+    sums = prof_cloud_mt.group_sum(draw.reshape(1, 8, 128))
+    assert sums.shape == (1, 8, 128)
+    assert torch.allclose(sums, prof_cloud_pre.track_sum(draw).sum(0)[None])
     assert all(n == 0 for n in kernels.counts().values())
     assert "sm_90a" in " ".join(kernels.NVCC_FLAGS)
     assert os.path.basename(kernels.library_path()).startswith(
