@@ -8,8 +8,9 @@ Phases, each printing one line with its elapsed seconds:
   1. build (or reuse) the CUDA kernel library: one nvcc call into build/;
      ptxas's registers, stack, spills and static shared memory of the
      redesigned kernels (the row sweep, PGS, cloud-rows pack, contact,
-     correspondence, cloud, vals and unpacked-rows kernels); the last five
-     (NO_SPILL) must use no stack and spill nothing
+     correspondence, cloud, vals and unpacked-rows kernels; the PGS kernel
+     and the row sweep as two instances each, exact and jacobi); the last
+     five (NO_SPILL) must use no stack and spill nothing
   2. the card's name and power limit, as nvidia-smi reports them
   3. each of the four kernels against its plain PyTorch version at T=4
      tracks, one frame, full width (the cloud kernel, kernel 2 and the
@@ -146,7 +147,14 @@ Phases, each printing one line with its elapsed seconds:
      class (dynamics and multistep plans) and the row sweep's jacobi
      levels (the colored jacobi rows) bit for bit with their plain
      versions at T=4 and T=512 on the contact poses' rows, with their
-     active contact rows counted (> 0), timed beside their bounds; the
+     active contact rows counted (> 0), timed beside their bounds, with
+     their clock64 counters (cycles a jacobi step or level, the sweep
+     cycles' max/mean, active units and kept phases, the row sweep's
+     levelling and placement) and the tracks an SM; the same three
+     kernels with exact contacts on the same poses' rows, timed (the
+     baseline); the PGS jacobi class bit for bit at T=4 on seeded edge
+     inputs (JACOBI_EDGES: no active unit, 40 active units, the 96-unit
+     maximum, phases with no active row); the
      jacobi dynamics frame on the kernel solver (30 frames) and the
      colored one (10) on phase 4's renders, each frame's largest distance
      from the exact-contacts frame and the dyn30 golden errors, timed, and
@@ -391,6 +399,13 @@ SLOWFIT_SHAPES = {"contact_fields": "contact_fields[slowfit]",
 JACOBI_FRAMES = dict(kernel=30, colored=10)
 JACOBI_CONTACT_FRAMES = 3     # frames at the contact poses (their renders)
 JACOBI_CNN_FRAMES = 2
+# the PGS kernel's jacobi class on seeded edge inputs (pgs_kernel.
+# synthetic_jacobi_inputs, T=4, 6+2 sweeps): label -> (units, active units
+# a track, phases with no active row)
+JACOBI_EDGES = {"no active unit": (88, 0, ()),
+                "40 active units": (88, 40, ()),
+                "96 units, all active": (96, 96, ()),
+                "dead phases": (88, 10, (1, 2, 3, 7, 11))}
 ANGLES_FRAMES = 8
 KICK_TRACKS, KICK_HYP = 128, 4
 NOPALLAS_TRACKS, NOPALLAS_FRAMES = 64, 10
@@ -1022,18 +1037,21 @@ class Smoke:
         return (f"T={T}: {fps:.1f} tracked frames/s{busy}; "
                 + "; ".join(parts))
 
-    def cycles(self, name, args):
+    def cycles(self, name, args, rec=None):
         """One more launch of a redesigned solve kernel with its clock64
         counters (per track: prologue, sweeps, steps a sweep, rows or
-        slots) and the tracks an SM holds; records them and returns the
-        cycles a step."""
+        slots; the jacobi counters: the PGS kernel's cycles in its jacobi
+        groups and compaction, active units and kept phases, the row
+        sweep's levelling and placement cycles, cycles in jacobi levels and
+        their count) and the tracks an SM holds; records them (in rec,
+        default the kernel's record) and returns the cycles a step."""
         torch = self.torch
         from hand_tracking_samples_tpu_torch.physics import pgs_kernel as pk
         from hand_tracking_samples_tpu_torch.physics import row_sweep as rs
         pgs = name.startswith("pgs_solve")
         T = (args[3] if pgs else args[0]).shape[0]
         it, ip = (args[1], args[2]) if pgs else (args[3], args[4])
-        c = torch.zeros((T, 4), dtype=torch.int64, device=self.dev)
+        c = torch.zeros((T, 8), dtype=torch.int64, device=self.dev)
         (pk.pgs_solve if pgs else rs.row_sweep)(*args, cycles=c)
         torch.cuda.synchronize()
         c = c.double()
@@ -1048,18 +1066,62 @@ class Smoke:
                        pk.occupancy(args[0], args[3].shape[2], self.dev)
                        if pgs else rs.occupancy(args[2], args[0].shape[1],
                                                 self.dev)))
-        self.results[name]["cycles"] = res
+        # the sweeps' cycles are all 20 sweeps': a sweep's is / (it + ip)
+        res["sweep_max_over_mean"] = (res["sweep_cycles_max"]
+                                      / max(res["sweep_cycles_mean"], 1.0))
+        jac = ""
+        per = lambda k, f: (f(c[:, k]) / (it + ip)).item()   # a sweep
+        if pgs and bool((c[:, 6] > 0).any()):
+            res.update(jacobi_cycles_a_sweep_mean=per(4, torch.mean),
+                       jacobi_cycles_a_sweep_max=per(4, torch.max),
+                       jacobi_prologue_cycles_mean=c[:, 5].mean().item(),
+                       jacobi_units_mean=c[:, 6].mean().item(),
+                       jacobi_units_max=c[:, 6].max().item(),
+                       jacobi_phases_mean=c[:, 7].mean().item(),
+                       jacobi_cycles_a_step=(c[:, 4].sum() / (
+                           c[:, 7].sum() * (it + ip)).clamp(min=1)).item())
+            jac = (f"; jacobi groups {res['jacobi_cycles_a_step']:.0f} "
+                   f"cycles a step (their sums in), "
+                   f"{res['jacobi_cycles_a_sweep_mean']:.0f}"
+                   f" cycles a sweep (max "
+                   f"{res['jacobi_cycles_a_sweep_max']:.0f}), compaction "
+                   f"{res['jacobi_prologue_cycles_mean']:.0f} cycles, "
+                   f"{res['jacobi_units_mean']:.1f} active units a track "
+                   f"(max {res['jacobi_units_max']:.0f}), "
+                   f"{res['jacobi_phases_mean']:.1f} kept phases")
+        if not pgs:
+            res.update(levelling_cycles_mean=c[:, 4].mean().item(),
+                       placement_cycles_mean=c[:, 5].mean().item())
+            if bool((c[:, 7] > 0).any()):
+                res.update(jacobi_cycles_a_sweep_mean=per(6, torch.mean),
+                           jacobi_cycles_a_sweep_max=per(6, torch.max),
+                           jacobi_levels_mean=c[:, 7].mean().item(),
+                           jacobi_cycles_a_level=(c[:, 6].sum() / (
+                               c[:, 7].sum() * (it + ip)).clamp(min=1))
+                           .item())
+                jac = (f"; jacobi levels {res['jacobi_cycles_a_level']:.0f} "
+                       f"cycles a level (steps and sums), "
+                       f"{res['jacobi_cycles_a_sweep_mean']:.0f} cycles a "
+                       f"sweep (max {res['jacobi_cycles_a_sweep_max']:.0f},"
+                       f" {res['jacobi_levels_mean']:.1f} levels)")
+            jac += (f"; prologue levelling "
+                    f"{res['levelling_cycles_mean']:.0f}, placement "
+                    f"{res['placement_cycles_mean']:.0f} cycles")
+        (self.results[name] if rec is None else rec)["cycles"] = res
         floor = ""
         if pgs:   # the design's floor: every step's block every sweep
-            ms = self.pgs_row_bytes(args) * (it + ip) / PEAK_BYTES_S * 1e3
-            self.results[name]["stream_floor_ms"] = ms
+            ms = (self.pgs_row_bytes(args, streamed=True) * (it + ip)
+                  / PEAK_BYTES_S * 1e3)
+            (self.results[name] if rec is None else rec)[
+                "stream_floor_ms"] = ms
             floor = f"; streamed floor {ms:.4f} ms"
         return (f"{res['cycles_per_step']:.0f} cycles a "
                 f"{'step' if pgs else 'level step'} "
                 f"({res['steps_per_sweep_mean']:.1f} steps a sweep, at most "
-                f"{res['steps_per_sweep_max']:.0f}; prologue "
+                f"{res['steps_per_sweep_max']:.0f}; sweep cycles max/mean "
+                f"{res['sweep_max_over_mean']:.2f}; prologue "
                 f"{res['prologue_cycles_mean']:.0f} cycles; "
-                f"{res['blocks_per_sm']} tracks an SM{floor})")
+                f"{res['blocks_per_sm']} tracks an SM{floor}{jac})")
 
     def profile(self, T, frames, run=None, state=None):
         """Device time and kernel launches per frame, from torch.profiler
@@ -1178,7 +1240,11 @@ class Smoke:
         sweeps = it + ip
         ops = nact * B * 32 * sweeps
         for cls, rows, g_act in zip(plan.lin_classes, lin_rows, g_acts):
-            if cls.friction:
+            if cls.jacobi:        # the active units on the kept phases
+                units, kept = self.jacobi_active(rows)
+                nbytes += T * cls.n_phases * cls.W * 4        # every dinv
+                ops += int((units * kept).sum()) * 60 * sweeps
+            elif cls.friction:
                 real = torch.tensor((cls.unit_b0 >= 0).sum(-1),
                                     device=rows.device)
                 units = int((g_act * real).sum())
@@ -1206,15 +1272,33 @@ class Smoke:
                   for cls, rows in zip(plan.lin_classes, lin_rows)]
         return int((act * idx).amax(-1).sum()), g_acts
 
-    def pgs_row_bytes(self, args):
-        """The bytes of the row blocks one PGS sweep reads: the active
-        slots, the active contact groups, every other class's rows."""
+    def jacobi_active(self, rows):
+        """A jacobi class's active units and kept phases a track ((T,)
+        each), as the kernel's prologue finds them: a unit or a phase
+        with a row whose dinv (channel 15) is not 0."""
+        d = rows[:, :, 15] != 0                               # (T, U, W)
+        return d.any(1).sum(-1), d.any(2).sum(-1)
+
+    def pgs_row_bytes(self, args, streamed=False):
+        """The bytes of the row blocks a PGS sweep needs: the active
+        slots, the active contact groups, every other class's rows; of a
+        jacobi class the active units on the kept phases, without their
+        dinv (the bound counts every dinv once), or, streamed, the
+        (23, A rounded up to 4) blocks that the kernel reads a sweep."""
         plan, mom0, lin_rows, ang_rows = args[0], args[3], args[6], args[7]
         nact, g_acts = self.pgs_active(args)
         n = nact * 14 * mom0.shape[2] * 4
         for cls, rows, g_act in zip(plan.lin_classes, lin_rows, g_acts):
-            n += (int(g_act.sum()) * cls.U * 23 * cls.W * 4 if cls.friction
-                  else rows.numel() * 4)
+            if cls.jacobi:
+                units, kept = self.jacobi_active(rows)
+                if streamed:
+                    n += int((kept * ((units + 3) // 4 * 4)).sum()) * 23 * 4
+                else:
+                    n += int((kept * units).sum()) * 22 * 4
+            elif cls.friction:
+                n += int(g_act.sum()) * cls.U * 23 * cls.W * 4
+            else:
+                n += rows.numel() * 4
         return n + sum(rows.numel() * 4 for rows in ang_rows)
 
 
@@ -3033,8 +3117,11 @@ class Smoke:
         """The PGS kernel's jacobi class (dynamics and multistep plans) and
         the row sweep's jacobi levels (the colored solve's jacobi rows) on
         the contact poses' rows: bit for bit with their plain versions at
-        T=4 and T=512, timed at T=512 beside their bounds; the count of
-        active contact rows (it must be > 0)."""
+        T=4 and T=512, timed at T=512 beside their bounds, with their
+        clock64 counters; the count of active contact rows (it must be >
+        0); the same kernels with exact contacts on the same poses, timed
+        (the baseline); and the PGS kernel's jacobi class bit for bit on
+        seeded edge inputs at T=4 (JACOBI_EDGES)."""
         from types import SimpleNamespace
         from hand_tracking_samples_tpu_torch.physics.row_sweep import (
             jacobi_phases)
@@ -3100,6 +3187,39 @@ class Smoke:
                          f"bound {max(tb, to):.4f} ms by {rec['bound_by']}; "
                          f"{nact} active contact rows; T=4 {e4:.3g}; "
                          f"{note})")
+        # the baseline: exact contacts on the same poses' rows
+        dyn = self.kernel_inputs(st, depth)
+        cnn = self.cnn_kernel_inputs(st, depth)
+        ref = self.ref_inputs(body, depth)
+        base = {"pgs_solve[jacobi]": dyn["pgs_solve"],
+                "pgs_solve[jacobi, multistep]": cnn["pgs_solve[multistep]"],
+                "row_sweep[colored, jacobi]": ref["row_sweep[colored]"]}
+        self.p18["exact_baseline"] = {}
+        for name, args in base.items():
+            pgs = name.startswith("pgs")
+            kfn = pairs["pgs_solve" if pgs else "row_sweep"][0]
+            ms, _ = self.event_ms(kfn, args, warm=2, reps=10)
+            rec = self.p18["exact_baseline"][name] = dict(ms=ms)
+            lines.append(f"exact contacts, {name}'s rows: {ms:.4f} ms "
+                         f"({self.cycles(name, args, rec)})")
+        # seeded edge inputs of the PGS kernel's jacobi class, T=4
+        from hand_tracking_samples_tpu_torch.physics.pgs_kernel import (
+            synthetic_jacobi_inputs)
+        kfn, pfn = pairs["pgs_solve"]
+        edge = {}
+        for label, (n, na, dead) in JACOBI_EDGES.items():
+            args = synthetic_jacobi_inputs(4, n, na, 11, dead, 6, 2,
+                                           device=self.dev)
+            k, p = kfn(*args), pfn(*args)
+            e = (k - p).abs().max().item()
+            check(torch.equal(k, p), f"pgs_solve[jacobi] on {label} differs "
+                  f"from its plain version: {e}")
+            check(not torch.equal(p[:, 1], args[3]),
+                  f"pgs_solve[jacobi] on {label}: the momenta did not move")
+            edge[label] = e
+        self.p18["jacobi_edges_t4"] = edge
+        lines.append("jacobi class at T=4 on " + ", ".join(
+            f"{k} {v:.3g}" for k, v in edge.items()))
         return "; ".join(lines)
 
     def frames_of(self, cfg, frames, T, cnn=False, state=None):
@@ -4687,6 +4807,9 @@ def main(argv=None) -> int:
             if any(n in k for n in REDESIGNED)}
         record["ptxas"] = ptx
         if info["built"]:        # a reused library has no log to read
+            pgs = [k for k in ptx if "pgs_kernel" in k]
+            check(len(pgs) == 2, f"ptxas: the PGS kernel's two instances "
+                  f"(exact, jacobi): {pgs}")
             for n in NO_SPILL:
                 got = [v for k, v in ptx.items() if n in k]
                 check(len(got) == 1, f"ptxas: no entry for {n}")

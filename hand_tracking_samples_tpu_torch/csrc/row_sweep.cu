@@ -47,16 +47,20 @@
 // jacobi level holds the active rows of one jacobi phase and nothing else
 // (one level above every earlier row's; every later row goes above it);
 // it runs as mixed steps of 32 rows that leave the momenta as they are and
-// write each row's deltas (its two sides' 12 floats and its bodies) to
-// shared memory, and after its last step lane b adds body b's deltas in
-// row order and applies the sum.
+// write each row's two sides' deltas (6 floats each) to shared memory, at
+// the slots the prologue gave them: body by body, each body's in row
+// order.  After its last step lane b adds its body's slots in order (the
+// level's per-body offsets, built once a solve) and applies the sum.
 //
 // The prologue (all lanes: the levels walk every row in order, a shuffle
 // a body; the counting and placement in parallel) writes the track's
 // active rows once, in level order, as 24-float records into a scratch
 // stream in device memory, the friction masters remapped to their new
 // positions (an inactive master to a slot whose impulse stays 0), and the
-// steps (at most 32 rows of one level) into a second scratch array.  Every
+// steps (at most 32 rows of one level) into a second scratch array; a
+// jacobi level's records carry their two delta slots in their padding
+// floats (a stable counting pass by body over the level's rows: a ballot
+// a body), and its per-body offsets stay in shared memory.  Every
 // sweep streams the records through a ring of RS_NST stages of RS_SR
 // records in shared memory: lane 0 fills a stage with one bulk copy (TMA)
 // completing on that stage's mbarrier, RS_NST - 1 stages ahead, across the
@@ -85,7 +89,6 @@
 #define RS_MAXR 13000     // rows of one solve, linear and angular together
 #define RS_MIXED 0x80000000u   // a level's body mask: not single-body
 #define RS_JAC 0x40000000u     // a level's body mask: a jacobi phase
-#define RS_JREC 13             // floats a jacobi row's deltas take
 #define RS_MAXJ 256            // rows of a jacobi phase, at most
 
 struct RowSweepArgs {
@@ -96,9 +99,10 @@ struct RowSweepArgs {
   float* stream;         // (T, Rl + Ra, 24) scratch: rows in level order
   int2* steps;           // (T, Rl + Ra) scratch: a sweep's steps
   float* out;            // (T, 2, B, 6)
-  long long* cycles;     // (T, 4) clock64 counters, or null
+  long long* cycles;     // (T, 8) clock64 counters, or null
   int T, B, n_lin, n_ang, iters, iters_post;
   int jmax;              // rows of the largest jacobi phase (0: none)
+  int jlev;              // jacobi phases (a track's jacobi levels, at most)
 };
 
 // Shared memory, in bytes, in this order (16-byte aligned pieces):
@@ -112,7 +116,9 @@ struct RowSweepArgs {
 //          of the lanes and sides that write nothing
 //   acc    Rl + Ra + 2 floats: isum by position, a zero slot, torq, and a
 //          slot for the writes of the idle lanes
-//   jd     jmax x RS_JREC floats: a jacobi level's deltas
+//   jd     (2 jmax + 1) x 6 floats: a jacobi level's deltas by slot, the
+//          last slot the world sides'
+//   joff   jlev x (B + 1) shorts: each jacobi level's per-body first slots
 __host__ __device__ __forceinline__ size_t rs_al16(size_t n) {
   return (n + 15) & ~(size_t)15;
 }
@@ -121,9 +127,14 @@ __host__ __device__ __forceinline__ size_t rs_ring_bytes(int R) {
   const size_t pro = (size_t)R * 12;
   return rs_al16(ring > pro ? ring : pro);
 }
-__host__ __device__ __forceinline__ size_t rs_smem_bytes(int R, int jmax) {
+__host__ __device__ __forceinline__ size_t rs_jd_floats(int jmax) {
+  return jmax ? rs_al16((size_t)(2 * jmax + 1) * 6 * 4) / 4 : 0;
+}
+__host__ __device__ __forceinline__ size_t rs_smem_bytes(int R, int jmax,
+                                                         int jlev, int B) {
   return 64 + rs_ring_bytes(R) + 1024 + rs_al16((size_t)(R + 2) * 4)
-         + (size_t)jmax * RS_JREC * 4;
+         + rs_jd_floats(jmax) * 4
+         + (jmax ? rs_al16((size_t)jlev * (B + 1) * 2) : 0);
 }
 
 // torch.minimum / torch.maximum: NaN propagates from either side
@@ -276,6 +287,7 @@ __global__ void __launch_bounds__(32) row_sweep_kernel(RowSweepArgs a) {
   float* mi = mom + (RS_MAXB + 2) * 6 + 4;
   float* acc = mom + 256;
   float* jd = acc + ((R + 2 + 3) & ~3);     // a jacobi level's deltas
+  short* joff = (short*)(jd + rs_jd_floats(a.jmax));  // its body offsets
   int* meta = (int*)ring;                   // the prologue's
   int* ends = meta;                         //   (after the levelling)
   short* lvl = (short*)(meta + R);
@@ -298,6 +310,7 @@ __global__ void __launch_bounds__(32) row_sweep_kernel(RowSweepArgs a) {
   __syncwarp();
   const int nlev_l = rs_levels<JAC>(meta, lvl, nl, true, lane);
   const int nlev_a = rs_levels<JAC>(meta + nl, lvl + nl, na, false, lane);
+  const long long c_lev = clock64();
   // a linear level is single-body when each of its rows is on one body
   // (b0 the world, b1 < 31) with no master: its rows then run on their
   // bodies' lanes, the momenta in registers
@@ -362,6 +375,55 @@ __global__ void __launch_bounds__(32) row_sweep_kernel(RowSweepArgs a) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) dst[i] = v[i];
   }
+  // a jacobi level's delta slots: each row's two sides' entries, body by
+  // body and each body's in row order (a ballot a body over 32 rows at a
+  // time: a count, then the slots), into the record's padding floats
+  // [side 1, side 0]; the world's sides take the last slot
+  int nj = 0;
+  if constexpr (JAC) {
+    const int jidle = 2 * a.jmax;
+    __syncwarp();                       // the records written
+    for (int l = 0; l < nlev_l; ++l) {
+      if (!(lmask[l] & RS_JAC)) continue;
+      const int st = l ? ends[l - 1] : 0, en = ends[l];
+      int cnt = 0;                      // lane b: body b's entries
+      for (int q0 = st; q0 < en; q0 += 32) {
+        const int p = q0 + lane;
+        const int m = p < en ? __float_as_int(S[(size_t)p * RS_REC + RS_NLF])
+                             : 0;
+        const int b0 = (m & 0xFF) - 1, b1 = ((m >> 8) & 0xFF) - 1;
+        for (int b = 0; b < B; ++b) {
+          const unsigned mb = __ballot_sync(0xffffffffu, b0 == b || b1 == b);
+          if (lane == b) cnt += __popc(mb);
+        }
+      }
+      const int inc = hts_warp_incl_scan(lane < B ? cnt : 0);
+      const int all = __shfl_sync(0xffffffffu, inc, 31);
+      short* jo = joff + nj * (B + 1);
+      int run = inc - (lane < B ? cnt : 0);    // lane b: body b's next slot
+      if (lane < B) jo[lane] = (short)run;
+      if (lane == 0) jo[B] = (short)all;
+      for (int q0 = st; q0 < en; q0 += 32) {
+        const int p = q0 + lane;
+        const int m = p < en ? __float_as_int(S[(size_t)p * RS_REC + RS_NLF])
+                             : 0;
+        const int b0 = (m & 0xFF) - 1, b1 = ((m >> 8) & 0xFF) - 1;
+        int s0 = jidle, s1 = jidle;
+        for (int b = 0; b < B; ++b) {
+          const unsigned mb = __ballot_sync(0xffffffffu, b0 == b || b1 == b);
+          const int s = __shfl_sync(0xffffffffu, run, b) + __popc(mb & lt);
+          if (b0 == b) s0 = s;
+          if (b1 == b) s1 = s;
+          if (lane == b) run += __popc(mb);
+        }
+        if (p < en) {
+          S[(size_t)p * RS_REC + 22] = __int_as_float(s1);
+          S[(size_t)p * RS_REC + 23] = __int_as_float(s0);
+        }
+      }
+      ++nj;
+    }
+  }
   for (int i = lane; i < ntot + 2; i += 32) acc[i] = 0.0f;
   float* isum = acc;                    // by linear position; [nla] = 0
   float* torq = acc + nla + 1;          // by angular position
@@ -422,8 +484,10 @@ __global__ void __launch_bounds__(32) row_sweep_kernel(RowSweepArgs a) {
   const int2 ck0 = nsteps ? SP[lane % nsteps] : make_int2(0, 0);
   const int2 ck1 = nsteps ? SP[(32 + lane) % nsteps] : make_int2(0, 0);
   int rdy = 0, fr = 0;                  // stages waited for, freed
-  int jn = 0;                           // rows of the open jacobi level
+  long long jcyc = 0, jt0 = 0;          // cycles in jacobi levels
+  bool jopen = false;                   // a jacobi level is open
   for (int s = 0; s < total && nsteps > 0; ++s) {
+    int jl = 0;                         // the sweep's jacobi level
     if (s == a.iters) {
       if (regs) from_regs();
       write_out(0);
@@ -556,43 +620,51 @@ __global__ void __launch_bounds__(32) row_sweep_kernel(RowSweepArgs a) {
           imp = rs_min(imp, hi - own);
           imp = rs_max(imp, lo - own);
           if (JAC && (e.x & (1 << 26))) {
-            // a jacobi level: the row's deltas (side 1, then side 0) and
-            // its bodies; the momenta are left as they are
+            // a jacobi level: the row's deltas to its two slots (side 1,
+            // side 0); the momenta are left as they are
+            if (!jopen) {
+              jt0 = clock64();
+              jopen = true;
+            }
             if (on) {
-              float* d = jd + (size_t)(jn + lane) * RS_JREC;
-              d[0] = imp * nx; d[1] = imp * ny; d[2] = imp * nz;
-              d[3] = imp * f[6]; d[4] = imp * f[7]; d[5] = imp * f[8];
-              d[6] = imp * -nx; d[7] = imp * -ny; d[8] = imp * -nz;
-              d[9] = imp * -f[3]; d[10] = imp * -f[4]; d[11] = imp * -f[5];
-              d[12] = __int_as_float(m & 0xFFFF);
+              float2* d1 = (float2*)(jd + __float_as_int(f[22]) * 6);
+              float2* d0 = (float2*)(jd + __float_as_int(f[23]) * 6);
+              d1[0] = make_float2(imp * nx, imp * ny);
+              d1[1] = make_float2(imp * nz, imp * f[6]);
+              d1[2] = make_float2(imp * f[7], imp * f[8]);
+              d0[0] = make_float2(imp * -nx, imp * -ny);
+              d0[1] = make_float2(imp * -nz, imp * -f[3]);
+              d0[2] = make_float2(imp * -f[4], imp * -f[5]);
             }
             isum[on ? q : idle] = own + imp;
-            jn += cnt;
             if (e.x & (1 << 27)) {
-              // the level's last step: lane b adds body b's deltas in
-              // row order and applies the sum once
+              // the level's last step: lane b adds its body's slots in
+              // order (its rows' in row order) and applies the sum once
               __syncwarp();
               if (lane < B) {
-                float s6[6];
-                bool any = false;
-                for (int i = 0; i < jn; ++i) {
-                  const float* d = jd + (size_t)i * RS_JREC;
-                  const int mb = __float_as_int(d[12]);
-                  const int side = ((mb >> 8) & 0xFF) - 1 == lane ? 0
-                                   : (mb & 0xFF) - 1 == lane ? 6 : -1;
-                  if (side < 0) continue;
-#pragma unroll
-                  for (int c = 0; c < 6; ++c)
-                    s6[c] = any ? s6[c] + d[side + c] : d[side + c];
-                  any = true;
-                }
-                if (any) {
-#pragma unroll
-                  for (int c = 0; c < 6; ++c)
-                    MOM(lane, c) = MOM(lane, c) + s6[c];
+                const short* jo = joff + jl * (B + 1);
+                const int o0 = jo[lane], o1 = jo[lane + 1];
+                if (o1 > o0) {
+                  const float2* d = (const float2*)(jd + o0 * 6);
+                  float2 x0 = d[0], x1 = d[1], x2 = d[2];
+                  for (int i = 1; i < o1 - o0; ++i) {
+                    const float2 y0 = d[3 * i], y1 = d[3 * i + 1],
+                                 y2 = d[3 * i + 2];
+                    x0.x = x0.x + y0.x; x0.y = x0.y + y0.y;
+                    x1.x = x1.x + y1.x; x1.y = x1.y + y1.y;
+                    x2.x = x2.x + y2.x; x2.y = x2.y + y2.y;
+                  }
+                  MOM(lane, 0) = MOM(lane, 0) + x0.x;
+                  MOM(lane, 1) = MOM(lane, 1) + x0.y;
+                  MOM(lane, 2) = MOM(lane, 2) + x1.x;
+                  MOM(lane, 3) = MOM(lane, 3) + x1.y;
+                  MOM(lane, 4) = MOM(lane, 4) + x2.x;
+                  MOM(lane, 5) = MOM(lane, 5) + x2.y;
                 }
               }
-              jn = 0;
+              ++jl;
+              jcyc += clock64() - jt0;
+              jopen = false;
             }
             __syncwarp();
             free_after(e.x);
@@ -651,11 +723,15 @@ __global__ void __launch_bounds__(32) row_sweep_kernel(RowSweepArgs a) {
   write_out(1);
 #undef MOM
   if (a.cycles && lane == 0) {
-    long long* c = a.cycles + (size_t)t * 4;
+    long long* c = a.cycles + (size_t)t * 8;
     c[0] = c1 - c0;                     // prologue
     c[1] = clock64() - c1;              // the sweeps
     c[2] = nsteps;                      // steps a sweep
     c[3] = ntot;                        // active rows
+    c[4] = c_lev - c0;                  // the prologue's levelling
+    c[5] = c1 - c_lev;                  // its placement and copies
+    c[6] = jcyc;                        // the sweeps' jacobi levels
+    c[7] = nj;                          // jacobi levels
   }
 }
 
@@ -669,9 +745,9 @@ static RowSweepKernel rs_prepare(const RowSweepArgs& a, size_t* smem) {
       a.jmax > 0 ? row_sweep_kernel<true> : row_sweep_kernel<false>;
   *smem = 0;
   if (a.B > RS_MAXB || a.n_lin + a.n_ang > RS_MAXR || a.jmax < 0
-      || a.jmax > RS_MAXJ)
+      || a.jmax > RS_MAXJ || a.jlev < 0 || (a.jmax > 0 && a.jlev < 1))
     return k;
-  const size_t n = rs_smem_bytes(a.n_lin + a.n_ang, a.jmax);
+  const size_t n = rs_smem_bytes(a.n_lin + a.n_ang, a.jmax, a.jlev, a.B);
   if (cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)n) == cudaSuccess
       && cudaFuncSetAttribute(k,

@@ -17,7 +17,9 @@ one kernel:
     row), and each body then adds its units' deltas in unit order
     (`body_off` / `body_ent`, the plan's per-body lists) and applies the
     sum once: the Pallas kernel's scatter matmul (:126), summed in a
-    fixed order;
+    fixed order.  The kernel solves only each track's active units and
+    the phases with an active row (`jacobi_order_plain` states that
+    order; every dropped term is an exact zero);
   * the last iterations_post sweeps use the bias-free target speeds.
 
 `pgs_solve` is the wrapper: on CUDA tensors it launches csrc/pgs_kernel.cu
@@ -54,6 +56,7 @@ BP = 24          # body slots (17 padded; at most 32, one warp)
 MAX_CLASSES = 4
 MAX_GROUPS = 256
 MAX_JACOBI_W = 96    # a jacobi class's units: three a lane of one warp
+MAX_JACOBI_U = 32    # a jacobi class's phases: one bit each of a mask
 
 
 def _batched_world_iinv(q, tinv, massinv):
@@ -519,20 +522,204 @@ def pgs_solve_plain(plan: SolvePlan, iterations: int, iterations_post: int,
 
 
 # ---------------------------------------------------------------------------
+# the kernel's jacobi order, stated in PyTorch, and inputs that test it (the
+# tests and chip_smoke.py)
+# ---------------------------------------------------------------------------
+
+def compact_jacobi_class(cls: PairClassPlan, rows):
+    """One track's jacobi class compacted as the kernel's prologue does:
+    rows (1, U, 23, W).  A unit is active when one of its rows has a
+    non-zero dinv (channel 15); the active units in unit order, padded to
+    a multiple of 4 with idle units (zero columns), and the per-body lists
+    filtered to the active units in unit order.  The kernel keeps each
+    phase with an active row and gives a friction row whose normal phase
+    it dropped an impulse of 0 to read; here a friction class keeps each
+    contact point's three phases together when one of them has an active
+    row, so that each friction row finds its normal row at (k // 3) * 3,
+    as pgs_solve_plain reads it.  A phase kept here that the kernel drops
+    has no active row: its impulses are zeros, an exact no-op.  Returns
+    (class, rows (1, NK, 23, Ap)), or None when no unit is active (the
+    kernel skips the class)."""
+    d = (rows[0, :, 15].abs() > 0).cpu().numpy()          # (U, W)
+    units = np.nonzero(d.any(0))[0]
+    if len(units) == 0:
+        return None
+    live = d.any(1)
+    if cls.friction:
+        live = np.repeat(live.reshape(-1, 3).any(1), 3)
+    kept = np.nonzero(live)[0]
+    A = len(units)
+    Ap = -(-A // 4) * 4
+    NK = len(kept)
+    cmap = np.full(cls.W, -1)
+    cmap[units] = np.arange(A)
+    ub0 = np.full((1, Ap), -1, np.int32)
+    ub1 = np.full((1, Ap), -1, np.int32)
+    ub0[0, :A] = cls.unit_b0[0, units]
+    ub1[0, :A] = cls.unit_b1[0, units]
+    lists = []
+    for b in range(len(cls.body_off) - 1):
+        e = cls.body_ent[cls.body_off[b]:cls.body_off[b + 1]]
+        lists.append([(int(cmap[x >> 1]) << 1) | int(x & 1) for x in e
+                      if cmap[x >> 1] >= 0])
+    off = np.cumsum([0] + [len(x) for x in lists]).astype(np.int32)
+    ent = np.asarray(sum(lists, []), np.int32)
+    out = rows.new_zeros((1, NK, 23, Ap))
+    out[..., :A] = rows[:, torch.as_tensor(kept, device=rows.device)][
+        ..., torch.as_tensor(units, device=rows.device)]
+    return cls._replace(U=NK, W=Ap, n_phases=NK, row_index=None,
+                        unit_b0=ub0, unit_b1=ub1, body_off=off,
+                        body_ent=ent), out
+
+
+def jacobi_order_plain(plan: SolvePlan, iterations: int,
+                       iterations_post: int, mom0, mi, singles, lin_rows,
+                       ang_rows):
+    """pgs_solve_plain in the kernel's jacobi order: each track solved on
+    its own, its jacobi classes compacted (compact_jacobi_class: only the
+    active units, only the phases of the contact points with an active
+    row, the filtered per-body lists).
+    Every term it drops is an exact zero, so it equals pgs_solve_plain on
+    the full classes (tests/test_torch_pgs_jacobi.py)."""
+    outs = []
+    for t in range(mom0.shape[0]):
+        lin_c, rows_c = [], []
+        for cls, rows in zip(plan.lin_classes, lin_rows):
+            r = rows[t:t + 1]
+            if cls.jacobi:
+                got = compact_jacobi_class(cls, r)
+                if got is None:
+                    continue
+                cls, r = got
+            lin_c.append(cls)
+            rows_c.append(r)
+        p = plan._replace(key=f"{plan.key}:track{t}",
+                          lin_classes=tuple(lin_c))
+        outs.append(pgs_solve_plain(
+            p, iterations, iterations_post, mom0[t:t + 1], mi,
+            None if singles is None else singles[t:t + 1], rows_c,
+            [r[t:t + 1] for r in ang_rows]))
+    return torch.cat(outs, dim=0)
+
+
+def synthetic_jacobi_inputs(T: int, n_units: int, n_active: int, seed: int,
+                            dead_phases=(), iterations: int = 16,
+                            iterations_post: int = 4, device="cpu"):
+    """pgs_solve's arguments (plan, iterations, iterations_post, mom0, mi,
+    singles, lin_rows, ang_rows) on seeded rows with a jacobi contact
+    class of n_units units of U=12 rows (normal, two friction rows, four
+    times) on random pairs of 17 bodies (a fifth with the world as b0),
+    beside 2 single-body slots, a joint class (U=3) and an angular class
+    (U=6) on the chain of the 17 bodies.  On each track n_active units,
+    drawn at random, have active rows (a contact point's three rows
+    together, each point active with probability 0.6, at least one a
+    unit); no row is active in the phases dead_phases.  An inactive row
+    holds zeros but its bodies' inverse masses, as the prep leaves it."""
+    rng = np.random.default_rng(seed)
+    B, U = 17, 12
+    f = lambda *s: torch.tensor(rng.standard_normal(s).astype(np.float32))
+    un = lambda lo, hi, *s: torch.tensor(rng.uniform(lo, hi, s)
+                                         .astype(np.float32))
+    mass = rng.uniform(0.5, 2.0, B).astype(np.float32)
+    jb1 = rng.integers(1, B, n_units)
+    jb0 = np.where(rng.random(n_units) < 0.2, -1, rng.integers(0, B,
+                                                               n_units))
+    jb0 = np.where(jb0 == jb1, 0, jb0)
+    chain = np.arange(1, B)
+    jac = build_pair_class("lin", jb0, jb1, U, friction=True, mode="jacobi")
+    joint = build_pair_class("lin", chain - 1, chain, 3)
+    ang = build_pair_class("ang", chain - 1, chain, 6)
+    plan = SolvePlan(key=f"synjac:{n_units}:{n_active}:{seed}", CS=2,
+                     lin_classes=(joint, jac), ang_classes=(ang,),
+                     massinv=mass)
+
+    def lin_rows(cls, act, friction):
+        """(T, n_phases, 23, W) rows of cls where act (T, n_phases, W)."""
+        P, W = cls.n_phases, cls.W
+        a = act.to(torch.float32)
+        n = f(T, P, 3, W)
+        n = n / n.norm(dim=2, keepdim=True) * a[:, :, None]
+        ub0 = cls.unit_b0.repeat(cls.U, 0)                  # (P, W)
+        ub1 = cls.unit_b1.repeat(cls.U, 0)
+        mi0 = torch.tensor(np.where(ub0 >= 0, mass[np.maximum(ub0, 0)], 0))
+        mi1 = torch.tensor(np.where(ub1 >= 0, mass[np.maximum(ub1, 0)], 0))
+        tsm = f(T, P, W) * 0.1 * a
+        normal = torch.tensor((np.arange(P) % cls.U) % 3 == 0)[None, :,
+                                                                  None]
+        if friction:
+            lo = torch.zeros(T, P, W)
+            hi = torch.where(normal, un(0.5, 2.0, T, P, W), 0.0) * a
+            fc = torch.where(normal, 0.0, un(0.2, 1.0, T, P, W)) * a
+        else:
+            lo, hi = -un(0.1, 1.0, T, P, W) * a, un(0.1, 1.0, T, P, W) * a
+            fc = torch.zeros(T, P, W)
+        x = torch.cat([n, f(T, P, 12, W) * 0.1 * a[:, :, None],
+                       torch.stack([un(0.5, 2.0, T, P, W) * a, tsm,
+                                    torch.minimum(tsm, f(T, P, W) * 0.1 * a),
+                                    lo, hi, fc], dim=2),
+                       mi0.expand(T, P, W)[:, :, None].float(),
+                       mi1.expand(T, P, W)[:, :, None].float()], dim=2)
+        real = torch.tensor((ub0 >= 0) | (ub1 >= 0))[None, :, None]
+        return torch.where(real, x, 0.0).contiguous()
+
+    # the jacobi class: n_active units a track, its points' three rows
+    act = np.zeros((T, U, jac.W), bool)
+    for t in range(T):
+        for w in rng.choice(n_units, n_active, replace=False):
+            pts = rng.random(U // 3) < 0.6
+            pts[rng.integers(U // 3)] = True
+            act[t, :, w] = np.repeat(pts, 3)
+    act[:, list(dead_phases)] = False
+    jrows = lin_rows(jac, torch.tensor(act), True)
+    joint_act = torch.tensor(rng.random((T, joint.n_phases, joint.W)) < 0.9)
+    joint_act &= torch.tensor(joint.row_index.reshape(
+        joint.n_phases, joint.W) >= 0)[None]
+    rows = [lin_rows(joint, joint_act, False), jrows]
+    Pa, Wa = ang.n_phases, ang.W
+    aact = torch.tensor(ang.row_index.reshape(Pa, Wa) >= 0)[None].float()
+    axis = f(T, Pa, 3, Wa)
+    axis = axis / axis.norm(dim=2, keepdim=True)
+    arows = torch.cat([axis * aact[:, :, None],
+                       f(T, Pa, 6, Wa) * 0.1 * aact[:, :, None],
+                       torch.stack([un(0.5, 2.0, T, Pa, Wa),
+                                    f(T, Pa, Wa) * 0.1, f(T, Pa, Wa) * 0.1,
+                                    -un(0.1, 1.0, T, Pa, Wa),
+                                    un(0.1, 1.0, T, Pa, Wa)], dim=2)
+                       * aact[:, :, None]], dim=2).contiguous()
+    sb = torch.zeros(T, plan.CS, 14, BP)
+    n = f(T, plan.CS, 3, B)
+    sb[:, :, 0:3, :B] = n / n.norm(dim=2, keepdim=True)
+    sb[:, :, 3:9, :B] = f(T, plan.CS, 6, B) * 0.1
+    sb[:, :, 9, :B] = un(0.5, 2.0, T, plan.CS, B)
+    sb[:, :, 10, :B] = f(T, plan.CS, B) * 0.1
+    sb[:, :, 11, :B] = torch.minimum(sb[:, :, 10, :B],
+                                     f(T, plan.CS, B) * 0.1)
+    sb[:, :, 12, :B] = -un(0.1, 1.0, T, plan.CS, B)
+    sb[:, :, 13, :B] = un(0.1, 1.0, T, plan.CS, B)
+    mom0 = torch.zeros(T, 6, BP)
+    mom0[:, :, :B] = f(T, 6, B) * 0.1
+    mi = torch.zeros(BP)
+    mi[:B] = torch.tensor(mass)
+    dev = lambda x: x.to(device)
+    return (plan, iterations, iterations_post, dev(mom0), dev(mi), dev(sb),
+            [dev(r) for r in rows], [dev(arows)])
+
+
+# ---------------------------------------------------------------------------
 # the solve: kernel wrapper
 # ---------------------------------------------------------------------------
 
 class _Class(ctypes.Structure):
     _fields_ = [("rows", ctypes.c_void_p), ("ub0", ctypes.c_void_p),
                 ("ub1", ctypes.c_void_p), ("boff", ctypes.c_void_p),
-                ("bent", ctypes.c_void_p), ("U", ctypes.c_int),
-                ("W", ctypes.c_int), ("n_groups", ctypes.c_int),
-                ("friction", ctypes.c_int), ("jacobi", ctypes.c_int),
-                ("n_ent", ctypes.c_int)]
+                ("bent", ctypes.c_void_p), ("jrows", ctypes.c_void_p),
+                ("U", ctypes.c_int), ("W", ctypes.c_int),
+                ("n_groups", ctypes.c_int), ("friction", ctypes.c_int),
+                ("jacobi", ctypes.c_int), ("n_ent", ctypes.c_int)]
 
 
-def _class(c, rows=None, ids=(None, None, None, None)):
-    return _Class(rows, *ids, c.U, c.W, c.n_groups, int(c.friction),
+def _class(c, rows=None, ids=(None, None, None, None), jrows=None):
+    return _Class(rows, *ids, jrows, c.U, c.W, c.n_groups, int(c.friction),
                   int(c.jacobi), len(c.body_ent) if c.jacobi else 0)
 
 
@@ -573,16 +760,8 @@ def _aligned(x):
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
-@kernels.wrapper("pgs_solve")
-def pgs_solve(plan: SolvePlan, iterations: int, iterations_post: int, mom0,
-              mi, singles, lin_rows, ang_rows, cycles=None):
-    """Kernel wrapper: see the module docstring for the layouts.  cycles:
-    an optional (T, 4) int64 CUDA tensor that receives each track's
-    clock64 counts [prologue, sweeps, steps a sweep, active slots]."""
-    if mom0.device.type == "cpu":
-        return pgs_solve_plain(plan, iterations, iterations_post, mom0, mi,
-                               singles, lin_rows, ang_rows)
-    T, _, bp = mom0.shape
+def check_plan(plan: SolvePlan, bp: int):
+    """Raise where the plan lies outside the kernel's limits."""
     if bp > 32 or bp % 2 or len(plan.lin_classes) > MAX_CLASSES \
             or len(plan.ang_classes) > MAX_CLASSES:
         raise ValueError("pgs kernel: at most 32 body slots (an even "
@@ -590,34 +769,67 @@ def pgs_solve(plan: SolvePlan, iterations: int, iterations_post: int, mom0,
     for c in plan.lin_classes + plan.ang_classes:
         wmax = MAX_JACOBI_W if c.jacobi else 32
         if c.W > wmax or c.W % 4 or c.n_groups > MAX_GROUPS \
-                or (c.jacobi and c.n_groups != 1):
+                or (c.jacobi and (c.n_groups != 1 or c.U > MAX_JACOBI_U)):
             raise ValueError(f"pgs kernel: class W={c.W} > {wmax} or not "
                              f"a multiple of 4, or {c.n_groups} groups "
-                             f"(at most {MAX_GROUPS}; a jacobi class one)")
+                             f"(at most {MAX_GROUPS}; a jacobi class one, "
+                             f"of at most {MAX_JACOBI_U} phases)")
+
+
+def kernel_args(plan: SolvePlan, iterations: int, iterations_post: int,
+                mom0, mi, singles, lin_rows, ang_rows, out, cycles=None):
+    """The kernel's argument record for these (checked, contiguous,
+    aligned) tensors and the scratch it needs: (record, the tensors it
+    points to that nothing else holds)."""
+    T, _, bp = mom0.shape
+    dev = mom0.device
+    ids = _unit_ids(plan, dev)
+    a = _Args()
+    a.mom0, a.mi, a.out = mom0.data_ptr(), mi.data_ptr(), out.data_ptr()
+    a.singles = singles.data_ptr() if plan.CS else None
+    a.cycles = cycles.data_ptr() if cycles is not None else None
+    a.T, a.CS, a.BP = T, plan.CS, bp
+    a.iters, a.iters_post = iterations, iterations_post
+    a.n_lin, a.n_ang = len(plan.lin_classes), len(plan.ang_classes)
+    nl = len(plan.lin_classes)
+    keep = []
+    for k, (c, r) in enumerate(zip(plan.lin_classes, lin_rows)):
+        jrows = None
+        if c.jacobi:        # the prologue's compact copy of the rows
+            keep.append(torch.empty((T, c.U * 23 * c.W), device=dev))
+            jrows = keep[-1].data_ptr()
+        a.lin[k] = _class(c, r.data_ptr(), ids[k], jrows)
+    for k, (c, r) in enumerate(zip(plan.ang_classes, ang_rows)):
+        a.ang[k] = _class(c, r.data_ptr(), ids[nl + k])
+    return a, keep
+
+
+@kernels.wrapper("pgs_solve")
+def pgs_solve(plan: SolvePlan, iterations: int, iterations_post: int, mom0,
+              mi, singles, lin_rows, ang_rows, cycles=None):
+    """Kernel wrapper: see the module docstring for the layouts.  cycles:
+    an optional (T, 8) int64 CUDA tensor that receives each track's
+    clock64 counts [prologue, sweeps, steps a sweep, active slots, the
+    sweeps' jacobi groups, the prologue's jacobi compaction, active
+    jacobi units, kept jacobi phases]."""
+    if mom0.device.type == "cpu":
+        return pgs_solve_plain(plan, iterations, iterations_post, mom0, mi,
+                               singles, lin_rows, ang_rows)
+    T, _, bp = mom0.shape
+    check_plan(plan, bp)
     mom0, mi = mom0.contiguous(), mi.contiguous()
     lin_rows = [_aligned(r.contiguous()) for r in lin_rows]
     ang_rows = [_aligned(r.contiguous()) for r in ang_rows]
     singles = _aligned(singles.contiguous()) if plan.CS else None
     dev = kernels.require_cuda(mom0, mi, *lin_rows, *ang_rows,
                                *([singles] if plan.CS else []))
-    out = torch.empty((T, 2, 6, bp), device=dev)
-    ids = _unit_ids(plan, dev)
-    a = _Args()
-    a.mom0, a.mi, a.out = mom0.data_ptr(), mi.data_ptr(), out.data_ptr()
-    a.singles = singles.data_ptr() if plan.CS else None
     if cycles is not None:
         kernels.require_cuda(cycles)
-        if cycles.shape != (T, 4) or cycles.dtype != torch.int64:
-            raise ValueError("cycles: a (T, 4) int64 tensor")
-        a.cycles = cycles.data_ptr()
-    a.T, a.CS, a.BP = T, plan.CS, bp
-    a.iters, a.iters_post = iterations, iterations_post
-    a.n_lin, a.n_ang = len(plan.lin_classes), len(plan.ang_classes)
-    nl = len(plan.lin_classes)
-    for k, (c, r) in enumerate(zip(plan.lin_classes, lin_rows)):
-        a.lin[k] = _class(c, r.data_ptr(), ids[k])
-    for k, (c, r) in enumerate(zip(plan.ang_classes, ang_rows)):
-        a.ang[k] = _class(c, r.data_ptr(), ids[nl + k])
+        if cycles.shape != (T, 8) or cycles.dtype != torch.int64:
+            raise ValueError("cycles: a (T, 8) int64 tensor")
+    out = torch.empty((T, 2, 6, bp), device=dev)
+    a, _scratch = kernel_args(plan, iterations, iterations_post, mom0, mi,
+                              singles, lin_rows, ang_rows, out, cycles)
     kernels.launch("pgs_solve", kernels.library().hts_pgs_solve, dev,
                    ctypes.byref(a))
     pgs_solve.launches += 1

@@ -82,6 +82,7 @@ class SweepRows(NamedTuple):
     lf: torch.Tensor      # (T, Rl, LW)
     af: torch.Tensor      # (T, Ra, AW)
     jmax: int = 0         # rows of the largest jacobi phase (0: none)
+    jlev: int = 0         # jacobi phases (a track's jacobi levels, at most)
 
     @property
     def lm(self):
@@ -193,7 +194,7 @@ def sweep_rows(lin_blocks, ang_blocks, T, device) -> SweepRows:
     aidx = torch.as_tensor(np.nonzero(_live(am))[0], device=device)
     return SweepRows(_with_meta(lf, lm, LW),
                      _with_meta(af[:, aidx], am[:, aidx], AW),
-                     int(sizes.max()) if len(sizes) else 0)
+                     int(sizes.max()) if len(sizes) else 0, len(sizes))
 
 
 def jacobi_phases(lm):
@@ -226,6 +227,13 @@ class WaveSchedule(NamedTuple):
     lm: torch.Tensor          # (T, Rl) int32 lm[t, lin_perm[t]], master
                               #   positions remapped to that order
     lin_jac: torch.Tensor     # (T, Rl) bool: a jacobi row, in that order
+    jac_slot: torch.Tensor    # (T, Rl, 2) int64: an active jacobi row's
+                              #   delta slots [side 1, side 0] in its
+                              #   level, in that order (-1: none, a world
+                              #   side or another row)
+    jac_off: torch.Tensor     # (T, L, MAX_B + 1) int64: each linear level's
+                              #   per-body first slots (0 but in a jacobi
+                              #   level), the last column its slot count
 
 
 def _levels(meta, friction):
@@ -319,7 +327,43 @@ def wave_schedule(lm, am) -> WaveSchedule:
     nm = torch.where(m >= 0, torch.gather(inv, 1, m.clamp(min=0)), -1)
     meta = (meta & 0x1FFFF) | ((nm + 1) << 17).to(torch.int32)
     jac = torch.gather(jacobi_phases(lm) >= 0, 1, perm_l)
-    return WaveSchedule(lvl_l, lvl_a, perm_l, perm_a, meta, jac)
+    slot, off = _jacobi_slots(meta, torch.gather(lvl_l, 1, perm_l), jac)
+    return WaveSchedule(lvl_l, lvl_a, perm_l, perm_a, meta, jac, slot, off)
+
+
+def _jacobi_slots(meta, level, jac):
+    """The kernel's delta slots of the jacobi levels (its prologue's stable
+    counting pass by body): meta, level (T, R) and jac (T, R) bool of the
+    linear rows in level order.  Each active jacobi row's two sides (side
+    1 then side 0; a world side takes none) are entries of its level,
+    ordered by body and, within a body, by position: an entry's slot is
+    its rank in that order.  Returns (slot (T, R, 2), off (T, L, MAX_B +
+    1)) as WaveSchedule's jac_slot and jac_off."""
+    T, R = meta.shape
+    dev = meta.device
+    m = meta.to(torch.int64)
+    body = torch.stack([((m >> 8) & 0xFF) - 1, (m & 0xFF) - 1], dim=-1)
+    ok = ((jac & (((m >> 16) & 1) == 1))[..., None] & (body >= 0))
+    L = int(level.amax()) if level.numel() else 0
+    lv = (level - 1).clamp(min=0)[..., None].expand(T, R, 2)
+    cell = lv * (MAX_B + 1) + body.clamp(min=0)          # (level, body)
+    pos = torch.arange(R, device=dev)[None, :, None].expand(T, R, 2)
+    big = L * (MAX_B + 1) * R
+    key = torch.where(ok, cell * R + pos, big).reshape(T, 2 * R)
+    order = torch.argsort(key, dim=1)
+    rank = torch.empty_like(order)
+    rank.scatter_(1, order, torch.arange(2 * R, device=dev).expand(T, 2 * R))
+    okf = ok.reshape(T, 2 * R).to(torch.int64)
+    per_cell = torch.zeros((T, max(L, 1) * (MAX_B + 1)), dtype=torch.int64,
+                           device=dev)
+    per_cell.scatter_add_(1, torch.where(ok, cell, 0).reshape(T, 2 * R), okf)
+    per_cell = per_cell.view(T, max(L, 1), MAX_B + 1)
+    per_lev = per_cell.sum(-1)                              # (T, L)
+    start = torch.cumsum(per_lev, 1) - per_lev              # sorted order
+    slot = rank - torch.gather(start, 1, lv.reshape(T, 2 * R))
+    slot = torch.where(ok.reshape(T, 2 * R), slot, -1).view(T, R, 2)
+    off = torch.cumsum(per_cell, -1) - per_cell   # column MAX_B: no body
+    return slot, off[:, :L]
 
 
 def synthetic_rows(T: int, Rl: int, Ra: int, B: int, seed: int,
@@ -412,6 +456,29 @@ def _ordered_add(mom, slots, deltas, ok, B):
         acc = dk if k == 0 else torch.where((k < cnt)[..., None], acc + dk,
                                             acc)
     m = mom.view(T, B + 1, 6)
+    m.copy_(torch.where((cnt > 0)[..., None], m + acc, m))
+
+
+def _slot_add(mom, deltas, slot, off, B):
+    """A jacobi level as the kernel applies it: each entry's deltas
+    (T, E, 6) to its slot (T, E; -1 none), then each body b adds its slots
+    off[:, b] .. off[:, b + 1] - 1 in order and applies the sum once.  mom
+    (T * (B + 1), 6), off (T, MAX_B + 1)."""
+    T, E = slot.shape
+    n = int(off[:, MAX_B].max()) if T else 0
+    table = deltas.new_zeros((T, n + 1, 6))          # slot n: the unused
+    table.scatter_(1, torch.where(slot >= 0, slot, n)[..., None]
+                   .expand(T, E, 6), deltas)
+    first, cnt = off[:, :B], off[:, 1:B + 1] - off[:, :B]
+    K = int(cnt.max()) if cnt.numel() else 0
+    if K == 0:
+        return
+    for k in range(K):
+        at = torch.where(k < cnt, first + k, n)
+        dk = torch.gather(table, 1, at[..., None].expand(T, B, 6))
+        acc = dk if k == 0 else torch.where((k < cnt)[..., None], acc + dk,
+                                            acc)
+    m = mom.view(T, B + 1, 6)[:, :B]
     m.copy_(torch.where((cnt > 0)[..., None], m + acc, m))
 
 
@@ -648,24 +715,27 @@ def row_sweep_waves(mom0, massinv, rows: SweepRows, iterations: int,
                                        dtype=torch.int64)], dim=1)
     lt["jac"] = torch.cat([ws.lin_jac, torch.zeros((T, 1), device=dev,
                                                    dtype=torch.bool)], dim=1)
+    lt["jslot"] = torch.cat([ws.jac_slot, torch.full(
+        (T, 1, 2), -1, dtype=torch.int64, device=dev)], dim=1)
     ax, aK0, aK1 = af[..., 0:3], af[..., 3:6], af[..., 6:9]
     z3 = torch.zeros_like(ax)
     at = _wave_tables(af[..., :NAF], torch.gather(rows.am, 1, ws.ang_perm)
                       .to(torch.int64), B, T, base, mi, (z3, aK1, z3, aK0),
                       (z3, ax, z3, -ax))
     lin = []
-    for P in _level_steps(ws.lin_level, ws.lin_perm, Rl):
+    for lv, P in enumerate(_level_steps(ws.lin_level, ws.lin_perm, Rl)):
         x = _at(lt, P)
         f = x["f"].permute(2, 0, 1)                        # (F, T, W)
         fr = x["mpos"] >= 0
         act = x["act"]
-        jac = bool(x["jac"].any())
-        real = (x["idx"] - base[..., None] != B) & act[..., None]
+        jac = None
+        if bool(x["jac"].any()):    # a jacobi level on some track
+            jac = (x["jac"], x["jslot"].reshape(T, -1), ws.jac_off[:, lv])
         lin.append((P, x["idx"].reshape(-1), x["C"], x["D"], x["MI"],
                     None if bool(act.all()) else act, (-f[16], -f[17]),
                     f[15], f[18], f[19], f[20],
                     fr if bool(fr.any()) else None, x["mpos"].clamp(min=0),
-                    real.reshape(T, -1) if jac else None))
+                    jac))
     ang = []
     for P in _level_steps(ws.ang_level, ws.ang_perm, Ra):
         x = _at(at, P)
@@ -700,11 +770,14 @@ def row_sweep_waves(mom0, massinv, rows: SweepRows, iterations: int,
             if act is not None:
                 imp = torch.where(act, imp, zero)
             isum.scatter_(1, P, own + imp)
-            if jac is not None:         # a jacobi phase's level
-                _ordered_add(mom, idx.view(T, 2 * W),
-                             (imp[..., None] * D).view(T, 2 * W, 6), jac, B)
+            d = imp[..., None] * D
+            if jac is not None:         # a jacobi phase's level on some
+                jm, slot, off = jac     # track: its rows by their slots
+                mom.index_add_(0, idx, torch.where(jm[..., None], 0.0, d)
+                               .view(-1, 6))
+                _slot_add(mom, d.view(T, 2 * W, 6), slot, off, B)
                 continue
-            mom.index_add_(0, idx, (imp[..., None] * D).view(-1, 6))
+            mom.index_add_(0, idx, d.view(-1, 6))
         for P, idx, C, D, ts, stt, lo, hi, amask in ang:
             W = P.shape[1]
             p = (mom[idx].view(T, W, 12) * C).view(T, W, 4, 3)
@@ -733,7 +806,7 @@ class _Args(ctypes.Structure):
                 ("T", ctypes.c_int), ("B", ctypes.c_int),
                 ("n_lin", ctypes.c_int), ("n_ang", ctypes.c_int),
                 ("iters", ctypes.c_int), ("iters_post", ctypes.c_int),
-                ("jmax", ctypes.c_int)]
+                ("jmax", ctypes.c_int), ("jlev", ctypes.c_int)]
 
 
 REC = 24                 # floats of a row's record in the kernel's stream
@@ -743,8 +816,10 @@ REC = 24                 # floats of a row's record in the kernel's stream
 def row_sweep(mom0, massinv, rows: SweepRows, iterations: int,
               iterations_post: int, cycles=None):
     """Kernel wrapper: see the module docstring for the layouts.  cycles:
-    an optional (T, 4) int64 CUDA tensor that receives each track's
-    clock64 counts [prologue, sweeps, level steps a sweep, active rows]."""
+    an optional (T, 8) int64 CUDA tensor that receives each track's
+    clock64 counts [prologue, sweeps, level steps a sweep, active rows,
+    the prologue's levelling, its placement and copies, the sweeps'
+    jacobi levels, jacobi levels]."""
     if mom0.device.type == "cpu":
         return row_sweep_waves(mom0, massinv, rows, iterations,
                                iterations_post)
@@ -769,13 +844,13 @@ def row_sweep(mom0, massinv, rows: SweepRows, iterations: int,
     cyc = 0
     if cycles is not None:
         kernels.require_cuda(cycles)
-        if cycles.shape != (T, 4) or cycles.dtype != torch.int64:
-            raise ValueError("cycles: a (T, 4) int64 tensor")
+        if cycles.shape != (T, 8) or cycles.dtype != torch.int64:
+            raise ValueError("cycles: a (T, 8) int64 tensor")
         cyc = cycles.data_ptr()
     a = _Args(mom0.data_ptr(), massinv.data_ptr(), lf.data_ptr(),
               af.data_ptr(), stream.data_ptr(), steps.data_ptr(),
               out.data_ptr(), cyc, T, B,
-              Rl, Ra, iterations, iterations_post, rows.jmax)
+              Rl, Ra, iterations, iterations_post, rows.jmax, rows.jlev)
     kernels.launch("row_sweep", kernels.library().hts_row_sweep, dev,
                    ctypes.byref(a))
     row_sweep.launches += 1
@@ -788,6 +863,6 @@ def occupancy(rows: SweepRows, B: int, device) -> int:
     """Tracks (blocks) an SM of card `device` holds at once for these rows
     (a measurement; 0 if the kernel cannot hold them)."""
     a = _Args(B=B, n_lin=rows.lf.shape[1], n_ang=rows.af.shape[1],
-              jmax=rows.jmax)
+              jmax=rows.jmax, jlev=rows.jlev)
     return kernels.on_device(kernels.library().hts_row_sweep_occupancy,
                              device, ctypes.byref(a))

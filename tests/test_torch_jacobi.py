@@ -28,9 +28,11 @@ writes it.
 
 The row sweep's jacobi levels and the PGS kernel's jacobi class are held
 to their plain versions here as the CPU can: row_sweep_waves (the kernel's
-wavefront order) equals row_sweep_plain (row order) bit for bit on jacobi
-rows, and the jacobi plan's per-body lists cover every (unit, side)
-once."""
+wavefront order, a jacobi level's deltas summed by the per-body slots of
+WaveSchedule) equals row_sweep_plain (row order) bit for bit on jacobi
+rows, the slots give each body its rows' sides in row order, and the
+jacobi plan's per-body lists cover every (unit, side) once
+(tests/test_torch_pgs_jacobi.py holds the PGS kernel's jacobi order)."""
 import hashlib
 import json
 import os
@@ -259,21 +261,27 @@ def _colored_jacobi_rows(model, poses):
     return mom0, bp.massinv, rows
 
 
+def _sweep_cases(hand_model, port):
+    """The colored jacobi rows of the contact poses and seeded synthetic
+    jacobi rows (row_sweep.synthetic_rows with jacobi units: pairs sharing
+    bodies, world sides, friction masters in earlier phases, inactive
+    rows): (mom0, massinv, rows) each."""
+    from hand_tracking_samples_tpu_torch.physics.row_sweep import (
+        synthetic_rows)
+    poses, _ = _contact_inputs(hand_model)
+    cases = [_colored_jacobi_rows(port, poses)]
+    return cases + [synthetic_rows(3, 120, 20, 17, k, jacobi=24)
+                    for k in (0, 1)]
+
+
 def test_row_sweep_jacobi_waves_exact(hand_model, port):
     """row_sweep_waves (the kernel's order: a jacobi phase one level, every
     row of it on the momenta at the level's start, each body's deltas
     added in row order) equals row_sweep_plain (row order) bit for bit, on
-    the colored jacobi rows of the contact poses and on seeded synthetic
-    jacobi rows (row_sweep.synthetic_rows with jacobi units: pairs sharing
-    bodies, world sides, friction masters in earlier phases, inactive
-    rows)."""
+    _sweep_cases."""
     from hand_tracking_samples_tpu_torch.physics.row_sweep import (
-        jacobi_phases, row_sweep_plain, row_sweep_waves, synthetic_rows,
-        wave_schedule)
-    poses, _ = _contact_inputs(hand_model)
-    cases = [_colored_jacobi_rows(port, poses)]
-    cases += [synthetic_rows(3, 120, 20, 17, k, jacobi=24) for k in (0, 1)]
-    for mom0, mi, rows in cases:
+        jacobi_phases, row_sweep_plain, row_sweep_waves, wave_schedule)
+    for mom0, mi, rows in _sweep_cases(hand_model, port):
         ph = jacobi_phases(rows.lm)
         act = ((rows.lm >> 16) & 1) == 1
         assert bool((act & (ph >= 0)).any())        # active jacobi rows
@@ -291,6 +299,49 @@ def test_row_sweep_jacobi_waves_exact(hand_model, port):
         b = row_sweep_waves(mom0, mi, rows, 5, 2)
         assert torch.equal(a, b)
         assert not torch.equal(a[:, 1], mom0)
+
+
+def test_row_sweep_jacobi_slots(hand_model, port):
+    """The row sweep kernel's per-body jacobi lists (WaveSchedule.jac_slot
+    and jac_off, the prologue's stable counting pass by body) on
+    _sweep_cases: in each jacobi level, body b's entries (an active row's
+    side on b) hold the slots jac_off[b] .. jac_off[b + 1] - 1 in row
+    order, every slot once, world sides and other rows none; the level
+    count of each track is at most rows.jlev (the kernel's table)."""
+    from hand_tracking_samples_tpu_torch.physics.row_sweep import (
+        MAX_B, wave_schedule)
+    for mom0, mi, rows in _sweep_cases(hand_model, port):
+        ws = wave_schedule(rows.lm, rows.am)
+        lvl = torch.gather(ws.lin_level, 1, ws.lin_perm)
+        m = ws.lm.to(torch.int64)
+        act = ((m >> 16) & 1) == 1
+        sides = torch.stack([((m >> 8) & 0xFF) - 1, (m & 0xFF) - 1], -1)
+        levels = 0
+        for t in range(m.shape[0]):
+            jl = lvl[t][ws.lin_jac[t] & act[t]].unique()
+            levels = max(levels, len(jl))
+            for lv in range(1, int(lvl[t].max()) + 1):
+                sel = (lvl[t] == lv) & act[t]
+                off = ws.jac_off[t, lv - 1]
+                if lv not in jl.tolist():
+                    assert not bool((ws.jac_slot[t][lvl[t] == lv] >= 0)
+                                    .any())
+                    assert not bool(off.any())
+                    continue
+                assert bool(ws.lin_jac[t][sel].all())
+                n = 0
+                for b in range(MAX_B):
+                    rows_b = [(r, s) for r in sel.nonzero()[:, 0].tolist()
+                              for s in (0, 1)
+                              if int(sides[t, r, s]) == b]
+                    slots = [int(ws.jac_slot[t, r, s]) for r, s in rows_b]
+                    assert slots == list(range(int(off[b]),
+                                               int(off[b + 1])))
+                    n += len(slots)
+                assert n == int(off[MAX_B])
+                world = sel[:, None] & (sides[t] < 0)
+                assert bool((ws.jac_slot[t][world] == -1).all())
+        assert 0 < levels <= rows.jlev
 
 
 def test_pgs_jacobi_plan_body_lists():
