@@ -10,7 +10,10 @@ Phases, each printing one line with its elapsed seconds:
      redesigned kernels (the row sweep, PGS, cloud-rows pack, contact,
      correspondence, cloud, vals and unpacked-rows kernels; the PGS kernel
      and the row sweep as two instances each, exact and jacobi); the last
-     five (NO_SPILL) must use no stack and spill nothing
+     five (NO_SPILL) must use no stack and spill nothing; the staged cloud
+     kernel's five instances (cloud_stage_kernel<0-4>) with the launch
+     each takes at 320x240 (cluster size C, staged, its CTA's shared
+     memory, cudaOccupancyMaxActiveClusters)
   2. the card's name and power limit, as nvidia-smi reports them
   3. each of the four kernels against its plain PyTorch version at T=4
      tracks, one frame, full width (the cloud kernel, kernel 2 and the
@@ -207,14 +210,17 @@ Phases, each printing one line with its elapsed seconds:
      2-track CPU re-run; if T=512 does not fit, the peak it reached and
      the T that fits)
  22. the tools (hand_tracking_samples_tpu_torch.tools): the profiling
-     kernels of csrc/prof_cloud.cu (the cloud kernel cut after each stage
-     0-4, the sum kernel at 1-16 tracks a block and a track a block)
+     kernels of csrc/prof_cloud.cu (the staged cloud kernel cut after each
+     stage 0-4, the sum kernel at 1-16 tracks a block and a track a block)
      against their plain versions at T=4 on phase 4's renders and on
-     seeded rasters, then driven through their tools (prof_cloud_kernel,
-     prof_cloud_mt, prof_cloud_pre at T=512, one frame: every stage and
-     every tracks-a-block launched), then timed at T=512 on phase 4's
-     renders beside their plain versions, their bounds and the PyTorch sum
-     (stages 1-4 equal, stage 0 and the sums within P22_SUM_REL); then
+     seeded rasters, the stages also at frac P22_FRACS on seeded rasters
+     that keep 0, more than, exactly and fewer than the budget and on the
+     renders at budgets 2048 and 8192 (empty slots), then driven through
+     their tools (prof_cloud_kernel, prof_cloud_mt, prof_cloud_pre at
+     T=512, one frame: every stage and every tracks-a-block launched),
+     then timed at T=512 on phase 4's renders beside their plain versions,
+     their bounds and the PyTorch sum (for the sums and stage 0) (stages
+     1-4 equal, stage 0 and the sums within P22_SUM_REL); then
      every ported tool as a subprocess on the card at a small size
      (P22_FIRST alone, then P22_TOOLS, then P22_LAST), each exiting 0
      with its expected line: eval_fastdrift --tracks 8 held to phase 19's
@@ -244,6 +250,7 @@ and T=512.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import glob
 import json
 import os
@@ -482,6 +489,7 @@ P22_TRK = (1, 2, 4, 8, 16)
 P22_SUMS = {**{f"group_sum[trk={k}]": "tools/prof_cloud_mt.py:35"
                for k in P22_TRK}, "track_sum": "tools/prof_cloud_pre.py:29"}
 P22_SUM_REL = 1e-6
+P22_FRACS = (1, 3, 4, 5, 16)     # the stages' fracs at T=4
 P22_PATH_ENV = dict(PROF_TRACKS="512", PROF_FRAMES="1", PROF_REPS="1")
 P22_WORKERS = 8           # tool subprocesses at a time
 # Three batches of tool subprocesses: prof_full at T=512, alone on the
@@ -4555,7 +4563,8 @@ class Smoke:
         out = {}
         calls = [(f"cloud_stage[{s}]", (lambda s=s: pk.cloud_stage(
             draw, scal, s)), (lambda s=s: pk.stage_plain(draw, scal, s)),
-            None, P22_SUM_REL if s == 0 else 0, draw.numel() * 4
+            (lambda: (draw * scal[2]).sum((-2, -1))) if s == 0 else None,
+            P22_SUM_REL if s == 0 else 0, draw.numel() * 4
             + T * pk.BUDGET * 8 * 4, draw.numel() * (2 if s == 0 else 4))
             for s in range(5)]
         for trk in P22_TRK:
@@ -4589,19 +4598,41 @@ class Smoke:
         return out
 
     def p22_small(self):
-        """At T=4 on phase 4's renders and on seeded rasters."""
+        """At T=4 on phase 4's renders and on seeded rasters; then the
+        stages at each frac of P22_FRACS on seeded rasters keeping 0, more
+        than, exactly and fewer than the budget (synthetic_depths' kinds
+        0-3) and on the renders at budgets 2048 and 8192."""
         from hand_tracking_samples_tpu_torch.ops.cloud_kernel import (
             depth_tensor, synthetic_depths)
+        from hand_tracking_samples_tpu_torch.tools import (
+            prof_cloud_kernel as pk)
         from hand_tracking_samples_tpu_torch.tools.common import to_raster
         errs = {}
-        for label, depth in (
-                ("renders", self.depth_frame(0, 4)),
-                ("seeded", depth_tensor(synthetic_depths(
-                    4, 240, 320, seed=22), self.dev))):
-            for k, v in self.p22_compare(to_raster(depth), label).items():
+        renders = to_raster(self.depth_frame(0, 4))
+        for label, draw in (
+                ("renders", renders),
+                ("seeded", to_raster(depth_tensor(synthetic_depths(
+                    4, 240, 320, seed=22), self.dev)))):
+            for k, v in self.p22_compare(draw, label).items():
                 errs[k] = max(errs.get(k, 0.0), v)
+        scal, n = pk.scalars(), 0
+        for frac in P22_FRACS:
+            seeded = to_raster(depth_tensor(synthetic_depths(
+                4, 240, 320, seed=22 + frac, frac=frac), self.dev))
+            for label, draw, budget in (("seeded", seeded, pk.BUDGET),
+                                        ("renders", renders, pk.BUDGET),
+                                        ("renders", renders, 8192)):
+                for st in range(5):
+                    name = f"cloud_stage[{st}]"
+                    errs[name] = max(errs[name], self.p22_hold(
+                        f"{name} {label} frac {frac} budget {budget}",
+                        pk.cloud_stage(draw, scal, st, budget, frac),
+                        pk.stage_plain(draw, scal, st, budget, frac),
+                        P22_SUM_REL if st == 0 else 0))
+                    n += 1
         self.p22["t4_max_abs_err"] = errs
-        return f"{len(errs)} kernels held, largest error {max(errs.values())}"
+        return (f"{len(errs)} kernels held, then {n} stage launches at "
+                f"fracs {P22_FRACS}; largest error {max(errs.values())}")
 
     def p22_path(self):
         """The tools' path: prof_cloud_kernel (stages 0-4), prof_cloud_mt
@@ -4806,6 +4837,21 @@ def main(argv=None) -> int:
             info.get("log", "")).items()
             if any(n in k for n in REDESIGNED)}
         record["ptxas"] = ptx
+        stage_ptx = {k: v for k, v in kernels.ptxas_summary(
+            info.get("log", "")).items() if "cloud_stage_kernel" in k}
+        launch, res = {}, (ctypes.c_int * 5)()     # at 320x240, S = 2048
+        for st in range(5):
+            kernels.check(kernels.library().hts_cloud_stage_config(
+                240 * 320, 4, 2048, st, 0, -1, res), "cloud_stage_config")
+            launch[st] = dict(zip(("C", "staged", "smem",
+                                   "max_active_clusters", "thin32"), res))
+        record["cloud_stage"] = dict(ptxas=stage_ptx, launch=launch)
+        if info["built"]:
+            check(len(stage_ptx) == 5, f"ptxas: the stage kernel's five "
+                  f"instances: {list(stage_ptx)}")
+        check(all(c["C"] > 1 and c["max_active_clusters"] > 0
+                  for c in launch.values()),
+              f"the stage kernel's launch at 320x240: {launch}")
         if info["built"]:        # a reused library has no log to read
             pgs = [k for k in ptx if "pgs_kernel" in k]
             check(len(pgs) == 2, f"ptxas: the PGS kernel's two instances "
@@ -4820,7 +4866,8 @@ def main(argv=None) -> int:
         return (f"{'built' if info['built'] else 'reused'} "
                 f"{os.path.relpath(info['path'], REPO)} in "
                 f"{info['seconds']:.1f} s; ptxas -v: " + "; ".join(
-                    f"{k} {v}" for k, v in ptx.items()))
+                    f"{k} {v}" for k, v in {**ptx, **stage_ptx}.items())
+                + f"; cloud_stage launch at 320x240 by stage: {launch}")
     phase(1, "build", build)
 
     smi = {}

@@ -159,7 +159,9 @@ def _declare(lib):
     lib.hts_row_sweep.argtypes = [P, P]
     lib.hts_row_sweep_occupancy.argtypes = [P]
     lib.hts_pgs_occupancy.argtypes = [P]
-    lib.hts_cloud_stage.argtypes = [P, P, I, I, I, I, I, I, F, F, F, P]
+    lib.hts_cloud_stage.argtypes = [P, P, I, I, I, I, ctypes.c_uint, I,
+                                    I, I, F, F, F, I, I, P, P]
+    lib.hts_cloud_stage_config.argtypes = [I] * 6 + [P]
     lib.hts_group_sum.argtypes = [P, P, I, ctypes.c_longlong, F, P]
     for fn in (lib.hts_cloud_from_depth, lib.hts_cloud_rows_solve,
                lib.hts_cloud_rows_packed, lib.hts_cloud_rows_unpacked,
@@ -168,6 +170,7 @@ def _declare(lib):
                lib.hts_pgs_solve, lib.hts_correspondence,
                lib.hts_row_sweep, lib.hts_row_sweep_occupancy,
                lib.hts_pgs_occupancy, lib.hts_cloud_stage,
+               lib.hts_cloud_stage_config,
                lib.hts_group_sum):
         fn.restype = ctypes.c_int
 

@@ -1,18 +1,22 @@
-"""Stage-cost attribution inside the cloud kernel (the port's counterpart of
-tools/prof_cloud_kernel.py).
+"""Stage-cost attribution inside the point-cloud algorithm (the port's
+counterpart of tools/prof_cloud_kernel.py).
 
-Times the cloud kernel cut after each of its stages (csrc/prof_cloud.cu
-cloud_stage_kernel<STAGE>; each writes a value that depends on everything
-before the cut) at T tracks over F frames of the JAX tool's renders:
-  stage 0: load + one reduction: the launch and read floor
-  stage 1: + the valid count and ranks (pass 1 and its scan)
-  stage 2: + the compaction (the kept pixels read again)
-  stage 3: + the slot pick (the TPU's one-hot row pick)
-  stage 4: the full output (px, py, z, ok) a slot
+Times the staged cloud kernel of csrc/prof_cloud.cu cut after each of its
+passes (cloud_stage_kernel<STAGE>, a cluster of CTAs a track, each CTA's
+slice of rows copied into shared memory once; each stage writes a value
+that depends on everything before the cut) at T tracks over F frames of
+the JAX tool's renders:
+  stage 0: the copy into shared memory and one reduction: the read floor
+  stage 1: + the valid masks, the row scan and the cluster's exchange of
+           valid totals
+  stage 2: + a pass over the kept pixels (the compaction's sum)
+  stage 3: + the slot pick (the TPU's one-hot row pick), slot-major
+  stage 4: the full output (px, py, z, ok) a slot, slot-major
   stage 5: the real path, ops.cloud_kernel.cloud_from_depth_planes with its
-           deprojection
-Each frame converts its u16 rasters to f32 (T, 600, 128), as the JAX tool
-does inside its scan.
+           deprojection (kernel 1, csrc/cloud_kernel.cu, one block a track)
+Stages 0-4 thus attribute the staged design, not kernel 1's passes.  Each
+frame converts its u16 rasters to f32 (T, 600, 128), as the JAX tool does
+inside its scan.
 
     PROF_TRACKS=512 python -m hand_tracking_samples_tpu_torch.tools.prof_cloud_kernel [stage ...]
     PROF_TRACKS=2 PROF_FRAMES=1 python -m hand_tracking_samples_tpu_torch.tools.prof_cloud_kernel --device cpu
@@ -41,6 +45,19 @@ def scalars(lo=0.1, hi=0.7, scale=0.001):
     """The JAX tool's scalar row: (lo, hi, scale, 0, 0, 0, 0, 0) as
     float32 values."""
     return [float(np.float32(x)) for x in (lo, hi, scale)] + [0.0] * 5
+
+
+def frac_divisor(frac: int):
+    """(mul, shift) with floor(n / frac) == n >> shift when mul == 0 (a
+    power-of-two frac), else (n * mul) >> (32 + shift), for every
+    0 <= n < 2^21 (ranks below 2^20 plus frac - 1): mul =
+    ceil(2^(32+shift) / frac), shift = floor(log2 frac), a 32-bit
+    multiply-high and a shift in the kernel (checked exhaustively by
+    tests/test_torch_prof_cloud_order.py)."""
+    shift = frac.bit_length() - 1
+    if frac & (frac - 1) == 0:
+        return 0, shift
+    return -(-(1 << (32 + shift)) // frac), shift
 
 
 def _ceil_div(x, f: int):
@@ -125,7 +142,10 @@ def stage_plain(draw, scal, stage: int, budget: int = BUDGET,
 def cloud_stage(draw, scal, stage: int, budget: int = BUDGET,
                 frac: int = FRAC, W: int = WIDTH):
     """The stage kernel's wrapper: on a CUDA tensor one launch of
-    cloud_stage_kernel<stage> (one block a track), on a CPU tensor
+    cloud_stage_kernel<stage>, a cluster of 8 CTAs a track (each CTA's
+    slice of R/8 rows copied into shared memory where it fits, up to 435
+    rows, i.e. rasters up to 445,440 pixels, else read from device
+    memory; past 2^20 pixels the wrapper raises), on a CPU tensor
     stage_plain.  `kinds` counts the launches by stage."""
     if draw.device.type == "cpu":
         return stage_plain(draw, scal, stage, budget, frac, W)
@@ -135,7 +155,8 @@ def cloud_stage(draw, scal, stage: int, budget: int = BUDGET,
     out = torch.empty((T, budget, 8), dtype=torch.float32, device=dev)
     kernels.launch("cloud_stage", kernels.library().hts_cloud_stage, dev,
                    draw.data_ptr(), out.data_ptr(), T, R * 128, W, frac,
-                   budget, stage, lo, hi, scale)
+                   *frac_divisor(frac), budget, stage, lo, hi, scale,
+                   0, -1, 0)
     cloud_stage.launches += 1
     cloud_stage.kinds[stage] = cloud_stage.kinds.get(stage, 0) + 1
     return out
