@@ -1,0 +1,9 @@
+"""Device time a CNN frame of the reset branch (PoseFromScratch, the
+UnibodyFits), ms, charged by launch stack through layers/*.json."""
+
+
+def read(run):
+    if run.trace is None or run.trace.cnn_frames == 0:
+        return None
+    us = run.trace.layer_us.get("reset", 0.0)
+    return us / 1e3 / run.trace.cnn_frames if us > 0 else None
